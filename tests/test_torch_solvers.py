@@ -1,0 +1,147 @@
+"""Krylov and multigrid solvers of the PyTorch package against the JAX
+package: CG iteration counts on an f64 SPD structured problem, the
+power-iteration lam_max from the same start vector, and one V-cycle of
+the f64 multigrid hierarchy (rtol 1e-10)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dealii_adapter_tpu.fem.dofspace import DofSpace as JaxDofSpace
+from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jax_grid
+from dealii_adapter_tpu.ops.structured import (
+    make_structured_operator as jax_structured,
+)
+from dealii_adapter_tpu.solvers import cg as jcg
+from dealii_adapter_tpu.solvers.multigrid import GeometricMultigrid as JaxMG
+from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
+from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
+from dealii_adapter_tpu_torch.ops.element_ops import (
+    ElementMatrices,
+    assemble_dense,
+    assemble_diagonal,
+)
+from dealii_adapter_tpu_torch.ops.structured import make_structured_operator
+from dealii_adapter_tpu_torch.solvers import cg as tcg
+from dealii_adapter_tpu_torch.solvers.direct import DenseCholesky
+from dealii_adapter_tpu_torch.solvers.multigrid import GeometricMultigrid
+
+torch.set_num_threads(1)
+MU, NU, RHO = 0.5e6, 0.4, 1000.0
+LAM = 2 * MU * NU / (1 - 2 * NU)
+A1 = 1.0 / (0.25 * 0.01**2)  # Newmark alpha_1 at dt = 0.01
+
+
+def _problem(dim, degree, scale=1):
+    """Masked K + alpha_1 M on the PF flap, in both packages (f64)."""
+    jm, jtags = jax_grid("PF", dim, degree, scale=scale, solver="neo-Hookean")
+    tm, ttags = make_scenario_grid("PF", dim, degree, scale=scale,
+                                   solver="neo-Hookean")
+    js, ts = JaxDofSpace.create(jm), DofSpace.create(tm)
+    el = ElementMatrices(ts, LAM, MU, RHO)
+    E = el.K_e + A1 * el.M_e
+    mask_np = ts.dirichlet_mask(ttags["clamped"], ttags.get("out_of_plane"))
+    diag_np = mask_np * assemble_diagonal(ts, E) + (1 - mask_np)
+
+    jop_raw = jax_structured(js, E, jnp.float64)
+    jmask = jnp.asarray(mask_np)
+
+    def jop(v):
+        return jmask * jop_raw(jmask * v) + (1 - jmask) * v
+
+    top_raw = make_structured_operator(ts, E, torch.float64)
+    tmask = torch.as_tensor(mask_np)
+
+    def top(v):
+        return tmask * top_raw(tmask * v) + (1 - tmask) * v
+
+    return dict(
+        jm=jm, jtags=jtags, tm=tm, ttags=ttags, ts=ts, E=E, el=el,
+        jop=jop, top=top, jmask=jmask, tmask=tmask,
+        jdiag=jnp.asarray(diag_np), tdiag=torch.as_tensor(diag_np),
+    )
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "chebyshev"])
+def test_cg_iterations_match_jax(precond):
+    P = _problem(3, 2)
+    rng = np.random.default_rng(0)
+    b = np.asarray(P["tmask"]) * rng.standard_normal((P["ts"].n_nodes, 3))
+    tol = 1e-8 * np.linalg.norm(b)
+    if precond == "jacobi":
+        jM = jcg.jacobi_preconditioner(P["jdiag"])
+        tM = tcg.jacobi_preconditioner(P["tdiag"])
+    else:
+        # one bound for both packages: the polynomial is what is compared
+        lam = 1.1 * float(jcg.estimate_lambda_max(P["jop"], P["jdiag"], b.shape))
+        jM = jcg.chebyshev_preconditioner(P["jop"], P["jdiag"], lam, degree=3)
+        tM = tcg.chebyshev_preconditioner(P["top"], P["tdiag"], lam, degree=3)
+    jr = jcg.cg_solve(P["jop"], jnp.asarray(b), jnp.zeros_like(jnp.asarray(b)),
+                      tol=tol, max_iter=5000, preconditioner=jM)
+    tr = tcg.cg_solve(P["top"], torch.as_tensor(b), torch.zeros(b.shape,
+                      dtype=torch.float64), tol=tol, max_iter=5000,
+                      preconditioner=tM)
+    assert bool(jr.converged) and tr.converged
+    assert tr.iterations == int(jr.iterations)
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-8,
+                               atol=1e-8 * np.abs(np.asarray(jr.x)).max())
+
+
+def test_lambda_max_from_jax_start_vector():
+    P = _problem(3, 2)
+    shape = (P["ts"].n_nodes, 3)
+    lj = float(jcg.estimate_lambda_max(P["jop"], P["jdiag"], shape))
+    v0 = np.array(jax.random.normal(jax.random.PRNGKey(0), shape,
+                                      dtype=jnp.float64))
+    lt = tcg.estimate_lambda_max(P["top"], P["tdiag"], shape,
+                                 v0=torch.as_tensor(v0))
+    np.testing.assert_allclose(lt, lj, rtol=1e-10)
+    # the default start vector is seeded and reproducible
+    a = tcg.estimate_lambda_max(P["top"], P["tdiag"], shape)
+    assert a == tcg.estimate_lambda_max(P["top"], P["tdiag"], shape)
+    np.testing.assert_allclose(a, lj, rtol=0.05)
+
+
+@pytest.mark.parametrize("dim,coarse_size", [(3, 300), (2, 100)])
+def test_vcycle_matches_jax(dim, coarse_size):
+    """One V-cycle of the f64 hierarchy (FEM-SEM level, semi-coarsened Q1
+    levels, dense Cholesky coarse solve) on a random vector."""
+    P = _problem(dim, 2)
+    kw = dict(
+        lmbda=LAM, mu=MU, mass_coeff=A1 * RHO, smooth_degree=3,
+        smooth_degree_fine=1, coarse_size=coarse_size,
+    )
+    jmg = JaxMG(P["jm"], P["jtags"], P["jop"], P["jdiag"], P["jmask"],
+                dtype=jnp.float64, use_pallas=False, level_backend="xla", **kw)
+    assert len(jmg.levels) >= 3  # semi-coarsened levels are exercised
+    tmg = GeometricMultigrid(
+        P["tm"], P["ttags"], P["top"], P["tdiag"], P["tmask"],
+        dtype=torch.float64, lam_max=[lv.lam_max for lv in jmg.levels], **kw
+    )
+    assert [lv.grid_shape for lv in tmg.levels] == [
+        lv.grid_shape for lv in jmg.levels
+    ]
+    r = np.random.default_rng(1).standard_normal((P["ts"].n_nodes, dim))
+    a = np.asarray(jmg(jnp.asarray(r)))
+    b = tmg(torch.as_tensor(r)).numpy()
+    np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10 * np.abs(a).max())
+    # the hierarchy's own power iterations land near JAX's estimates
+    own = GeometricMultigrid(P["tm"], P["ttags"], P["top"], P["tdiag"],
+                             P["tmask"], dtype=torch.float64, **kw)
+    np.testing.assert_allclose(
+        [lv.lam_max for lv in own.levels], [lv.lam_max for lv in jmg.levels],
+        rtol=0.05,
+    )
+
+
+def test_dense_cholesky_solves():
+    P = _problem(2, 1)
+    A = assemble_dense(P["ts"], P["E"])
+    m = np.asarray(P["tmask"]).reshape(-1)
+    A = A * m[:, None] * m[None, :] + np.diag(1 - m)
+    b = np.random.default_rng(2).standard_normal(A.shape[0])
+    x = DenseCholesky(A).solve(torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(x, np.linalg.solve(A, b), rtol=1e-10,
+                               atol=1e-12 * np.abs(x).max())
