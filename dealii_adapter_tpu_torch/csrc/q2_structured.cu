@@ -27,5 +27,6 @@
 extern "C" cudaError_t dat_q2_structured(const void* u, void* y, const void* E,
                                          int nz, int ny, int nx, int io_bf16,
                                          void* stream) {
-  return dat::launch_structured_gather<2>(u, y, E, nz, ny, nx, io_bf16, stream);
+  return dat::launch_structured_gather<3, 2>(u, y, E, nz, ny, nx, io_bf16,
+                                             stream);
 }

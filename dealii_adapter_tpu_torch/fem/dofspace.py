@@ -43,7 +43,8 @@ def build_transpose_gather_plan(
     is zero. Returns (plan, sentinel_index).
 
     O(n log n) numpy construction. The structured operators never read the
-    plan; only host-side setup (body-force weights) does."""
+    plan; host-side setup (body-force weights) and the interface load of
+    the linear model (`ops/element_ops.py:FaceLoading`) do."""
     n_cells, npc = cells.shape
     flat_nodes = cells.ravel().astype(np.int64)
     order = np.argsort(flat_nodes, kind="stable")

@@ -1,8 +1,9 @@
-"""Build and bind the package's hand-written CUDA kernels.
+"""Build, bind and health-check the package's hand-written CUDA kernels.
 
-Every `csrc/*.cu` source is compiled by `nvcc` for `sm_90a` into one
+Every `csrc/*.cu` source is compiled by its own `nvcc` process for
+`sm_90a`, all started together, and the objects are linked into one
 shared library with a plain C interface, `_build/libdat_torch_kernels.so`
-inside the package, and loaded with ctypes. Each C entry point launches on
+inside the package, loaded with ctypes. Each C entry point launches on
 the stream it is given and returns the `cudaError_t` of the launch.
 
 The build happens at the first call of `load_library()`, never at import,
@@ -10,6 +11,12 @@ so the package imports (and its CPU tests run) on hosts without `nvcc`. It
 is keyed by a SHA-256 of the sources: an edited kernel rebuilds, an
 unchanged one reuses the library. A failed build raises with nvcc's
 standard error.
+
+Right after loading the library, before any real kernel runs,
+`load_library()` launches the two health-check kernels (C1: y = x * salt,
+C2: y = x + 1, csrc/health.cu) and compares them exactly with the same
+arithmetic on the host; a launch error or any mismatch raises. There is
+no fallback.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libdat_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,10 +47,16 @@ _SIGNATURES = {
     # (u, y, E, nz, ny, nx, io_bf16, stream)
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q2_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (u, y, E, ny, nx, io_bf16, stream)
+    "dat_q1_structured_2d": (_P, _P, _P, _I, _I, _I, _P),
+    # (x, y, salt, n, stream) and (x, y, n, stream)
+    "dat_health_scale": (_P, _P, ctypes.c_float, _I, _P),
+    "dat_health_add_one": (_P, _P, _I, _P),
 }
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
+health = None  # result of the last health check in this process
 
 
 def _sources():
@@ -74,10 +87,28 @@ def _nvcc() -> str:
     )
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(force: bool = False) -> Path:
-    """Compile every kernel source into the shared library (skipped when
-    the library on disk was built from the same sources). Returns its
-    path."""
+    """Compile every kernel source (one nvcc per source, in parallel) and
+    link the shared library (skipped when the library on disk was built
+    from the same sources). Returns its path."""
     global build_seconds
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
@@ -89,35 +120,51 @@ def build(force: bool = False) -> Path:
         and stamp.read_text().strip() == key
     ):
         return lib_path
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [
-        str(p) for p in _sources() if p.suffix == ".cu"
-    ]
+    tag = f"{os.getpid()}.tmp"
+    objs = []
+    compiles = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        _run_all(compiles)
+        _run_all([[nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
     os.replace(tmp, lib_path)
     stamp.write_text(key + "\n")
     return lib_path
 
 
 def load_library() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
-    global _lib
+    """The bound kernel library, built on first use and health-checked
+    (C1/C2) before it is handed out."""
+    global _lib, health
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        health = health_check(lib)
         _lib = lib
     return _lib
+
+
+def unload() -> None:
+    """Forget the bound library: the next `load_library()` binds and
+    health-checks it again (the library on disk is reused)."""
+    global _lib
+    _lib = None
 
 
 def check(err: int, what: str) -> None:
@@ -131,3 +178,65 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _f32_block(x):
+    import torch
+
+    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()):
+        raise ValueError("health kernels take a contiguous float32 CUDA tensor")
+
+
+def health_scale(x, salt: float, lib=None):
+    """C1 wrapper: y = x * salt (salt rounded to f32)."""
+    _f32_block(x)
+    import torch
+
+    y = torch.empty_like(x)
+    check((load_library() if lib is None else lib).dat_health_scale(
+        x.data_ptr(), y.data_ptr(), salt, x.numel(), stream_of(x)), "C1")
+    health_scale.launches += 1
+    return y
+
+
+def health_add_one(x, lib=None):
+    """C2 wrapper: y = x + 1."""
+    _f32_block(x)
+    import torch
+
+    y = torch.empty_like(x)
+    check((load_library() if lib is None else lib).dat_health_add_one(
+        x.data_ptr(), y.data_ptr(), x.numel(), stream_of(x)), "C2")
+    health_add_one.launches += 1
+    return y
+
+
+health_scale.launches = 0
+health_add_one.launches = 0
+
+
+def health_check(lib) -> dict:
+    """Launch C1 and C2 on a seeded 8 x 128 f32 block with a per-process
+    salt and compare bitwise with numpy's f32 arithmetic; raise on a launch
+    error or any mismatch. Returns the salt and the mismatch counts."""
+    import numpy as np
+    import torch
+
+    x_host = np.random.default_rng(os.getpid()).standard_normal(
+        (8, 128)).astype(np.float32)
+    # exactly representable in f32, different from process to process
+    salt = np.float32(1.0 + (os.getpid() % 1021 + 1) / 1024.0)
+    x = torch.from_numpy(x_host).cuda()
+    y1 = health_scale(x, float(salt), lib).cpu().numpy()
+    y2 = health_add_one(x, lib).cpu().numpy()
+    torch.cuda.synchronize()
+    bad = {
+        "C1": int((y1 != x_host * salt).sum()),
+        "C2": int((y2 != x_host + np.float32(1.0)).sum()),
+    }
+    if any(bad.values()):
+        raise RuntimeError(
+            f"kernel library health check failed: mismatching elements {bad} "
+            "of 1024 (C1: y = x * salt, C2: y = x + 1)"
+        )
+    return {"salt": float(salt), "mismatches": bad, "elements": x_host.size}

@@ -11,7 +11,8 @@ and the dual relative/absolute convergence rule of the reference. Each
 Newton iteration assembles the per-cell tangents in the solve dtype (f32
 on the production path), packs them column-major, and runs a CG whose
 matvec is extract -> kernel K1 -> overlap-add, preconditioned by the
-geometric-multigrid V-cycle (kernels K5 and K3) or Jacobi/Chebyshev.
+geometric-multigrid V-cycle (kernels K5 and K3 in 3D, K4b in 2D) or
+Jacobi/Chebyshev.
 
 Differences from the JAX package, all in the host orchestration:
 * Newton and CG are host loops (`lax.while_loop` in JAX): every Newton
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import AllParameters
+from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..mesh.generator import StructuredMesh, make_scenario_grid
 from ..ops.assembled_tangent import (
@@ -129,9 +131,9 @@ def _clip(x: float, lo: float, hi: float) -> float:
 
 
 class NonlinearElasticity:
-    """Builds mesh, space, operators and preconditioner once on `device`;
-    `step(state, stress) -> (state, NewtonInfo)`; `residual` and
-    `_residual32` are exposed for tests."""
+    """Builds mesh, space, operators and preconditioner once on `device`
+    (default: the CUDA card); `step(state, stress) -> (state,
+    NewtonInfo)`; `residual` and `_residual32` are exposed for tests."""
 
     def __init__(
         self,
@@ -140,7 +142,7 @@ class NonlinearElasticity:
         tags: Optional[dict] = None,
         refine: int = 0,
         quasi_static: bool = False,
-        device="cpu",
+        device=None,
         mg_lam_max: Optional[Sequence[float]] = None,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
@@ -153,7 +155,7 @@ class NonlinearElasticity:
         _check_ported(params)
         self.params = params
         self.quasi_static = quasi_static
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -313,7 +315,7 @@ class NonlinearElasticity:
             pdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
                 params.precond_dtype, sdt
             )
-            # the MG fine proxy: kernel K5 at degree 2
+            # the MG fine proxy: kernel K5 for 3D Q2
             proxy = make_q2_operator(space, Ke_precond, pdt, self.device)
             fmask = self.mask.to(pdt)
 
@@ -647,7 +649,7 @@ class NonlinearElasticity:
             K32, rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt),
             tol=cg_tol, max_iter=self._max_cg_iter, preconditioner=self._precond,
         )
-        self.host_syncs += r.iterations + 1
+        self.host_syncs += r.host_syncs
         return r.x.to(self.dtype), r.iterations, 1
 
     def step(

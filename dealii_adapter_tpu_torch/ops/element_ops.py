@@ -4,7 +4,9 @@ The numpy parts of `dealii_adapter_tpu/ops/element_ops.py` that the
 structured production path needs, copied unchanged: the exact constant
 element matrices of a uniform axis-aligned cell, the assembled diagonal,
 the dense assembly (multigrid coarse solve, tests) and the body-force
-load. Device-side operators live in ops/structured.py.
+load — and, on the device, the consistent interface-traction load of the
+linear model (`FaceLoading`). The other device-side operators live in
+ops/structured.py.
 
 Element DoF ordering: (local node, component), component fastest — i.e.
 ``edof = local_node * dim + comp``.
@@ -12,11 +14,14 @@ Element DoF ordering: (local node, component), component fastest — i.e.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from ..fem.dofspace import DofSpace
+from ..device import resolve_device
+from ..fem.dofspace import DofSpace, build_transpose_gather_plan
 
 
 class ElementMatrices:
@@ -115,3 +120,49 @@ def body_force_vector(
     nodal_w = flat[space.plan].sum(axis=1)  # (n_nodes, 1)
     bf = np.asarray(body_force[: space.dim], dtype=np.float64)
     return rho * nodal_w * bf[None, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class FaceLoading:
+    """Consistent surface-traction integration over the coupling interface
+    (`assemble_consistent_loading`, `linear_elasticity.cc:457-521`): the
+    nodal interface traction, interpolated on each interface face and
+    tested against the shape functions, is one face-mass matmul per face,
+
+        r_face = M_face[axis(face)] @ t[face_nodes],
+
+    summed into the interface nodes by a transpose-gather plan (a gather
+    and a fixed-order sum: deterministic on every device, no atomics)."""
+
+    face_nodes: torch.Tensor  # (n_if, npf) global node ids
+    face_mass: torch.Tensor  # (n_if, npf, npf) per-face mass (by face axis)
+    nodes: torch.Tensor  # (n_iface_nodes,) the distinct interface nodes
+    plan: torch.Tensor  # (n_iface_nodes, max_valence) into n_if*npf (+ zero row)
+    n_nodes: int
+
+    def __call__(self, traction: torch.Tensor) -> torch.Tensor:
+        t = traction[self.face_nodes]  # (n_if, npf, dim)
+        r = torch.einsum("fij,fjc->fic", self.face_mass, t)
+        n_if, npf, dim = t.shape
+        flat = torch.cat([r.reshape(n_if * npf, dim), r.new_zeros((1, dim))])
+        out = traction.new_zeros((self.n_nodes, dim))
+        out[self.nodes] = flat[self.plan].sum(dim=1)
+        return out
+
+
+def make_face_loading(
+    space: DofSpace, elem: ElementMatrices, interface_id: int,
+    dtype=torch.float64, device=None,
+) -> FaceLoading:
+    device = resolve_device(device)
+    faces, fnodes = space.interface_faces(interface_id)
+    face_mass = elem.face_mass[faces[:, 1] // 2]  # (n_if, npf, npf)
+    nodes, local = np.unique(fnodes, return_inverse=True)
+    plan, _ = build_transpose_gather_plan(local.reshape(fnodes.shape), len(nodes))
+    return FaceLoading(
+        face_nodes=torch.as_tensor(fnodes, device=device),
+        face_mass=torch.as_tensor(face_mass, dtype=dtype, device=device),
+        nodes=torch.as_tensor(nodes, device=device),
+        plan=torch.as_tensor(plan, device=device),
+        n_nodes=space.n_nodes,
+    )

@@ -1,18 +1,17 @@
-"""Q1 structured element operator (kernel K3), the multigrid level operator.
+"""Q1 structured element operators (kernels K3 and K4b), the multigrid
+level operators.
 
 Counterpart of `dealii_adapter_tpu/ops/pallas_structured.py`
-(`PallasQ1SlabOperator`). `Q1StructuredOperator(u)` computes y = A u for a
-constant 24 x 24 element matrix over a 3D Q1 node lattice:
+(`PallasQ1SlabOperator` in 3D, `PallasQ1Operator` in 2D).
+`make_q1_operator(space, E)(u)` computes y = A u for a constant element
+matrix (24 x 24 in 3D, 8 x 8 in 2D) over a Q1 node lattice:
 
-* on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O,
-  f32 accumulation; E is a runtime argument, so one kernel serves every
-  level);
+* on a CUDA tensor it launches the gather kernel of csrc/q1_structured.cu
+  for the lattice's dimension (bf16 or f32 I/O, f32 accumulation; E is a
+  runtime argument, so one kernel serves every level);
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, computing in f32 (f64 for f64 I/O) and rounding
   the output to the I/O dtype.
-
-2D lattices run the plain version on the CPU; on the card they raise until
-the 2D kernel (K4b) is ported.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from .structured import _grid_shape, structured_operator_from_lattice
 
@@ -29,22 +29,28 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class StructuredKernelOperator:
-    """y = A u over a lattice of degree-`p` cells, through a hand-written
-    gather kernel on the card and `StructuredOperator` on the CPU.
-    Subclasses name the kernel entry point and keep its launch count."""
+    """y = A u over a `dim`-dimensional lattice of degree-`p` cells, through
+    a hand-written gather kernel on the card and `StructuredOperator` on the
+    CPU. Subclasses name the kernel entry point, whose arguments are
+    (u, y, E, *lattice, io_bf16, stream), and keep its launch count."""
 
     p: int
+    dim: int
     entry: str  # C entry point in the kernel library
     launches: int = 0
 
     def __init__(self, E: np.ndarray, grid_shape, dtype=torch.float32,
-                 device="cpu"):
+                 device=None):
         E = np.asarray(E, dtype=np.float64)
         self.E_host = E
         self.grid_shape: Tuple[int, ...] = tuple(int(n) for n in grid_shape)
-        self.dim = len(self.grid_shape)
+        if len(self.grid_shape) != self.dim:
+            raise ValueError(
+                f"{type(self).__name__} takes a {self.dim}D lattice, got "
+                f"{self.grid_shape}"
+            )
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cdt = torch.float64 if dtype == torch.float64 else torch.float32
         self._plain = structured_operator_from_lattice(
             E, self.grid_shape, self.p, cdt, self.device
@@ -62,21 +68,16 @@ class StructuredKernelOperator:
             return self.plain(u)
         if not u.is_cuda:
             raise ValueError(f"{type(self).__name__}: unsupported device {u.device}")
-        if self.dim != 3:
-            raise NotImplementedError(
-                f"{type(self).__name__}: 2D lattices have no CUDA kernel yet "
-                "(ROADMAP Queue 2, K4b)"
-            )
         if u.dtype not in _KERNEL_DTYPES:
             raise TypeError(
                 f"{type(self).__name__} kernel takes float32 or bfloat16 I/O, "
                 f"got {u.dtype}"
             )
         n_nodes = int(np.prod(self.grid_shape))
-        if tuple(u.shape) != (n_nodes, 3) or not u.is_contiguous():
+        if tuple(u.shape) != (n_nodes, self.dim) or not u.is_contiguous():
             raise ValueError(
-                f"{type(self).__name__}: u must be a contiguous ({n_nodes}, 3) "
-                f"tensor, got {tuple(u.shape)}"
+                f"{type(self).__name__}: u must be a contiguous "
+                f"({n_nodes}, {self.dim}) tensor, got {tuple(u.shape)}"
             )
         if self.E_dev.device != u.device:
             raise ValueError(
@@ -86,9 +87,8 @@ class StructuredKernelOperator:
         from ..kernels._build import check, load_library, stream_of
 
         y = torch.empty_like(u)
-        nz, ny, nx = self.grid_shape
         err = getattr(load_library(), self.entry)(
-            u.data_ptr(), y.data_ptr(), self.E_dev.data_ptr(), nz, ny, nx,
+            u.data_ptr(), y.data_ptr(), self.E_dev.data_ptr(), *self.grid_shape,
             int(u.dtype == torch.bfloat16), stream_of(u),
         )
         check(err, self.entry)
@@ -112,16 +112,28 @@ class StructuredKernelOperator:
 
 
 class Q1StructuredOperator(StructuredKernelOperator):
-    """K3: the Q1 level operator (csrc/q1_structured.cu)."""
+    """K3: the 3D Q1 level operator (csrc/q1_structured.cu)."""
 
     p = 1
+    dim = 3
     entry = "dat_q1_structured"
     launches = 0
 
 
+class Q1StructuredOperator2D(StructuredKernelOperator):
+    """K4b: the 2D Q1 level operator (csrc/q1_structured.cu)."""
+
+    p = 1
+    dim = 2
+    entry = "dat_q1_structured_2d"
+    launches = 0
+
+
 def make_q1_operator(
-    space: DofSpace, E: np.ndarray, dtype=torch.float32, device="cpu"
-) -> Q1StructuredOperator:
+    space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
+) -> StructuredKernelOperator:
+    """The Q1 level operator of a 2D (K4b) or 3D (K3) Q1 space."""
     if space.mesh.degree != 1:
         raise ValueError(f"Q1 operator on a degree-{space.mesh.degree} space")
-    return Q1StructuredOperator(E, _grid_shape(space), dtype, device)
+    cls = Q1StructuredOperator2D if space.dim == 2 else Q1StructuredOperator
+    return cls(E, _grid_shape(space), dtype, device)

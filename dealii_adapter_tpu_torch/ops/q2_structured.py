@@ -12,9 +12,9 @@ matrix over a 3D Q2 node lattice:
   `StructuredOperator`, in f32 (f64 for f64 I/O), rounded to the I/O
   dtype.
 
-Other degrees take the plain `StructuredOperator` on every device, as the
-JAX package computes them outside any Pallas kernel. 2D Q2 on the card
-raises until the 2D kernel (K4b) is ported.
+Other degrees, and Q2 in 2D, take the plain `StructuredOperator` on every
+device, as the JAX package computes them outside any Pallas kernel (its
+phase kernel is 3D only, `pallas_phase.py:pallas_q2_supported`).
 """
 
 from __future__ import annotations
@@ -28,16 +28,18 @@ from .structured import _grid_shape, structured_operator_from_lattice
 
 
 class Q2StructuredOperator(StructuredKernelOperator):
-    """K5: the Q2 fine-level operator (csrc/q2_structured.cu)."""
+    """K5: the 3D Q2 fine-level operator (csrc/q2_structured.cu)."""
 
     p = 2
+    dim = 3
     entry = "dat_q2_structured"
     launches = 0
 
 
 class _PlainDegreeOperator:
-    """A degree-p (p != 2) fine operator: the plain `StructuredOperator` on
-    every device, computing in f32 (f64 for f64 I/O)."""
+    """A fine operator without a kernel (2D, or degree != 2): the plain
+    `StructuredOperator` on every device, computing in f32 (f64 for f64
+    I/O)."""
 
     def __init__(self, E, grid_shape, p, dtype, device):
         cdt = torch.float64 if dtype == torch.float64 else torch.float32
@@ -52,11 +54,11 @@ class _PlainDegreeOperator:
 
 
 def make_q2_operator(
-    space: DofSpace, E: np.ndarray, dtype=torch.float32, device="cpu"
+    space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
 ):
-    """MG fine-level operator of a space: `Q2StructuredOperator` at degree
-    2, the plain structured operator at any other degree."""
-    if space.mesh.degree == 2:
+    """MG fine-level operator of a space: `Q2StructuredOperator` for 3D Q2,
+    the plain structured operator otherwise."""
+    if space.mesh.degree == 2 and space.dim == 3:
         return Q2StructuredOperator(E, _grid_shape(space), dtype, device)
     return _PlainDegreeOperator(
         E, _grid_shape(space), space.mesh.degree, dtype, device

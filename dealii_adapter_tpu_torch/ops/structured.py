@@ -30,6 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 
 
@@ -114,10 +115,11 @@ class StructuredOperator:
 
 
 def structured_operator_from_lattice(
-    E: np.ndarray, grid_shape, p: int, dtype=torch.float64, device="cpu"
+    E: np.ndarray, grid_shape, p: int, dtype=torch.float64, device=None
 ) -> StructuredOperator:
     """`StructuredOperator` for a node lattice `grid_shape` (slowest first)
-    of degree-p cells."""
+    of degree-p cells, on `device` (default: the CUDA card)."""
+    device = resolve_device(device)
     dim = len(grid_shape)
     npc = E.shape[0] // dim
     # node-major (n*dim + d) -> component-major (d*npc + n) permutation
@@ -134,7 +136,7 @@ def structured_operator_from_lattice(
 
 
 def make_structured_operator(
-    space: DofSpace, E: np.ndarray, dtype=torch.float64, device="cpu"
+    space: DofSpace, E: np.ndarray, dtype=torch.float64, device=None
 ) -> StructuredOperator:
     return structured_operator_from_lattice(
         E, _grid_shape(space), space.mesh.degree, dtype, device

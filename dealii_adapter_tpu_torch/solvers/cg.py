@@ -9,6 +9,8 @@ of fixed-length chunks are later work.
 
 Convergence follows deal.II's SolverControl: iterate until the l2 norm of
 the residual drops below an absolute tolerance or the cap is hit.
+`ir_cg_solve` wraps a low-precision CG in high-precision defect
+correction, also as a host loop (one read-back per refinement).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ class CGResult(NamedTuple):
     iterations: int
     residual_norm: float
     converged: bool
+    host_syncs: int = 0  # device-to-host read-backs the solve made
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,4 +130,41 @@ def cg_solve(
         rz = rz_new
         resn = torch.sqrt(_dot(r, r)).item()
         k += 1
-    return CGResult(x=x, iterations=k, residual_norm=resn, converged=resn <= tol)
+    return CGResult(x=x, iterations=k, residual_norm=resn, converged=resn <= tol,
+                    host_syncs=k + 1)
+
+
+def ir_cg_solve(
+    operator_hi: Callable, operator_lo: Callable, b: torch.Tensor,
+    x0: torch.Tensor, tol: float, max_iter: int, lo_dtype=torch.float32,
+    preconditioner: Optional[Callable] = None, inner_rtol: float = 1e-6,
+    max_refinements: int = 6,
+) -> CGResult:
+    """Mixed-precision iterative refinement (defect correction): each round
+    solves the defect equation with a preconditioned CG in `lo_dtype` to
+    `inner_rtol` times the current true residual, and the residual and
+    solution accumulate in `b.dtype`, so a few f32 solves meet an f64
+    absolute tolerance (the reference's 1e-10,
+    `linear_elasticity.cc:542-543`). `operator_hi`/`operator_lo` are the
+    same SPD action in high/low precision; `preconditioner` maps lo -> lo.
+    `iterations` is the total of the inner CG iterations."""
+    tol = torch.tensor(float(tol), dtype=b.dtype).item()
+    x = x0
+    r = b - operator_hi(x0)
+    resn = torch.sqrt(_dot(r, r)).item()
+    k = refinements = 0
+    syncs = 1
+    while resn > tol and refinements < max_refinements:
+        inner = cg_solve(
+            operator_lo, r.to(lo_dtype), torch.zeros_like(r, dtype=lo_dtype),
+            tol=inner_rtol * resn, max_iter=max_iter,
+            preconditioner=preconditioner,
+        )
+        x = x + inner.x.to(b.dtype)
+        r = b - operator_hi(x)
+        resn = torch.sqrt(_dot(r, r)).item()
+        k += inner.iterations
+        refinements += 1
+        syncs += inner.host_syncs + 1
+    return CGResult(x=x, iterations=k, residual_norm=resn, converged=resn <= tol,
+                    host_syncs=syncs)

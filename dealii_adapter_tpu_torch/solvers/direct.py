@@ -10,12 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class DenseCholesky:
-    def __init__(self, A: np.ndarray, dtype=torch.float64, device="cpu"):
+    def __init__(self, A: np.ndarray, dtype=torch.float64, device=None):
         self.n = A.shape[0]
         self._chol = torch.linalg.cholesky(
-            torch.as_tensor(A, dtype=dtype, device=device)
+            torch.as_tensor(A, dtype=dtype, device=resolve_device(device))
         )
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:

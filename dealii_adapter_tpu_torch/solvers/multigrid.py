@@ -2,12 +2,14 @@
 
 Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
 
-* level 0: the caller's BC-masked fine operator (the Q2 proxy, kernel K5);
+* level 0: the caller's BC-masked fine operator (the Q2 proxy: kernel K5
+  in 3D, the plain structured operator in 2D);
 * level 1: Q1 on the same node lattice (FEM-SEM), or at half resolution;
 * levels >= 2: aspect-aware semi-coarsened Q1 lattices, down to a dense
   Cholesky coarse solve;
-* every Q1 level operator is `Q1StructuredOperator` (kernel K3) with that
-  level's own (anisotropic) element matrix;
+* every Q1 level operator is a hand-written kernel (K3 in 3D, K4b in 2D,
+  `ops/q1_structured.py`) with that level's own (anisotropic) element
+  matrix;
 * transfers: 1D linear interpolation per axis, applied separably;
   restriction is the exact transpose, so the V-cycle stays SPD;
 * smoother: Chebyshev on the Jacobi-scaled level operator.
@@ -27,6 +29,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..mesh.generator import StructuredMesh, subdivided_hyper_rectangle
 from ..ops.element_ops import ElementMatrices, assemble_dense, assemble_diagonal
@@ -250,7 +253,7 @@ class GeometricMultigrid:
         skip_fine_smoothing: bool = False,
         level_backend: str = "auto",
         lam_max: Optional[Sequence[float]] = None,
-        device="cpu",
+        device=None,
     ):
         """`fine_operator` must already be BC-masked; `mass_coeff` is the
         rho-scaled mass coefficient of the operator (alpha_1 rho for
@@ -263,7 +266,7 @@ class GeometricMultigrid:
             )
         if level_backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown mg_level_backend {level_backend!r}")
-        device = torch.device(device)
+        device = resolve_device(device)
         self.dtype = dtype
         self.smooth_degree = smooth_degree
         self.smooth_degree_fine = smooth_degree_fine or smooth_degree

@@ -56,7 +56,7 @@ def models_3d():
     jm = JaxModel(jp)
     tm = NonlinearElasticity(
         params_from_jax(jp),
-        mg_lam_max=[lv.lam_max for lv in jm._precond.levels],
+        mg_lam_max=[lv.lam_max for lv in jm._precond.levels], device="cpu",
     )
     return jm, tm
 
@@ -70,7 +70,7 @@ def test_residuals_match_jax(models_3d):
     a = 1e3 * a
     stress = _stress(n, dim, tm.space.boundary_nodes[tm.interface_id], 1e3)
     js = JaxState(jnp.asarray(u), jnp.asarray(v), jnp.asarray(a))
-    ts = state_from_numpy(u, v, a)
+    ts = state_from_numpy(u, v, a, device="cpu")
     for name, rtol in (("residual", 1e-12), ("_residual32", 1e-5)):
         rj, mj = jax.jit(getattr(jm, name))(
             jnp.asarray(delta), js, jnp.asarray(stress)
@@ -118,7 +118,7 @@ def test_2d_on_golden_trajectory(solver):
     p = params_from_jax(JaxParams(
         dim=2, max_iterations_NR=12, mg_coarse_size=4000, **kw
     ))
-    model = NonlinearElasticity(p)
+    model = NonlinearElasticity(p, device="cpu")
     nodes = model.space.mesh.nodes
     target = np.zeros(2)
     target[1] = nodes[:, 1].max()
@@ -147,7 +147,7 @@ def test_transient_nan_f32_residual_keeps_a_finite_floor():
     ))
 
     def run(nan_call):
-        model = NonlinearElasticity(p)
+        model = NonlinearElasticity(p, device="cpu")
         f32_residual, calls = model._residual32, [0]
 
         def residual32(*args):

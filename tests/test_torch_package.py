@@ -1,8 +1,9 @@
 """Package-level guarantees of the PyTorch port: it never imports jax, its
-kernel wrappers take the plain version only for CPU tensors, unported
-variants raise, the kernel build needs nvcc, and chip_smoke.py fails
-without a GPU. One test compares the kernels with their plain versions
-on the card; it skips where there is none."""
+models run on the CUDA card unless asked for the CPU, its kernel wrappers
+take the plain version only for CPU tensors, unported variants raise, the
+kernel build needs nvcc and binds every entry point, and chip_smoke.py
+fails without a GPU. One test compares the kernels with their plain
+versions on the card; it skips where there is none."""
 
 import os
 import shutil
@@ -16,11 +17,17 @@ import torch
 import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
 from dealii_adapter_tpu_torch.config import AllParameters
 from dealii_adapter_tpu_torch.kernels import _build
+from dealii_adapter_tpu_torch.models.linear_elasticity import (
+    LinearElastodynamics,
+)
 from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
     NonlinearElasticity,
 )
 from dealii_adapter_tpu_torch.ops import assembled_tangent as at
-from dealii_adapter_tpu_torch.ops.q1_structured import Q1StructuredOperator
+from dealii_adapter_tpu_torch.ops.q1_structured import (
+    Q1StructuredOperator,
+    Q1StructuredOperator2D,
+)
 from dealii_adapter_tpu_torch.ops.q2_structured import Q2StructuredOperator
 
 torch.set_num_threads(1)
@@ -68,6 +75,16 @@ def _small_inputs(dtype=torch.float32, seed=0):
     return KT, u2, lattice, E1 + E1.T, E2 + E2.T, u
 
 
+def _small_inputs_2d(dtype=torch.float32, seed=0):
+    """A 2D Q1 lattice (with an odd row count: the ragged last block) and a
+    symmetric 8 x 8 element matrix."""
+    lattice = (7, 13)
+    E = np.random.default_rng(seed).standard_normal((8, 8))
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(int(np.prod(lattice)), 2, generator=g).to(dtype)
+    return lattice, E + E.T, u
+
+
 def test_cpu_tensors_take_the_plain_path():
     KT, u2, lattice, E1, E2, u = _small_inputs()
     at.apply_packed_tangents_T.launches = 0
@@ -76,10 +93,15 @@ def test_cpu_tensors_take_the_plain_path():
         at.apply_packed_tangents_T(KT, u2), at.apply_packed_tangents_T_plain(KT, u2)
     )
     for cls, E in ((Q1StructuredOperator, E1), (Q2StructuredOperator, E2)):
-        op = cls(E, lattice, torch.float32)
+        op = cls(E, lattice, torch.float32, "cpu")
         torch.testing.assert_close(op(u), op.plain(u), rtol=0, atol=0)
+    lattice2, E, u = _small_inputs_2d()
+    Q1StructuredOperator2D.launches = 0
+    op = Q1StructuredOperator2D(E, lattice2, torch.float32, "cpu")
+    torch.testing.assert_close(op(u), op.plain(u), rtol=0, atol=0)
     assert at.apply_packed_tangents_T.launches == 0
     assert Q1StructuredOperator.launches == Q2StructuredOperator.launches == 0
+    assert Q1StructuredOperator2D.launches == 0
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -89,7 +111,7 @@ def test_non_cpu_non_cuda_tensors_raise():
     with pytest.raises(ValueError):
         at.apply_packed_tangents_T(KT.to("meta"), u2.to("meta"))
     with pytest.raises(ValueError):
-        Q1StructuredOperator(E1, lattice, torch.float32)(u.to("meta"))
+        Q1StructuredOperator(E1, lattice, torch.float32, "cpu")(u.to("meta"))
 
 
 @pytest.mark.parametrize(
@@ -112,7 +134,56 @@ def test_unported_variants_raise(override):
               poly_degree=2, preconditioner="MG", solve_dtype="float32")
     kw.update(override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonlinearElasticity(AllParameters(**kw))
+        NonlinearElasticity(AllParameters(**kw), device="cpu")
+
+
+_MODELS = {
+    "linear": (LinearElastodynamics, dict(model="linear", type_lin="CG")),
+    "neo-Hookean": (NonlinearElasticity, dict(
+        model="neo-Hookean", type_lin="CG", preconditioner="MG",
+        solve_dtype="float32")),
+}
+
+
+@pytest.mark.parametrize("model", list(_MODELS))
+def test_models_run_on_the_card_unless_asked_for_the_cpu(model):
+    """Without `device` a model goes to the CUDA card; on a host without one
+    it raises, naming CUDA, instead of falling back to the CPU."""
+    cls, kw = _MODELS[model]
+    params = AllParameters(scenario="PF", dim=2, poly_degree=2, **kw)
+    if torch.cuda.is_available():
+        assert cls(params).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(params)
+    m = cls(params, device="cpu")
+    assert m.device.type == "cpu" and m.initial_state()[0].device.type == "cpu"
+    stress = torch.zeros((m.space.n_nodes, 2), dtype=torch.float64)
+    state, _ = m.step(m.initial_state(), stress)
+    assert state.displacement.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "override", [dict(element_backend="gather"), dict(n_devices=2)],
+    ids=lambda d: next(iter(d)),
+)
+def test_linear_unported_variants_raise(override):
+    params = AllParameters(model="linear", type_lin="CG", scenario="PF",
+                           dim=2, poly_degree=2, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[23]"):
+        LinearElastodynamics(params, device="cpu")
+
+
+def test_build_binds_every_entry_point():
+    """The C entry points of the library: K1, K3, K5, the 2D K4b and the
+    C1/C2 health-check kernels, each defined in a source under csrc/."""
+    names = set(_build._SIGNATURES)
+    assert {"dat_tangent_matvec_f32", "dat_q1_structured", "dat_q2_structured",
+            "dat_q1_structured_2d", "dat_health_scale",
+            "dat_health_add_one"} <= names
+    sources = "".join(p.read_text() for p in _build._sources())
+    for name in names:
+        assert f'extern "C" cudaError_t {name}(' in sources, name
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -152,9 +223,19 @@ def test_kernels_match_plain_on_card():
         rtol=1e-5, atol=1e-4,
     )
     assert at.apply_packed_tangents_T.launches == before + 1
-    for cls, E in ((Q1StructuredOperator, E1), (Q2StructuredOperator, E2)):
+    lattice2, E4, u4 = _small_inputs_2d()
+    for cls, E, grid, v in ((Q1StructuredOperator, E1, lattice, u),
+                            (Q2StructuredOperator, E2, lattice, u),
+                            (Q1StructuredOperator2D, E4, lattice2, u4)):
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            op = cls(E, lattice, dtype, dev)
-            x = u.to(dev, dtype)
+            op = cls(E, grid, dtype, dev)
+            x = v.to(dev, dtype)
+            before = cls.launches
             out, ref = op(x).double(), op.plain(x).double()
+            assert cls.launches == before + 1
             assert ((out - ref).norm() / ref.norm()).item() <= tol
+    # C1/C2 passed when the library was loaded; they stay exact
+    assert _build.health["mismatches"] == {"C1": 0, "C2": 0}
+    x = torch.randn(8, 128, generator=torch.Generator().manual_seed(1)).to(dev)
+    assert torch.equal(_build.health_scale(x, 1.5), x * 1.5)
+    assert torch.equal(_build.health_add_one(x), x + 1.0)

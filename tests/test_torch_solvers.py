@@ -51,7 +51,7 @@ def _problem(dim, degree, scale=1):
     def jop(v):
         return jmask * jop_raw(jmask * v) + (1 - jmask) * v
 
-    top_raw = make_structured_operator(ts, E, torch.float64)
+    top_raw = make_structured_operator(ts, E, torch.float64, "cpu")
     tmask = torch.as_tensor(mask_np)
 
     def top(v):
@@ -118,7 +118,8 @@ def test_vcycle_matches_jax(dim, coarse_size):
     assert len(jmg.levels) >= 3  # semi-coarsened levels are exercised
     tmg = GeometricMultigrid(
         P["tm"], P["ttags"], P["top"], P["tdiag"], P["tmask"],
-        dtype=torch.float64, lam_max=[lv.lam_max for lv in jmg.levels], **kw
+        dtype=torch.float64, lam_max=[lv.lam_max for lv in jmg.levels],
+        device="cpu", **kw
     )
     assert [lv.grid_shape for lv in tmg.levels] == [
         lv.grid_shape for lv in jmg.levels
@@ -129,7 +130,8 @@ def test_vcycle_matches_jax(dim, coarse_size):
     np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10 * np.abs(a).max())
     # the hierarchy's own power iterations land near JAX's estimates
     own = GeometricMultigrid(P["tm"], P["ttags"], P["top"], P["tdiag"],
-                             P["tmask"], dtype=torch.float64, **kw)
+                             P["tmask"], dtype=torch.float64, device="cpu",
+                             **kw)
     np.testing.assert_allclose(
         [lv.lam_max for lv in own.levels], [lv.lam_max for lv in jmg.levels],
         rtol=0.05,
@@ -142,6 +144,6 @@ def test_dense_cholesky_solves():
     m = np.asarray(P["tmask"]).reshape(-1)
     A = A * m[:, None] * m[None, :] + np.diag(1 - m)
     b = np.random.default_rng(2).standard_normal(A.shape[0])
-    x = DenseCholesky(A).solve(torch.as_tensor(b)).numpy()
+    x = DenseCholesky(A, device="cpu").solve(torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(x, np.linalg.solve(A, b), rtol=1e-10,
                                atol=1e-12 * np.abs(x).max())

@@ -1,7 +1,7 @@
 """Structured cell access, overlap-add and structured operators of the
 PyTorch package against the JAX package (f64, rtol 1e-12), and the plain
-versions of the Q1 (K3) and Q2 (K5) kernels against the JAX operators
-they replace."""
+versions of the Q1 (K3 in 3D, K4b in 2D) and Q2 (K5) kernels against the
+JAX operators they replace."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +12,10 @@ from dealii_adapter_tpu.fem.dofspace import DofSpace as JaxDofSpace
 from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jax_grid
 from dealii_adapter_tpu.ops import structured as jst
 from dealii_adapter_tpu.ops.element_ops import ElementMatrices as JaxElem
-from dealii_adapter_tpu.ops.pallas_structured import make_pallas_q1_slab_operator
+from dealii_adapter_tpu.ops.pallas_structured import (
+    make_pallas_q1_operator,
+    make_pallas_q1_slab_operator,
+)
 from dealii_adapter_tpu_torch.convert import element_matrix_from_jax
 from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
 from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
@@ -20,10 +23,12 @@ from dealii_adapter_tpu_torch.ops import structured as tst
 from dealii_adapter_tpu_torch.ops.element_ops import ElementMatrices
 from dealii_adapter_tpu_torch.ops.q1_structured import (
     Q1StructuredOperator,
+    Q1StructuredOperator2D,
     make_q1_operator,
 )
 from dealii_adapter_tpu_torch.ops.q2_structured import (
     Q2StructuredOperator,
+    _PlainDegreeOperator,
     make_q2_operator,
 )
 
@@ -62,7 +67,7 @@ def test_extract_overlap_and_operator_match_jax(dim, degree):
     E = _E(ts, ElementMatrices)
     np.testing.assert_array_equal(E, element_matrix_from_jax(_E(js, JaxElem)))
     jop = jst.make_structured_operator(js, E, jnp.float64)
-    top = tst.make_structured_operator(ts, E, torch.float64)
+    top = tst.make_structured_operator(ts, E, torch.float64, "cpu")
     v = rng.standard_normal((ts.n_nodes, dim))
     a = np.asarray(jop(jnp.asarray(v)))
     b = top(torch.from_numpy(v)).numpy()
@@ -78,7 +83,7 @@ def test_plain_q1_matches_pallas_slab_interpret():
     js, ts = _spaces(3, 1)
     E = _E(ts, ElementMatrices)
     jop = make_pallas_q1_slab_operator(js, E, jnp.float64, interpret=True)
-    top = make_q1_operator(ts, E, torch.float64)
+    top = make_q1_operator(ts, E, torch.float64, "cpu")
     v = np.random.default_rng(3).standard_normal((ts.n_nodes, 3))
     a = np.asarray(jop(jnp.asarray(v)))
     Q1StructuredOperator.launches = 0
@@ -92,13 +97,15 @@ def test_plain_q1_matches_pallas_slab_interpret():
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_plain_q2_matches_structured(dim):
-    """K5's plain version against the JAX structured Q2 operator (the
-    Pallas phase kernel's interpret run is slow; both compute this)."""
+    """The Q2 fine operator against the JAX structured Q2 operator: K5's
+    plain version in 3D (the Pallas phase kernel's interpret run is slow;
+    both compute this), the plain operator without a kernel in 2D (the
+    JAX package has no 2D Q2 kernel either)."""
     js, ts = _spaces(dim, 2)
     E = _E(ts, ElementMatrices)
     jop = jst.make_structured_operator(js, E, jnp.float64)
-    top = make_q2_operator(ts, E, torch.float64)
-    assert isinstance(top, Q2StructuredOperator)
+    top = make_q2_operator(ts, E, torch.float64, "cpu")
+    assert isinstance(top, Q2StructuredOperator if dim == 3 else _PlainDegreeOperator)
     v = np.random.default_rng(4).standard_normal((ts.n_nodes, dim))
     a = np.asarray(jop(jnp.asarray(v)))
     Q2StructuredOperator.launches = 0
@@ -116,11 +123,49 @@ def test_plain_versions_compute_in_f32_and_round_to_io_dtype(io):
     dtype, as the kernels do."""
     _, ts = _spaces(3, 2)
     E = _E(ts, ElementMatrices)
-    op = make_q2_operator(ts, E, io)
+    op = make_q2_operator(ts, E, io, "cpu")
     v = torch.from_numpy(
         np.random.default_rng(5).standard_normal((ts.n_nodes, 3))
     ).to(io)
-    ref = tst.make_structured_operator(ts, E, torch.float32)(v.float()).to(io)
+    ref = tst.make_structured_operator(ts, E, torch.float32, "cpu")(
+        v.float()).to(io)
     out = op(v)
     assert out.dtype == io
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_plain_q1_2d_matches_pallas_interpret():
+    """K4b's plain version against the 2D Pallas kernel it replaces
+    (`PallasQ1Operator` over `_make_kernel_2d`), run in interpret mode, on a
+    2D Q1 lattice with an anisotropic E."""
+    js, ts = _spaces(2, 1)
+    E = _E(ts, ElementMatrices)
+    jop = make_pallas_q1_operator(js, E, jnp.float64, interpret=True)
+    top = make_q1_operator(ts, E, torch.float64, "cpu")
+    assert isinstance(top, Q1StructuredOperator2D)
+    v = np.random.default_rng(6).standard_normal((ts.n_nodes, 2))
+    a = np.asarray(jop(jnp.asarray(v)))
+    Q1StructuredOperator2D.launches = 0
+    b = top(torch.from_numpy(v)).numpy()
+    assert Q1StructuredOperator2D.launches == 0  # CPU tensor: plain version
+    np.testing.assert_allclose(b, a, rtol=RTOL, atol=RTOL * np.abs(a).max())
+    np.testing.assert_allclose(
+        top.diagonal().numpy(), np.asarray(jop.diagonal()), rtol=RTOL
+    )
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_plain_q1_2d_computes_in_f32_and_rounds_to_io_dtype(io):
+    """The plain K4b path computes in f32 and rounds once to the I/O dtype,
+    as the kernel does."""
+    _, ts = _spaces(2, 1)
+    E = _E(ts, ElementMatrices)
+    op = make_q1_operator(ts, E, io, "cpu")
+    v = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((ts.n_nodes, 2))
+    ).to(io)
+    ref = tst.make_structured_operator(ts, E, torch.float32, "cpu")(
+        v.float()).to(io)
+    out = op(v)
+    assert out.dtype == io and out.shape == (ts.n_nodes, 2)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
