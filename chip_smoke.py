@@ -14,9 +14,13 @@ script exits non-zero without printing a result):
    on seeded random inputs at the paths' shapes, with CUDA-event times
    (median of 25 applications after warmup) of both and of one PyTorch
    library call computing the same function (`library_ms`: a batched
-   matmul for K1, a CSR SpMV of the assembled level matrix for K3, K4b
-   and K5), and the least time the card could take (`bound_ms`: bytes at
-   3.35 TB/s against f32 operations at 67 TFLOP/s, the larger).
+   matmul over the full materialized tangent for K1, K1b, K1c, K2 and K2b
+   (no single call consumes the upper-block layout of K2/K2b), a CSR SpMV
+   of the assembled level matrix for K3, K4b and K5, the elementwise
+   `x * salt` and `x + 1` for C1/C2), and the least time the card could
+   take (`bound_ms`: the bytes of the stored operands read once and the
+   output written once at 3.35 TB/s against f32 operations at 67 TFLOP/s,
+   the larger).
    Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
    plus order); C1/C2 exact.
@@ -29,7 +33,7 @@ script exits non-zero without printing a result):
 5. linear2d — `LinearElastodynamics` with `bench.py:build_linear_model`'s
    parameters in 2D (the perpendicular flap, Q2, scale 48: 999,362 DoF;
    MG, f32 CG inside f64 refinement) but an f32 multigrid hierarchy
-   (`LINEAR_2D`: with bf16 the CG stalls at this size), the same
+   (`LINEAR_2D`: with bf16 the CG takes ~20x the iterations), the same
    traction, 1 warmup and 3 timed theta-steps. Every step's residual must
    be <= 1e-10 (the reference's absolute contract) and ||u||^2 within rtol
    1e-6 of the JAX package's value. Then the recorded golden tip
@@ -40,12 +44,25 @@ script exits non-zero without printing a result):
    (`NONLINEAR_2D`), same traction and steps; every step
    converged, ||u||^2 within rtol 1e-4 of the JAX package's value.
 
-In phases 4-6 the kernel launch counts are set to 0 after the model is
+7. tangent3d — phase 4's configuration and mesh, once for each tangent
+   storage and matvec kernel pair (`tangent_block_symmetric`,
+   `tangent_matvec_kernel`) in (False, packed) -> K1b, (False, blocks) ->
+   K1c, (True, auto) -> K2, (True, blocks) -> K2b, with phase 4's lam_max
+   values, 1 warmup and 3 timed steps each: every step converged, ||u||^2
+   within rtol 1e-4 of the JAX package's value; prints per-step times, CG
+   and Newton counts, peak device memory and the checksum's difference
+   from phase 4's (the K1 path).
+8. vcycle_bf16 — the 2D linear model of phase 5 at scale 24 (250,850 DoF)
+   with the bf16 multigrid hierarchy, step 0 with each inner CG capped at
+   `VCYCLE_BF16_CAP`: its CG count must be at most 1.25x the JAX
+   package's on the CPU (`VCYCLE_BF16_REF`), residual <= 1e-10.
+
+In phases 4-8 the kernel launch counts are set to 0 after the model is
 built and read after its steps; every kernel of the path (C1/C2, whose
 check runs again as the path's first kernel call loads the library, and
-K1, K3, K4b, K5 as the path uses them) must have launched. `--profile`
-adds one step of each path under torch.profiler and prints its
-device-time table.
+K1, K1b, K1c, K2, K2b, K3, K4b, K5 as the path uses them) must have
+launched. `--profile` adds one step of each of phases 4-6 under
+torch.profiler and prints its device-time table.
 
 The line before the last is the JSON kernel record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -69,6 +86,14 @@ LINEAR2D_RTOL = 1e-6  # both solves meet the absolute 1e-10 residual
 NONLINEAR2D_REF = 72.16762520558771
 NONLINEAR2D_RTOL = 1e-4
 GOLDEN_RTOL = 1e-9  # tests/test_golden_trajectory.py's linear tolerance
+# CG iterations of the linear model's step 0 with the bf16 hierarchy at
+# scale 24 (LINEAR_2D with precond_dtype="bfloat16"), JAX package on the CPU:
+#   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py linear --scale 24 \
+#       --steps 1 --precond-dtype bfloat16
+VCYCLE_BF16_REF = 160
+VCYCLE_BF16_RATIO = 1.25
+VCYCLE_BF16_SCALE = 24
+VCYCLE_BF16_CAP = 2000  # per inner solve, so that a stall ends the phase
 F32_RTOL = 1e-5
 BF16_RTOL = 1e-2
 SCALE = 9  # 3D main path: 1,018,875 DoF
@@ -100,11 +125,10 @@ LINEAR = dict(
     mg_smooth_degree=3, mg_fine_smooth_degree=2, use_pallas=True,
 )
 # The 2D paths run the configurations above with an f32 multigrid
-# hierarchy: with the bf16 one the f32 CG on the card stalls at this size
-# (2D flap, 999,362 DoF: the linear model's first inner solve stood at
-# 1.3e-4 after 2,000 iterations against a tolerance of 9.1e-8; one
-# nonlinear step did not finish in 300 s), while the f32 hierarchy takes
-# 10 iterations per inner solve (PERF.md, Findings; measured with
+# hierarchy: with the bf16 one the CG takes far more iterations at this
+# size (2D flap, 999,362 DoF: 788 in the linear model's first step, as
+# the JAX package's 823, and ~2,800 in the Neo-Hookean one, against 40
+# and 33 with f32; PERF.md, Findings; measured with
 # tools/port_cg_by_size.py).
 LINEAR_2D = dict(LINEAR, dim=2, precond_dtype="float32")
 NONLINEAR_2D = dict(NONLINEAR, dim=2, precond_dtype="float32")
@@ -114,14 +138,27 @@ GOLDEN_LINEAR = dict(
     delta_t=0.005, theta=0.5, mu=0.5e6, nu=0.4, rho=1000.0,
     max_iterations_lin=10.0,
 )
+# (cells, nodes per cell, dim) of the tangent kernels' checks: the 3D main
+# path's Q2 cells and the 2D paths'
+TANGENT_SHAPES = ((27 * 162 * 9, 27, 3), (144 * 864, 9, 2))
+# the tangent3d variants: (tangent_block_symmetric, tangent_matvec_kernel)
+# and the kernel each runs in place of K1
+TANGENT_VARIANTS = (
+    (False, "packed", "K1b tangent_matvec_rows"),
+    (False, "blocks", "K1c tangent_matvec_blocks"),
+    (True, "auto", "K2 tangent_matvec_sym"),
+    (True, "blocks", "K2b tangent_matvec_sym_blocks"),
+)
+_HEALTH = ("C1 health_scale", "C2 health_add_one")
+_MG3D = ("K3 q1_structured", "K5 q2_structured")
 # which kernels each path must launch
 PATH_KERNELS = {
-    "main3d": ("C1 health_scale", "C2 health_add_one", "K1 tangent_matvec",
-               "K3 q1_structured", "K5 q2_structured"),
-    "linear2d": ("C1 health_scale", "C2 health_add_one",
-                 "K4b q1_structured_2d"),
-    "nonlinear2d": ("C1 health_scale", "C2 health_add_one",
-                    "K1 tangent_matvec", "K4b q1_structured_2d"),
+    "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    **{f"tangent3d {sym} {kind}": _HEALTH + (kern,) + _MG3D
+       for sym, kind, kern in TANGENT_VARIANTS},
+    "linear2d": _HEALTH + ("K4b q1_structured_2d",),
+    "nonlinear2d": _HEALTH + ("K1 tangent_matvec", "K4b q1_structured_2d"),
+    "vcycle_bf16": _HEALTH + ("K4b q1_structured_2d",),
 }
 
 
@@ -275,8 +312,112 @@ def check_gather(op, u, limit):
     return chk
 
 
+def tangent_check(name, shape, fn, plain, stored_bytes, edofs, n_cells,
+                  K_rows, u2):
+    """One tangent-kernel check: error against the plain version, kernel
+    and plain times, bound (the stored blocks, u and out moved once) and
+    the batched product over the full row-major tangent `K_rows`."""
+    import torch
+
+    mx, rel = compare(fn(), plain())
+    b_ms, b_by = bound(stored_bytes + 2 * 4 * edofs * n_cells,
+                       2 * edofs * edofs * n_cells)
+    chk = dict(
+        shape=shape, max_abs_err=mx, rel_l2_err=rel, limit=F32_RTOL,
+        ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        # one batched product over the cells (PyTorch lays the operands out
+        # for it itself)
+        library_ms=cuda_ms(lambda: torch.bmm(K_rows.permute(2, 0, 1),
+                                             u2.T.unsqueeze(-1))),
+    )
+    log(f"kernel {name} {shape}: rel_l2 {rel:.3e} max_abs {mx:.3e}  "
+        f"{chk['ms']:.4f} ms vs plain {chk['plain_ms']:.4f}, library (bmm) "
+        f"{chk['library_ms']:.4f}, bound {b_ms:.4f} ms ({b_by})")
+    require(rel <= F32_RTOL, chk)
+    return chk
+
+
+def tangent_kernel_records(randn, dev):
+    """K1, K1b, K1c, K2 and K2b, f32, at the 3D main path's shape (39,366
+    Q2 cells, npc 27, 81 element dofs) and the 2D paths' (124,416 cells,
+    npc 9, 18 element dofs). K1's inputs come from `randn`; the others'
+    from their own seeded generator: random upper blocks, the lower ones
+    their transposed views, as the assembly gives them."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops import assembled_tangent as at
+
+    g2 = torch.Generator(device="cpu").manual_seed(4321)
+
+    def randn2(*shape):
+        return torch.randn(*shape, generator=g2).to(dev)
+
+    checks = {name: [] for name in (
+        "K1 tangent_matvec", "K1b tangent_matvec_rows",
+        "K1c tangent_matvec_blocks", "K2 tangent_matvec_sym",
+        "K2b tangent_matvec_sym_blocks")}
+    for n_cells, npc, dim in TANGENT_SHAPES:
+        edofs = dim * npc
+        full = 4 * edofs * edofs * n_cells
+        KT = randn(edofs, edofs, n_cells)
+        u2 = randn(edofs, n_cells)
+        checks["K1 tangent_matvec"].append(tangent_check(
+            "K1", f"KT {edofs}x{edofs}x{n_cells} f32",
+            lambda: at.apply_packed_tangents_T(KT, u2),
+            lambda: at.apply_packed_tangents_T_plain(KT, u2),
+            full, edofs, n_cells, KT.transpose(0, 1), u2))
+        del KT
+        u2 = randn2(edofs, n_cells)
+        Ku = [randn2(npc, npc, n_cells) for _ in at.upper_blocks(dim)]
+        K = [[None] * dim for _ in range(dim)]
+        for (d, e), b in zip(at.upper_blocks(dim), Ku):
+            K[d][e], K[e][d] = b, b.transpose(0, 1)
+        K_rows = at.pack_cell_tangents(K)
+        Kpack = at.pack_cell_tangents_sym(Ku)
+        sym = 4 * len(Ku) * npc * npc * n_cells
+        for name, shape, fn, plain, stored in (
+            ("K1b tangent_matvec_rows", f"K {edofs}x{edofs}x{n_cells} f32",
+             lambda: at.apply_packed_tangents(K_rows, u2),
+             lambda: at.apply_packed_tangents_plain(K_rows, u2), full),
+            ("K1c tangent_matvec_blocks",
+             f"{dim}x{dim} blocks {npc}x{npc}x{n_cells} f32",
+             lambda: at.apply_block_tangents(K, u2),
+             lambda: at.apply_block_tangents_plain(K, u2), full),
+            ("K2 tangent_matvec_sym",
+             f"Kpack {len(Ku) * npc}x{npc}x{n_cells} f32",
+             lambda: at.apply_packed_tangents_sym(Kpack, u2, dim, npc),
+             lambda: at.apply_packed_tangents_sym_plain(Kpack, u2, dim, npc),
+             sym),
+            ("K2b tangent_matvec_sym_blocks",
+             f"{len(Ku)} blocks {npc}x{npc}x{n_cells} f32",
+             lambda: at.apply_sym_block_tangents(Ku, u2, dim, npc),
+             lambda: at.apply_sym_block_tangents_plain(Ku, u2, dim, npc), sym),
+        ):
+            checks[name].append(tangent_check(
+                name.split()[0], shape, fn, plain, stored, edofs, n_cells,
+                K_rows, u2))
+        del u2, Ku, K, K_rows, Kpack
+        torch.cuda.empty_cache()
+    meta = {
+        "K1 tangent_matvec": ("tangent_matvec.cu", 510),
+        "K1b tangent_matvec_rows": ("tangent_matvec.cu", 552),
+        "K1c tangent_matvec_blocks": ("tangent_matvec.cu", 597),
+        "K2 tangent_matvec_sym": ("tangent_matvec_sym.cu", 445),
+        "K2b tangent_matvec_sym_blocks": ("tangent_matvec_sym.cu", 644),
+    }
+    return [
+        dict(name=name, route="cuda",
+             source=f"dealii_adapter_tpu_torch/csrc/{meta[name][0]}",
+             replaces=f"dealii_adapter_tpu/ops/assembled_tangent.py:{meta[name][1]}",
+             library_call="torch.bmm over the full (E, E, C) tangent"
+             + ("; no single call consumes the upper-block layout"
+                if name.startswith("K2") else ""),
+             **c3d, other_checks=[c2d])
+        for name, (c3d, c2d) in checks.items()
+    ]
+
+
 def phase_kernels():
-    import numpy as np
     import torch
 
     from dealii_adapter_tpu_torch.kernels import _build
@@ -295,41 +436,7 @@ def phase_kernels():
 
     records = []
 
-    # K1: assembled-tangent matvec, f32, at the 3D main path's shape
-    # (39,366 Q2 cells, 81 element dofs) and the 2D paths' (124,416 cells,
-    # 18 element dofs)
-    k1 = []
-    for n_cells, edofs in ((27 * 162 * 9, 81), (144 * 864, 18)):
-        KT = randn(edofs, edofs, n_cells)
-        u2 = randn(edofs, n_cells)
-        mx, rel = compare(at.apply_packed_tangents_T(KT, u2),
-                          at.apply_packed_tangents_T_plain(KT, u2))
-        b_ms, b_by = bound(4 * (edofs * edofs * n_cells + 2 * edofs * n_cells),
-                           2 * edofs * edofs * n_cells)
-        chk = dict(
-            shape=f"KT {edofs}x{edofs}x{n_cells} f32", max_abs_err=mx,
-            rel_l2_err=rel, limit=F32_RTOL,
-            ms=cuda_ms(lambda: at.apply_packed_tangents_T(KT, u2)),
-            plain_ms=cuda_ms(lambda: at.apply_packed_tangents_T_plain(KT, u2)),
-            bound_ms=b_ms, bound_by=b_by,
-            # one batched product over the cells (PyTorch lays the
-            # operands out for it itself)
-            library_ms=cuda_ms(lambda: torch.bmm(
-                KT.permute(2, 1, 0), u2.T.unsqueeze(-1))),
-        )
-        log(f"kernel K1 {chk['shape']}: rel_l2 {rel:.3e} max_abs {mx:.3e}  "
-            f"{chk['ms']:.4f} ms vs plain {chk['plain_ms']:.4f}, library "
-            f"(bmm) {chk['library_ms']:.4f}, bound {b_ms:.4f} ms ({b_by})")
-        require(rel <= F32_RTOL, chk)
-        k1.append(chk)
-        del KT, u2
-        torch.cuda.empty_cache()
-    records.append(dict(
-        name="K1 tangent_matvec", route="cuda",
-        source="dealii_adapter_tpu_torch/csrc/tangent_matvec.cu",
-        replaces="dealii_adapter_tpu/ops/assembled_tangent.py:510",
-        library_call="torch.bmm", **k1[0], other_checks=k1[1:],
-    ))
+    records += tangent_kernel_records(randn, dev)
 
     # K3: 3D Q1 level operator on the FEM-SEM lattice of the main path with
     # the anisotropic E of the first semi-coarsened level (cells
@@ -410,11 +517,11 @@ def phase_kernels():
     x = randn(8, 128)
     salt = 1.0 + 37.0 / 1024.0
     b_ms, b_by = bound(2 * x.numel() * 4, x.numel())
-    for name, replaces, fn, plain in (
+    for name, replaces, fn, plain, library_call in (
         ("C1 health_scale", "dealii_adapter_tpu/utils/tunecache.py:136",
-         lambda: _build.health_scale(x, salt), lambda: x * salt),
+         lambda: _build.health_scale(x, salt), lambda: x * salt, "x * salt"),
         ("C2 health_add_one", "dealii_adapter_tpu/utils/tunecache.py:414",
-         lambda: _build.health_add_one(x), lambda: x + 1.0),
+         lambda: _build.health_add_one(x), lambda: x + 1.0, "x + 1"),
     ):
         mx, _ = compare(fn(), plain())
         rec = dict(
@@ -422,10 +529,13 @@ def phase_kernels():
             source="dealii_adapter_tpu_torch/csrc/health.cu", replaces=replaces,
             shape="(8, 128) f32", max_abs_err=mx, limit=0.0,
             ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
-            bound_by=b_by, library_ms=None,
+            bound_by=b_by,
+            # the same one elementwise PyTorch call, timed on its own
+            library_ms=cuda_ms(plain), library_call=library_call,
         )
         log(f"kernel {name}: max_abs {mx!r}  {rec['ms']:.4f} ms vs plain "
-            f"{rec['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f"{rec['plain_ms']:.4f} ms, library ({library_call}) "
+            f"{rec['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         require(mx == 0.0, rec)
         records.append(rec)
     return records
@@ -444,6 +554,10 @@ def counters():
         "C1 health_scale": _build.health_scale,
         "C2 health_add_one": _build.health_add_one,
         "K1 tangent_matvec": at.apply_packed_tangents_T,
+        "K1b tangent_matvec_rows": at.apply_packed_tangents,
+        "K1c tangent_matvec_blocks": at.apply_block_tangents,
+        "K2 tangent_matvec_sym": at.apply_packed_tangents_sym,
+        "K2b tangent_matvec_sym_blocks": at.apply_sym_block_tangents,
         "K3 q1_structured": Q1StructuredOperator,
         "K4b q1_structured_2d": Q1StructuredOperator2D,
         "K5 q2_structured": Q2StructuredOperator,
@@ -467,28 +581,31 @@ def read_counts(path):
     return launches
 
 
-def build_model(device, dim=3, scale=None):
+def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
+                **overrides):
     """`NonlinearElasticity` on the port: the benchmark configuration of
     bench.py's build_model (its environment defaults) in 3D, `NONLINEAR_2D`
-    in 2D."""
+    in 2D, with `overrides`; `mesh_tags` reuses a mesh (and the multigrid
+    geometry cached on it), `mg_lam_max` a hierarchy's lam_max values."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
         NonlinearElasticity,
     )
 
-    mesh, tags = make_scenario_grid(
+    mesh, tags = mesh_tags or make_scenario_grid(
         "PF", dim, 2, scale=SCALE if scale is None else scale,
         solver="neo-Hookean",
     )
     params = NONLINEAR_2D if dim == 2 else dict(NONLINEAR, dim=dim)
-    return NonlinearElasticity(AllParameters(**params), mesh=mesh, tags=tags,
-                               device=device)
+    return NonlinearElasticity(AllParameters(**dict(params, **overrides)),
+                               mesh=mesh, tags=tags, device=device,
+                               mg_lam_max=mg_lam_max)
 
 
-def build_linear_model(device, scale=None):
-    """`LinearElastodynamics` with `LINEAR_2D` on the 2D flap, on the
-    port."""
+def build_linear_model(device, scale=None, **overrides):
+    """`LinearElastodynamics` with `LINEAR_2D` and `overrides` on the 2D
+    flap, on the port."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.linear_elasticity import (
@@ -498,8 +615,8 @@ def build_linear_model(device, scale=None):
     mesh, tags = make_scenario_grid(
         "PF", 2, 2, scale=SCALE_2D if scale is None else scale, solver="linear",
     )
-    return LinearElastodynamics(AllParameters(**LINEAR_2D), mesh=mesh,
-                                tags=tags, device=device)
+    return LinearElastodynamics(AllParameters(**dict(LINEAR_2D, **overrides)),
+                                mesh=mesh, tags=tags, device=device)
 
 
 def interface_traction(model, magnitude=1000.0):
@@ -606,6 +723,78 @@ def phase_main(profile):
     check_checksum("main", checksum, CHECKSUM_REF, CHECKSUM_RTOL)
     if profile:
         profile_step("main", model, state, stress)
+    return launches, dict(
+        mesh_tags=(model.mesh, model.tags), checksum=checksum,
+        lam_max=[lv.lam_max for lv in model._precond.levels],
+    )
+
+
+def phase_tangent3d(main):
+    """The main configuration with each tangent storage and kernel of
+    `TANGENT_VARIANTS`, on the main path's mesh and lam_max values; returns
+    {path: launches}."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.assembled_tangent import tangent_bytes
+
+    dev = torch.device("cuda")
+    by_path = {}
+    for sym, kind, kern in TANGENT_VARIANTS:
+        tag = f"tangent3d {sym} {kind}"
+        t0 = time.perf_counter()
+        model = build_model(
+            dev, mesh_tags=main["mesh_tags"], mg_lam_max=main["lam_max"],
+            tangent_block_symmetric=sym, tangent_matvec_kernel=kind,
+        )
+        torch.cuda.synchronize()
+        log(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, kernel "
+            f"{model.tangent_kernel}, stored tangent "
+            f"{tangent_bytes(model.space, torch.float32, sym=sym) / 1e9:.3f} GB")
+        require(kern.startswith(model.tangent_kernel + " "),
+                f"{tag}: kernel {model.tangent_kernel}, expected {kern}")
+        torch.cuda.reset_peak_memory_stats()
+        stress = interface_traction(model)
+        start_counts()
+        _, infos, _, checksum = run_steps(tag, model, stress, newton_fmt)
+        by_path[tag] = read_counts(tag)
+        log(f"{tag}: launches {by_path[tag]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checksum "
+            f"rel. difference to the K1 path's: "
+            f"{abs(checksum - main['checksum']) / main['checksum']:.3e}")
+        require(all(i.converged for i in infos), f"{tag}: every step converged")
+        check_checksum(tag, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
+        del model
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_vcycle_bf16():
+    """Step 0 of the 2D linear model at `VCYCLE_BF16_SCALE` with the bf16
+    hierarchy: CG iterations against the JAX package's on the CPU."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_linear_model(dev, scale=VCYCLE_BF16_SCALE,
+                               precond_dtype="bfloat16")
+    torch.cuda.synchronize()
+    describe("vcycle_bf16", model, time.perf_counter() - t0)
+    model._max_cg_iter = VCYCLE_BF16_CAP
+    stress = interface_traction(model)
+    start_counts()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    _, info = model.step(model.initial_state(), stress)
+    torch.cuda.synchronize()
+    launches = read_counts("vcycle_bf16")
+    limit = VCYCLE_BF16_RATIO * VCYCLE_BF16_REF
+    log(f"vcycle_bf16: step 0 at {model.space.n_dofs} DoF in "
+        f"{time.perf_counter() - ts:.4f} s: cg {info.iterations} (JAX package "
+        f"on the CPU: {VCYCLE_BF16_REF}; limit {limit:g}), residual "
+        f"{info.residual!r}; launches {launches}")
+    require(info.residual <= 1e-10, f"vcycle_bf16: residual {info.residual}")
+    require(info.iterations <= limit,
+            f"vcycle_bf16: {info.iterations} CG > {limit:g}")
     return launches
 
 
@@ -706,11 +895,13 @@ def main():
 
     phase_build()
     records = phase_kernels()
-    by_path = {
-        "main3d": phase_main(args.profile),
-        "linear2d": phase_linear2d(args.profile),
-        "nonlinear2d": phase_nonlinear2d(args.profile),
-    }
+    by_path = {}
+    by_path["main3d"], main_run = phase_main(args.profile)
+    by_path.update(phase_tangent3d(main_run))
+    del main_run
+    by_path["linear2d"] = phase_linear2d(args.profile)
+    by_path["nonlinear2d"] = phase_nonlinear2d(args.profile)
+    by_path["vcycle_bf16"] = phase_vcycle_bf16()
     for rec in records:
         per_path = {p: n[rec["name"]] for p, n in by_path.items()
                     if rec["name"] in PATH_KERNELS[p]}

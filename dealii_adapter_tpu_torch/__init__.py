@@ -18,23 +18,31 @@ they raise.
 Hand-written CUDA kernels (`csrc/`, built for sm_90a at first use by
 `kernels/_build.py`, which launches the two health-check kernels C1/C2
 right after loading the library) carry that path: the assembled-tangent
-matvec K1 (`ops/assembled_tangent.py`), the Q1 structured level operators
+matvecs K1, K1b, K1c (full storage) and K2, K2b (block-symmetric
+storage) (`ops/assembled_tangent.py`), the Q1 structured level operators
 K3 (3D) and K4b (2D) (`ops/q1_structured.py`) and the 3D Q2 fine-level
 operator K5 (`ops/q2_structured.py`). Each wrapper launches its kernel for
 a CUDA tensor and runs the plain PyTorch version beside it for a CPU
-tensor; there is no other fallback. Kernel-selection knobs of the JAX
-config (`use_pallas`, `tangent_matvec_kernel`) are ignored.
+tensor; there is no other fallback. The Neo-Hookean model picks its
+tangent kernel from `tangent_block_symmetric` and `tangent_matvec_kernel`
+(`models/nonlinear_elasticity.py:tangent_kernel_id`); `use_pallas` is
+ignored.
 
 Precision policy, set once here: float32 matrix products run in full
-float32 on the card, never TF32 —
+float32 on the card, never TF32, and bf16/fp16 products reduce in f32 —
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 The tangent assembly needs true f32 products: a single-bf16-pass assembly
 diverges Newton on the production solve, and TF32 keeps no more mantissa
-than that class of error allows. The state, residual and norms stay f64.
+than that class of error allows. The bf16 multigrid transfers are matrix
+products; with reduced-precision reductions cuBLAS may sum their split-K
+parts in bf16, where PyTorch on the CPU and XLA sum in f32. The state,
+residual and norms stay f64.
 
 This package never imports jax; only its tests import both packages.
 """
@@ -44,6 +52,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from .config import AllParameters, parse_prm  # noqa: E402,F401
 from .models.linear_elasticity import LinearElastodynamics  # noqa: E402,F401

@@ -3,9 +3,10 @@
 A copy of `dealii_adapter_tpu/config.py`, kept field-for-field identical
 so that `convert.params_from_jax` can carry a parameter set across with
 `dataclasses.asdict`. The PyTorch package carries its own copy because
-importing anything from `dealii_adapter_tpu` imports jax. Knobs that
-select TPU kernels (`use_pallas`, `tangent_matvec_kernel`) are read by
-nothing in this package.
+importing anything from `dealii_adapter_tpu` imports jax. `use_pallas`
+is read by nothing in this package; `tangent_matvec_kernel` and
+`tangent_block_symmetric` select the CUDA tangent matvec kernel
+(`models/nonlinear_elasticity.py:tangent_kernel_id`).
 
 Mirrors the five parameter structs of the reference
 (`include/adapter/parameters.h:17-111`) as Python dataclasses, plus a parser

@@ -42,8 +42,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: (argtypes, restype cudaError_t)
 _SIGNATURES = {
-    # (KT, u, out, edofs, n_cells, stream)
+    # (K, u, out, edofs, n_cells, stream): K1 column-major, K1b row-major
     "dat_tangent_matvec_f32": (_P, _P, _P, _I, ctypes.c_longlong, _P),
+    "dat_tangent_matvec_rows_f32": (_P, _P, _P, _I, ctypes.c_longlong, _P),
+    # K1c (ptrs[dim^2], strides_i[dim^2], strides_j[dim^2], u, out, dim,
+    # npc, n_cells, stream)
+    "dat_tangent_matvec_blocks_f32": (_P, _P, _P, _P, _P, _I, _I,
+                                      ctypes.c_longlong, _P),
+    # K2/K2b (ptrs[n_upper_blocks], u, out, dim, npc, n_cells, stream)
+    "dat_tangent_matvec_sym_f32": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
     # (u, y, E, nz, ny, nx, io_bf16, stream)
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q2_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -178,6 +185,12 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def c_array(ctype, values):
+    """A ctypes array of `values`; pass `ctypes.addressof` of it as a
+    pointer argument and keep it alive across the call."""
+    return (ctype * len(values))(*values)
 
 
 def _f32_block(x):

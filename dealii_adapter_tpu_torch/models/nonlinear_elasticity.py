@@ -9,10 +9,17 @@ step Newton solves
 with the Newmark acceleration a = alpha_1 delta - alpha_2 v_n - alpha_3 a_n
 and the dual relative/absolute convergence rule of the reference. Each
 Newton iteration assembles the per-cell tangents in the solve dtype (f32
-on the production path), packs them column-major, and runs a CG whose
-matvec is extract -> kernel K1 -> overlap-add, preconditioned by the
-geometric-multigrid V-cycle (kernels K5 and K3 in 3D, K4b in 2D) or
-Jacobi/Chebyshev.
+on the production path), lays them out for the selected matvec kernel,
+and runs a CG whose matvec is extract -> tangent kernel -> overlap-add,
+preconditioned by the geometric-multigrid V-cycle (kernels K5 and K3 in
+3D, K4b in 2D) or Jacobi/Chebyshev. The tangent kernel follows
+`tangent_block_symmetric` and `tangent_matvec_kernel` as the JAX package
+picks its Pallas kernel (`tangent_kernel_id`): full storage runs K1 (the
+column-major pack; `auto`, `packedt`, `xla`), K1b (`packed`) or K1c
+(`blocks`); block-symmetric storage, the upper component blocks only,
+runs K2 (`auto`, `packed`, `packedt` with a warning, `xla`) or K2b
+(`blocks`). `xla` names a library-form matvec that the port does not
+have, so it takes the `auto` kernel.
 
 Differences from the JAX package, all in the host orchestration:
 * Newton and CG are host loops (`lax.while_loop` in JAX): every Newton
@@ -32,6 +39,7 @@ Unported variants raise NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,9 +50,16 @@ from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..mesh.generator import StructuredMesh, make_scenario_grid
 from ..ops.assembled_tangent import (
+    apply_block_tangents,
+    apply_packed_tangents,
+    apply_packed_tangents_sym,
     apply_packed_tangents_T,
+    apply_sym_block_tangents,
     assemble_cell_tangents,
+    assemble_cell_tangents_sym,
     contraction_basis,
+    pack_cell_tangents,
+    pack_cell_tangents_sym,
     pack_cell_tangents_T,
     tangent_bytes,
 )
@@ -263,15 +278,16 @@ class NonlinearElasticity:
             self._int_force32_J = None
         if self.device.type == "cuda" and tdt != torch.float32:
             raise NotImplementedError(
-                "the tangent matvec kernel (K1) is f32: set solve_dtype="
-                "'float32' on CUDA"
+                "the tangent matvec kernels (K1, K1b, K1c, K2, K2b) are f32: "
+                "set solve_dtype='float32' on CUDA"
             )
 
-        # assembled per-cell tangent in the solve dtype (the production
-        # layout is the column-major pack applied by K1)
+        # assembled per-cell tangent in the solve dtype, in the layout of
+        # the selected matvec kernel
         self._use_assembled = params.type_lin == "CG"
+        self.tangent_kernel = tangent_kernel_id(params)
         if self._use_assembled:
-            kb = tangent_bytes(space, tdt)
+            kb = tangent_bytes(space, tdt, sym=params.tangent_block_symmetric)
             if kb > params.assembled_tangent_max_gb * 1e9:
                 raise NotImplementedError(
                     f"the per-cell tangents need {kb / 1e9:.1f} GB (> "
@@ -339,34 +355,49 @@ class NonlinearElasticity:
         self._max_cg_iter = int(space.n_dofs * params.max_iterations_lin)
 
     # ------------------------------------------------------------------
-    # tangent (assembled, column-major pack, kernel K1)
+    # tangent (assembled; kernels K1, K1b, K1c, K2, K2b)
     # ------------------------------------------------------------------
 
     def _make_tangent_fns(self):
         """`(assemble_Kt, make_tangent_matvec)`: `assemble_Kt(u_t)`
-        assembles and packs the per-cell tangents at the solve-dtype
-        iterate; `make_tangent_matvec(KT)` is the BC-masked CG operator
-        extract -> K1 -> overlap-add."""
+        assembles the per-cell tangents at the solve-dtype iterate in the
+        layout `self.tangent_kernel` consumes (the column-major pack KT,
+        the row-major pack K, the nested blocks, the symmetric pack or the
+        upper blocks); `make_tangent_matvec(Kt)` is the BC-masked CG
+        operator extract -> that kernel -> overlap-add."""
         dim = self.space.dim
         deg = self.mesh.degree
         gs, rr = self._grid_shape, self._reps_rev
         npc = self.space.tab.n_nodes
         mask_t = self.mask_t
+        kern = self.tangent_kernel
+        sym = kern in ("K2", "K2b")
+        assemble = assemble_cell_tangents_sym if sym else assemble_cell_tangents
+        # K1c and K2b read the blocks as the assembly returns them
+        layout = {
+            "K1": pack_cell_tangents_T, "K1b": pack_cell_tangents,
+            "K2": pack_cell_tangents_sym,
+        }.get(kern, lambda K: K)
+        apply = {
+            "K1": apply_packed_tangents_T, "K1b": apply_packed_tangents,
+            "K1c": apply_block_tangents,
+            "K2": lambda Kt, u2: apply_packed_tangents_sym(Kt, u2, dim, npc),
+            "K2b": lambda Kt, u2: apply_sym_block_tangents(Kt, u2, dim, npc),
+        }[kern]
 
         def assemble_Kt(u_t):
             ut_p = extract_cell_patches_T(u_t.reshape(gs + (dim,)), deg, rr)
-            K = assemble_cell_tangents(
+            return layout(assemble(
                 ut_p, self._G_t, self._w_t, self.material,
                 mass_term=self._tangent_mass, S=self._S_t,
-            )
-            return pack_cell_tangents_T(K)
+            ))
 
-        def make_tangent_matvec(KT):
+        def make_tangent_matvec(Kt):
             def K32(v):
                 mv = mask_t * v
                 pv = extract_cell_patches_T(mv.reshape(gs + (dim,)), deg, rr)
                 c = pv.shape[-1]
-                o = apply_packed_tangents_T(KT, pv.reshape(dim * npc, c))
+                o = apply(Kt, pv.reshape(dim * npc, c))
                 Kv = overlap_add_T(o.reshape(dim, npc, c), deg, rr, gs)
                 return mask_t * Kv.reshape(-1, dim) + (1.0 - mask_t) * v
 
@@ -673,8 +704,6 @@ class NonlinearElasticity:
 def _check_ported(params: AllParameters) -> None:
     """Raise for configurations whose code path is not ported yet."""
     unported = [
-        (params.tangent_block_symmetric, "tangent_block_symmetric",
-         "Queue 1 item 12 / Queue 2 K2"),
         (params.newton_tangent_reuse, "newton_tangent_reuse", "Queue 1 item 12"),
         (params.mg_fine_tangent, "mg_fine_tangent", "Queue 1 item 12"),
         (params.use_sumfact, "use_sumfact", "Queue 1 item 12"),
@@ -690,3 +719,23 @@ def _check_ported(params: AllParameters) -> None:
             raise NotImplementedError(
                 f"{name} is not ported to the PyTorch package (ROADMAP {item})"
             )
+
+
+def tangent_kernel_id(params: AllParameters) -> str:
+    """The tangent matvec kernel the parameters select, as the JAX package
+    selects its Pallas kernel (`models/nonlinear_elasticity.py`, the kinds
+    ladder and `_make_tangent_fns`): "K1", "K1b" or "K1c" for full
+    storage, "K2" or "K2b" for `tangent_block_symmetric`. `xla` takes the
+    `auto` kernel (the port has no library-form matvec); `packedt` has no
+    symmetric variant and, as in the JAX package, warns and runs the
+    packed one (K2)."""
+    kind = params.tangent_matvec_kernel
+    if not params.tangent_block_symmetric:
+        return {"packed": "K1b", "blocks": "K1c"}.get(kind, "K1")
+    if kind == "packedt":
+        warnings.warn(
+            "tangent_matvec_kernel='packedt' has no block-symmetric variant; "
+            "using 'packed' (row-major) instead",
+            stacklevel=4,
+        )
+    return "K2b" if kind == "blocks" else "K2"

@@ -202,24 +202,36 @@ class MGLevel:
     coarse_solve: Optional[Callable] = None  # coarsest level only
 
 
+def _coef(c: float, dtype) -> float:
+    """A Python scalar rounded to `dtype`, as JAX rounds a weakly typed
+    scalar to the array's dtype. PyTorch keeps the scalar of a bf16 op in
+    f32; for f32 and f64 tensors it rounds it the same way."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
 def _chebyshev_smooth(level: MGLevel, b, x, degree: int, x_is_zero=False):
     """`degree` Chebyshev iterations on [lam_max/4, 1.05 lam_max] of the
     Jacobi-scaled level operator. `x_is_zero` skips the initial residual
-    apply."""
+    apply. Each operation rounds to the hierarchy dtype, and so do the
+    polynomial's coefficients (`_coef`), as in the JAX package's smoother
+    run by XLA on the CPU; in f32 and f64 this is PyTorch's own
+    arithmetic."""
+    dt = b.dtype
     inv = 1.0 / level.diag
     lmax = level.lam_max * 1.05
     lmin = level.lam_max / 4.0
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     resid = b if x_is_zero else b - level.operator(x)
-    d = (1.0 / theta) * (inv * resid)
+    d = _coef(1.0 / theta, dt) * (inv * resid)
     sigma = theta / delta
     rho = 1.0 / sigma
     for _ in range(degree):
         x = x + d
         resid = resid - level.operator(d)
         rho_next = 1.0 / (2.0 * sigma - rho)
-        d = rho_next * rho * d + (2.0 * rho_next / delta) * (inv * resid)
+        d = (_coef(rho_next * rho, dt) * d
+             + _coef(2.0 * rho_next / delta, dt) * (inv * resid))
         rho = rho_next
     return x + d
 

@@ -1,20 +1,28 @@
 """Assembled per-cell tangent of the PyTorch package against the JAX
-package (f64 rtol 1e-10, f32 rtol 1e-5), the plain version of K1 against
-the Pallas kernel it replaces (interpret mode), and K1 against
-`torch.func.jvp` of the ported internal force."""
+package (f64 rtol 1e-10, f32 rtol 1e-5), full and block-symmetric; the
+plain versions of K1, K1b, K1c, K2 and K2b against the Pallas kernels they
+replace (interpret mode, f64 rtol 1e-12); and K1 against `torch.func.jvp`
+of the ported internal force."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dealii_adapter_tpu.config import AllParameters as JaxParams
 from dealii_adapter_tpu.models.material import NeoHookean as JaxNeoHookean
+from dealii_adapter_tpu.models.nonlinear_elasticity import (
+    NonlinearElasticity as JaxModel,
+)
 from dealii_adapter_tpu.ops import assembled_tangent as jat
+from dealii_adapter_tpu_torch.convert import params_from_jax, state_to_numpy
 from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
 from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
 from dealii_adapter_tpu_torch.models.material import NeoHookean
 from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
+    NonlinearElasticity,
     internal_force_cellwise_T,
+    tangent_kernel_id,
 )
 from dealii_adapter_tpu_torch.ops import assembled_tangent as tat
 from dealii_adapter_tpu_torch.ops.element_ops import ElementMatrices
@@ -175,3 +183,173 @@ def test_k1_equals_jvp_of_internal_force(dim):
     o = tat.apply_packed_tangents_T(KT, pv.reshape(dim * npc, c))
     Kv = overlap_add_T(o.reshape(dim, npc, c), p, rr, gs)
     _close(Kv.numpy(), jv.numpy(), 1e-10)
+
+
+def _padded(x, bc):
+    """Pad the trailing cell axis to a multiple of `bc` (the JAX Pallas
+    kernels' lane blocks; the port's kernels take any cell count)."""
+    return np.pad(np.asarray(x), [(0, 0)] * (x.ndim - 1) + [(0, (-x.shape[-1]) % bc)])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("kernel", ["K1b", "K1c", "K2", "K2b"])
+def test_plain_tangent_kernels_match_pallas_interpret(kernel, dim):
+    """The plain versions of K1b, K1c, K2 and K2b against the Pallas kernels
+    they replace (interpret mode) on an assembled tangent, padded to the
+    kernels' lane block on the JAX side only (f64, rtol 1e-12); on CPU
+    tensors the wrappers launch nothing."""
+    _, t, _ = _setup(dim, 2, torch.float64, seed=5)
+    bc = 64
+    npc, c = t["ut"].shape[1], t["ut"].shape[-1]
+    args = (t["ut"], t["G"], t["w"], NeoHookean(MU, NU, RHO))
+    v = np.random.default_rng(6).standard_normal((dim * npc, c))
+    vj = jnp.asarray(_padded(v, bc))
+    u2 = torch.from_numpy(v)
+    if kernel in ("K1b", "K1c"):
+        K = tat.assemble_cell_tangents(*args, mass_term=t["mass"])
+        Kj = [[jnp.asarray(_padded(K[d][e].numpy(), bc)) for e in range(dim)]
+              for d in range(dim)]
+        if kernel == "K1b":
+            a = jat.apply_packed_tangents_pallas(
+                jat.pack_cell_tangents(Kj), vj, block_c=bc, interpret=True)
+            wrapper = tat.apply_packed_tangents
+            b = wrapper(tat.pack_cell_tangents(K), u2)
+        else:
+            a = jat.apply_block_tangents_pallas(Kj, vj, block_c=bc,
+                                                interpret=True)
+            wrapper = tat.apply_block_tangents
+            b = wrapper(K, u2)
+    else:
+        Ku = tat.assemble_cell_tangents_sym(*args, mass_term=t["mass"])
+        Kuj = [jnp.asarray(_padded(k.numpy(), bc)) for k in Ku]
+        if kernel == "K2":
+            a = jat.apply_packed_tangents_sym_pallas(
+                jat.pack_cell_tangents_sym(Kuj), vj, dim, npc, block_c=bc,
+                interpret=True)
+            wrapper = tat.apply_packed_tangents_sym
+            b = wrapper(tat.pack_cell_tangents_sym(Ku), u2, dim, npc)
+        else:
+            a = jat.apply_sym_block_tangents_pallas(Kuj, vj, dim, npc,
+                                                    block_c=bc, interpret=True)
+            wrapper = tat.apply_sym_block_tangents
+            b = wrapper(Ku, u2, dim, npc)
+    assert wrapper.launches == 0  # CPU tensors: the plain version
+    _close(b.numpy(), np.asarray(a)[:, :c], 1e-12)
+    # every layout applies the one tangent
+    full = tat.apply_cell_tangents(
+        tat.assemble_cell_tangents(*args, mass_term=t["mass"]),
+        u2.reshape(dim, npc, c))
+    _close(b.numpy(), full.reshape(dim * npc, c).numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_assemble_and_pack_sym_match_jax(dtype, dim):
+    """`assemble_cell_tangents_sym` and `pack_cell_tangents_sym` against the
+    JAX package's (f64 rtol 1e-10, f32 rtol 1e-5); the upper blocks are
+    those of the full assembly, bitwise."""
+    _, t, j = _setup(dim, 2, dtype, seed=7)
+    Kuj = jat.assemble_cell_tangents_sym(
+        j["ut"], j["G"], j["w"], JaxNeoHookean(MU, NU, RHO),
+        mass_term=j["mass"], precision="highest",
+    )
+    Kut = tat.assemble_cell_tangents_sym(
+        t["ut"], t["G"], t["w"], NeoHookean(MU, NU, RHO), mass_term=t["mass"]
+    )
+    assert len(Kut) == len(tat.upper_blocks(dim)) == len(Kuj)
+    for a, b in zip(Kuj, Kut):
+        assert b.is_contiguous()
+        _close(b.numpy(), a, RTOL[dtype])
+    _close(tat.pack_cell_tangents_sym(Kut).numpy(),
+           jat.pack_cell_tangents_sym(Kuj), RTOL[dtype])
+    K = tat.assemble_cell_tangents(
+        t["ut"], t["G"], t["w"], NeoHookean(MU, NU, RHO), mass_term=t["mass"]
+    )
+    for (d, e), b in zip(tat.upper_blocks(dim), Kut):
+        torch.testing.assert_close(b, K[d][e], rtol=0, atol=0)
+    # the full row-major pack, as the JAX package's
+    Kj = jat.assemble_cell_tangents(
+        j["ut"], j["G"], j["w"], JaxNeoHookean(MU, NU, RHO),
+        mass_term=j["mass"], precision="highest",
+    )
+    _close(tat.pack_cell_tangents(K).numpy(), jat.pack_cell_tangents(Kj),
+           RTOL[dtype])
+
+
+def test_sym_storage_counts_its_bytes():
+    """`tangent_bytes` counts the stored blocks: 6 of 9 in 3D, 3 of 4 in
+    2D."""
+    for dim, frac in ((3, 6 / 9), (2, 3 / 4)):
+        mesh, _ = make_scenario_grid("PF", dim, 2, solver="neo-Hookean")
+        space = DofSpace.create(mesh, n_q_1d=4)
+        full = tat.tangent_bytes(space, torch.float32)
+        assert tat.tangent_bytes(space, torch.float32, sym=True) == full * frac
+        assert full == (dim * space.tab.n_nodes) ** 2 * np.prod(mesh.reps) * 4
+
+
+# bench.py's production configuration in 2D, with an f32 hierarchy so that
+# the two packages' CG counts agree and the comparison isolates the tangent
+NONLINEAR_2D = dict(
+    model="neo-Hookean", type_lin="CG", scenario="PF", dim=2, poly_degree=2,
+    delta_t=0.01, mu=MU, nu=NU, rho=RHO, tol_lin=1e-6, tol_u=1e-6,
+    tol_f=1e-9, max_iterations_lin=1.0, max_iterations_NR=10,
+    dtype="float64", preconditioner="MG", precond_dtype="float32",
+    solve_dtype="float32", newton_forcing="ew", mg_smooth_degree=3,
+    mg_fine_smooth_degree=1, newton_predictor=True, ew_eta0=0.3,
+)
+KERNEL_OF = {  # (tangent_block_symmetric, tangent_matvec_kernel) -> kernel
+    (False, "auto"): "K1", (False, "packedt"): "K1", (False, "xla"): "K1",
+    (False, "packed"): "K1b", (False, "blocks"): "K1c",
+    (True, "auto"): "K2", (True, "packed"): "K2", (True, "xla"): "K2",
+    (True, "blocks"): "K2b",
+}
+
+
+def test_tangent_kernel_dispatch():
+    """The knobs pick the kernels as the JAX package picks its Pallas
+    kernels; 'packedt' with symmetric storage warns and runs K2."""
+    for (sym, kind), kern in KERNEL_OF.items():
+        p = JaxParams(tangent_block_symmetric=sym, tangent_matvec_kernel=kind)
+        assert tangent_kernel_id(params_from_jax(p)) == kern
+    p = params_from_jax(JaxParams(tangent_block_symmetric=True,
+                                  tangent_matvec_kernel="packedt"))
+    with pytest.warns(UserWarning, match="no block-symmetric variant"):
+        assert tangent_kernel_id(p) == "K2"
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_2d_steps_match_jax_for_every_tangent_kernel(sym):
+    """Two Newmark steps of the 2D flap: the port with each kernel of the
+    storage (`tangent_block_symmetric=sym`) against one JAX run (off the
+    TPU the JAX result does not depend on the kernel knob): the same
+    Newton iterations, displacements within rtol 1e-6."""
+    jp = JaxParams(tangent_block_symmetric=sym, **NONLINEAR_2D)
+    jm = JaxModel(jp)
+    lam = [lv.lam_max for lv in jm._precond.levels]
+    stress = np.zeros((jm.space.n_nodes, 2))
+    stress[jm.space.boundary_nodes[jm.interface_id], 0] = 1000.0
+    js, jits = jm.initial_state(), []
+    for _ in range(2):
+        js, ji = jm.step(js, jnp.asarray(stress))
+        assert bool(ji.converged)
+        jits.append(int(ji.iterations))
+    uj = np.asarray(js.displacement)
+    for (s, kind), kern in KERNEL_OF.items():
+        if s != sym or kind in ("packedt", "xla"):
+            continue
+        tm = NonlinearElasticity(
+            params_from_jax(JaxParams(tangent_block_symmetric=sym,
+                                      tangent_matvec_kernel=kind,
+                                      **NONLINEAR_2D)),
+            mg_lam_max=lam, device="cpu",
+        )
+        assert tm.tangent_kernel == kern
+        ts, tits = tm.initial_state(), []
+        for _ in range(2):
+            ts, ti = tm.step(ts, torch.as_tensor(stress))
+            assert ti.converged
+            tits.append(ti.iterations)
+        assert tits == jits, kern
+        ut = state_to_numpy(ts)[0]
+        np.testing.assert_allclose(ut, uj, rtol=1e-6,
+                                   atol=1e-6 * np.abs(uj).max(), err_msg=kern)

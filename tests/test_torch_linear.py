@@ -225,3 +225,33 @@ def test_golden_tip_trajectory(key, degree):
     with open(GOLDEN_PATH) as fh:
         golden = json.load(fh)[key]
     np.testing.assert_allclose(traj, golden, rtol=1e-9)
+
+
+# bench.py's linear parameters on the 2D flap with the bf16 hierarchy (the
+# configuration of chip_smoke.py's vcycle_bf16 phase)
+LINEAR_BF16 = dict(
+    model="linear", type_lin="CG", scenario="PF", dim=2, poly_degree=2,
+    delta_t=0.005, theta=0.5, mu=MU, nu=NU, rho=RHO, dtype="float64",
+    preconditioner="MG", precond_dtype="bfloat16", solve_dtype="float32",
+    mg_smooth_degree=3, mg_fine_smooth_degree=2,
+)
+# step 0's CG iterations of the JAX package on the CPU at scale 16:
+#   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py linear --scale 16 \
+#       --steps 1 --precond-dtype bfloat16
+JAX_BF16_CG_SCALE16 = 72
+
+
+def test_bf16_hierarchy_cg_iterations_match_jax():
+    """The bf16 V-cycle preconditions as the JAX package's does: step 0 at
+    scale 16 (111,938 DoF) takes at most 1.1x the JAX package's CG
+    iterations (75 here; 88-90 while the 2D fine proxy applied its element
+    matrix in f32 where the JAX package holds it in bf16)."""
+    mesh, tags = make_scenario_grid("PF", 2, 2, scale=16, solver="linear")
+    model = LinearElastodynamics(
+        params_from_jax(JaxParams(**LINEAR_BF16)), mesh=mesh, tags=tags,
+        device="cpu",
+    )
+    _, info = model.step(model.initial_state(),
+                         torch.as_tensor(_stress(model)))
+    assert info.residual <= 1e-10
+    assert info.iterations <= 1.1 * JAX_BF16_CG_SCALE16

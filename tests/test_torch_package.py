@@ -1,6 +1,7 @@
 """Package-level guarantees of the PyTorch port: it never imports jax, its
 models run on the CUDA card unless asked for the CPU, its kernel wrappers
-take the plain version only for CPU tensors, unported variants raise, the
+(the five tangent matvecs K1, K1b, K1c, K2, K2b, and K3, K4b, K5) take the
+plain version only for CPU tensors, unported variants raise, the
 kernel build needs nvcc and binds every entry point, and chip_smoke.py
 fails without a GPU. One test compares the kernels with their plain
 versions on the card; it skips where there is none."""
@@ -85,8 +86,42 @@ def _small_inputs_2d(dtype=torch.float32, seed=0):
     return lattice, E + E.T, u
 
 
+def _tangent_calls(KT, u2):
+    """Every tangent kernel's wrapper and plain version on the layouts
+    derived from KT's leading blocks (3D Q2: npc 27)."""
+    npc, dim = 27, 3
+    Ku = [KT[d * npc:(d + 1) * npc, e * npc:(e + 1) * npc].contiguous()
+          for d, e in at.upper_blocks(dim)]
+    K = [[None] * dim for _ in range(dim)]
+    for (d, e), b in zip(at.upper_blocks(dim), Ku):
+        K[d][e], K[e][d] = b, b.transpose(0, 1)
+    Kp = at.pack_cell_tangents_sym(Ku)
+    return [
+        (at.apply_packed_tangents_T, at.apply_packed_tangents_T_plain, (KT, u2)),
+        (at.apply_packed_tangents, at.apply_packed_tangents_plain, (KT, u2)),
+        (at.apply_block_tangents, at.apply_block_tangents_plain, (K, u2)),
+        (at.apply_packed_tangents_sym, at.apply_packed_tangents_sym_plain,
+         (Kp, u2, dim, npc)),
+        (at.apply_sym_block_tangents, at.apply_sym_block_tangents_plain,
+         (Ku, u2, dim, npc)),
+    ]
+
+
+def _to(args, dev):
+    """`args` with every tensor (also inside nested lists) moved to `dev`."""
+    if isinstance(args, torch.Tensor):
+        return args.to(dev)
+    if isinstance(args, (list, tuple)):
+        return type(args)(_to(a, dev) for a in args)
+    return args
+
+
 def test_cpu_tensors_take_the_plain_path():
     KT, u2, lattice, E1, E2, u = _small_inputs()
+    for wrapper, plain, args in _tangent_calls(KT, u2):
+        wrapper.launches = 0
+        torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
+        assert wrapper.launches == 0
     at.apply_packed_tangents_T.launches = 0
     Q1StructuredOperator.launches = Q2StructuredOperator.launches = 0
     torch.testing.assert_close(
@@ -108,8 +143,9 @@ def test_non_cpu_non_cuda_tensors_raise():
     """A tensor that is neither on the CPU nor on a CUDA device never falls
     back to the plain version."""
     KT, u2, lattice, E1, _, u = _small_inputs()
-    with pytest.raises(ValueError):
-        at.apply_packed_tangents_T(KT.to("meta"), u2.to("meta"))
+    for wrapper, _, args in _tangent_calls(KT, u2):
+        with pytest.raises(ValueError):
+            wrapper(*_to(args, "meta"))
     with pytest.raises(ValueError):
         Q1StructuredOperator(E1, lattice, torch.float32, "cpu")(u.to("meta"))
 
@@ -117,7 +153,6 @@ def test_non_cpu_non_cuda_tensors_raise():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(tangent_block_symmetric=True),
         dict(newton_tangent_reuse=True),
         dict(mg_fine_tangent=True),
         dict(use_sumfact=True),
@@ -175,10 +210,13 @@ def test_linear_unported_variants_raise(override):
 
 
 def test_build_binds_every_entry_point():
-    """The C entry points of the library: K1, K3, K5, the 2D K4b and the
-    C1/C2 health-check kernels, each defined in a source under csrc/."""
+    """The C entry points of the library: K1, K1b, K1c, K2/K2b, K3, K5, the
+    2D K4b and the C1/C2 health-check kernels, each defined in a source
+    under csrc/."""
     names = set(_build._SIGNATURES)
-    assert {"dat_tangent_matvec_f32", "dat_q1_structured", "dat_q2_structured",
+    assert {"dat_tangent_matvec_f32", "dat_tangent_matvec_rows_f32",
+            "dat_tangent_matvec_blocks_f32", "dat_tangent_matvec_sym_f32",
+            "dat_q1_structured", "dat_q2_structured",
             "dat_q1_structured_2d", "dat_health_scale",
             "dat_health_add_one"} <= names
     sources = "".join(p.read_text() for p in _build._sources())
@@ -216,13 +254,23 @@ def test_kernels_match_plain_on_card():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     KT, u2, lattice, E1, E2, u = _small_inputs()
     dev = torch.device("cuda")
-    KT, u2 = KT.to(dev), u2.to(dev)
-    before = at.apply_packed_tangents_T.launches
-    torch.testing.assert_close(
-        at.apply_packed_tangents_T(KT, u2), at.apply_packed_tangents_T_plain(KT, u2),
-        rtol=1e-5, atol=1e-4,
-    )
-    assert at.apply_packed_tangents_T.launches == before + 1
+    for wrapper, plain, args in _tangent_calls(KT.to(dev), u2.to(dev)):
+        before = wrapper.launches
+        torch.testing.assert_close(wrapper(*args), plain(*args),
+                                   rtol=1e-5, atol=1e-4)
+        assert wrapper.launches == before + 1
+        # a wrong dtype or a tensor on the CPU raises; nothing falls back
+        with pytest.raises(TypeError):
+            wrapper(*_to(args, torch.float64))
+        with pytest.raises(ValueError):
+            wrapper(*args[:1], args[1].cpu(), *args[2:])
+    # a wrong shape raises; the symmetric kernel names its element limit
+    KTd, u2d = KT.to(dev), u2.to(dev)
+    with pytest.raises(ValueError):
+        at.apply_packed_tangents(KTd, u2d[:-1])
+    with pytest.raises(ValueError, match="Q1-Q4"):
+        at.apply_sym_block_tangents(
+            [KTd[:6, :6].contiguous()] * 6, u2d[:18], 3, 6)
     lattice2, E4, u4 = _small_inputs_2d()
     for cls, E, grid, v in ((Q1StructuredOperator, E1, lattice, u),
                             (Q2StructuredOperator, E2, lattice, u),

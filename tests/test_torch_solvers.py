@@ -1,7 +1,8 @@
 """Krylov and multigrid solvers of the PyTorch package against the JAX
 package: CG iteration counts on an f64 SPD structured problem, the
-power-iteration lam_max from the same start vector, and one V-cycle of
-the f64 multigrid hierarchy (rtol 1e-10)."""
+power-iteration lam_max from the same start vector, one V-cycle of the
+f64 multigrid hierarchy (rtol 1e-10) and of the bf16 one (relative L2
+3e-2), and the bf16 rounding rules of the hierarchy."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +24,10 @@ from dealii_adapter_tpu_torch.ops.element_ops import (
     assemble_dense,
     assemble_diagonal,
 )
+from dealii_adapter_tpu_torch.ops.q2_structured import make_q2_operator
 from dealii_adapter_tpu_torch.ops.structured import make_structured_operator
 from dealii_adapter_tpu_torch.solvers import cg as tcg
+from dealii_adapter_tpu_torch.solvers import multigrid as tmg_mod
 from dealii_adapter_tpu_torch.solvers.direct import DenseCholesky
 from dealii_adapter_tpu_torch.solvers.multigrid import GeometricMultigrid
 
@@ -136,6 +139,100 @@ def test_vcycle_matches_jax(dim, coarse_size):
         [lv.lam_max for lv in own.levels], [lv.lam_max for lv in jmg.levels],
         rtol=0.05,
     )
+
+
+@pytest.mark.parametrize("dim,coarse_size", [(3, 300), (2, 100)])
+def test_vcycle_bf16_matches_jax(dim, coarse_size, monkeypatch):
+    """One V-cycle of the bf16 hierarchy, as the models build it (the fine
+    proxy from `make_q2_operator`), against the JAX package's bf16 V-cycle
+    (`level_backend="xla"`, the XLA operators the JAX package runs off the
+    TPU), both with one set of lam_max values: the port's estimates, handed
+    to the JAX hierarchy in place of its own power iterations (which take
+    ~18 s in 3D on the CPU). Tolerance: relative L2 3e-2; the two round to
+    bf16 (unit roundoff 2^-8 = 3.9e-3) at different places over a few
+    dozen stages, and each lands 0.5-1.3e-2 from the f64 V-cycle."""
+    P = _problem(dim, 2)
+    kw = dict(
+        lmbda=LAM, mu=MU, mass_coeff=A1 * RHO, smooth_degree=3,
+        smooth_degree_fine=1, coarse_size=coarse_size,
+    )
+    top = make_q2_operator(P["ts"], P["E"], torch.bfloat16, "cpu")
+    tmk = P["tmask"].to(torch.bfloat16)
+    tmg = GeometricMultigrid(
+        P["tm"], P["ttags"], lambda v: tmk * top(tmk * v) + (1.0 - tmk) * v,
+        P["tdiag"].to(torch.bfloat16), tmk, dtype=torch.bfloat16,
+        device="cpu", **kw,
+    )
+    lam = iter([lv.lam_max for lv in tmg.levels])
+    # the JAX hierarchy imports it from its cg module at each estimate
+    monkeypatch.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(lam))
+    bf = jnp.bfloat16
+    jop = jax_structured(JaxDofSpace.create(P["jm"]), P["E"], bf,
+                         precision="default")
+    jmk = P["jmask"].astype(bf)
+    jmg = JaxMG(P["jm"], P["jtags"],
+                lambda v: jmk * jop(jmk * v) + (1.0 - jmk) * v,
+                P["jdiag"].astype(bf), jmk, dtype=bf, use_pallas=False,
+                level_backend="xla", **kw)
+    assert [lv.lam_max for lv in jmg.levels] == [lv.lam_max for lv in tmg.levels]
+    r = (np.random.default_rng(1).standard_normal((P["ts"].n_nodes, dim))
+         * np.asarray(P["tmask"])).astype(np.float32)
+    a = np.asarray(jmg(jnp.asarray(r)), np.float64)
+    b = tmg(torch.from_numpy(r))
+    assert b.dtype == torch.float32  # the caller's dtype
+    b = b.double().numpy()
+    assert np.isfinite(b).all()
+    assert np.linalg.norm(b - a) / np.linalg.norm(a) <= 3e-2
+
+
+def test_bf16_hierarchy_rounds_as_the_reference():
+    """The rounding rules of the bf16 hierarchy: cuBLAS may not reduce bf16
+    or fp16 products in reduced precision (the transfers are bf16 matrix
+    products; PyTorch on the CPU and XLA sum them in f32); a fine proxy
+    without a kernel holds its element matrix in bf16, as the JAX
+    package's `StructuredOperator` does (with the f32 one the 2D linear
+    step took ~1.7x the JAX package's CG iterations at 250,850 DoF); the
+    Chebyshev polynomial's coefficients round to the hierarchy dtype, as
+    JAX rounds weakly typed scalars (PyTorch keeps a bf16 op's scalar in
+    f32); f32 and f64 hierarchies compute as before."""
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+    assert torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction is False
+    P = _problem(2, 2)
+    v = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((P["ts"].n_nodes, 2))
+    ).to(torch.bfloat16)
+    E16 = torch.as_tensor(P["E"]).to(torch.bfloat16).double().numpy()
+    ref = make_structured_operator(P["ts"], E16, torch.float32, "cpu")
+    out = make_q2_operator(P["ts"], P["E"], torch.bfloat16, "cpu")(v)
+    torch.testing.assert_close(out, ref(v.float()).to(torch.bfloat16),
+                               rtol=0, atol=0)
+    for dt in (torch.float32, torch.float64):
+        ref = make_structured_operator(P["ts"], P["E"], dt, "cpu")
+        torch.testing.assert_close(
+            make_q2_operator(P["ts"], P["E"], dt, "cpu")(v.to(dt)),
+            ref(v.to(dt)), rtol=0, atol=0)
+    # one Chebyshev sweep: every operation rounds to the dtype, and so do
+    # the polynomial's coefficients
+    diag = torch.full((P["ts"].n_nodes, 2), 3.0)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (P["ts"].n_nodes, 2)))
+    lmax, lmin = 0.7 * 1.05, 0.7 / 4.0
+    theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho1 = 1.0 / (2.0 * sigma - 1.0 / sigma)
+    for dt in (torch.bfloat16, torch.float32):
+        level = tmg_mod.MGLevel(operator=lambda x: 2.0 * x, diag=diag.to(dt),
+                                mask=torch.ones_like(diag), grid_shape=(),
+                                lam_max=0.7)
+        got = tmg_mod._chebyshev_smooth(
+            level, b.to(dt), torch.zeros_like(b, dtype=dt), 1, x_is_zero=True)
+        c = [torch.tensor(x, dtype=dt).item()
+             for x in (1.0 / theta, rho1 / sigma, 2.0 * rho1 / delta)]
+        inv = 1.0 / diag.to(dt)
+        d = c[0] * (inv * b.to(dt))
+        d2 = c[1] * d + c[2] * (inv * (b.to(dt) - 2.0 * d))
+        torch.testing.assert_close(got, d + d2, rtol=0, atol=0)
+    assert c[0] == torch.tensor(1.0 / theta, dtype=torch.float32).item()
 
 
 def test_dense_cholesky_solves():
