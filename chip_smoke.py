@@ -11,19 +11,24 @@ script exits non-zero without printing a result):
    library's C1/C2 health check (y = x * salt, y = x + 1, compared
    exactly) runs as it loads.
 3. kernels — each hand-written kernel against its plain PyTorch version
-   on seeded random inputs at the paths' shapes, with CUDA-event times
-   (median of 25 applications after warmup) of both and of one PyTorch
-   library call computing the same function (`library_ms`: a batched
+   on seeded random inputs at the paths' shapes, with the kernel's device
+   time (`ms`: torch.profiler's CUDA time of 5 launches, averaged), its
+   time per call from the host (`call_ms`: CUDA events around one call,
+   median of 15 after warmup, the launch cost included), the same
+   per-call time of the plain version, and the device time of one
+   PyTorch library call computing the same function (`library_ms`: a batched
    matmul over the full materialized tangent for K1, K1b, K1c, K2 and K2b
    (no single call consumes the upper-block layout of K2/K2b), a CSR SpMV
-   of the assembled level matrix for K3, K4b and K5, the elementwise
+   of the assembled level matrix for K3, K4, K4b, K5 and K6, the elementwise
    `x * salt` and `x + 1` for C1/C2), and the least time the card could
    take (`bound_ms`: the bytes of the stored operands read once and the
    output written once at 3.35 TB/s against f32 operations at 67 TFLOP/s,
-   the larger).
+   the larger; the Q1 operators K3, K4, K4b and K6 all at the assembled
+   stencil's count, 243 FMA per node in 3D and 36 in 2D).
    Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
-   plus order); C1/C2 exact.
+   plus order); C1/C2 exact. K4 and K6 are also held against K3's output
+   on the same input (K6 in 2D against K4b's) with the same limits.
 4. main    — `NonlinearElasticity` with the benchmark configuration of
    `bench.py` (3D Neo-Hookean perpendicular flap, Q2, scale 9:
    1,018,875 DoF), traction 1000 in x on the interface, 1 warmup and 3
@@ -56,12 +61,33 @@ script exits non-zero without printing a result):
    with the bf16 multigrid hierarchy, step 0 with each inner CG capped at
    `VCYCLE_BF16_CAP`: its CG count must be at most 1.25x the JAX
    package's on the CPU (`VCYCLE_BF16_REF`), residual <= 1e-10.
+9. stencil3d — phase 4's configuration with `mg_level_backend=
+   "stencil_vmem"` (every 3D Q1 level on the assembled stencil, K6) on
+   phase 4's mesh and lam_max values, 1 warmup and 3 timed steps: every
+   step converged, ||u||^2 within rtol 1e-4 of the JAX package's; K6, K5,
+   K1 and C1/C2 launched and K3 not at all. Then K6 against K3 (bf16, the
+   hierarchy's dtype) at every 3D Q1 level shape of the hierarchy, with
+   that level's element matrix.
+10. coupled3d — `runner.coupled_run` on phase 9's model through the
+   port's `Adapter` and a `FakeParticipant` (window 0.01, end time 0.04, a
+   constant read field (1000, 0, 0) — `interface_traction`'s load —,
+   two implicit iterations per window, so 4 windows of 2 steps with a
+   rollback between): ||u||^2 within rtol 1e-10 of phase 9's 4-step
+   checksum; per-window write-history norms and times; one VTU of the last
+   window written to a temporary directory (size, write time).
+11. cli — `python -m dealii_adapter_tpu_torch` in a subprocess on a small
+   2D linear case (`CLI_PRM`: Q1, refined 4 times, 28,322 DoF, MG in f32
+   with f32 CG), 2 windows: exit code 0, a banner naming the card, both
+   VTU files written; its closing `kernel launches` line gives the path's
+   counts.
 
-In phases 4-8 the kernel launch counts are set to 0 after the model is
-built and read after its steps; every kernel of the path (C1/C2, whose
-check runs again as the path's first kernel call loads the library, and
-K1, K1b, K1c, K2, K2b, K3, K4b, K5 as the path uses them) must have
-launched. `--profile` adds one step of each of phases 4-6 under
+In phases 4-11 the kernel launch counts are set to 0 after the model is
+built (for `cli`: in its own process) and read after its steps; every
+kernel of the path (C1/C2, whose check runs again as the path's first
+kernel call loads the library, and K1, K1b, K1c, K2, K2b, K3, K4b, K5, K6
+as the path uses them) must have launched. K4 (the plane-marching 3D Q1
+operator) is on no path, as in the JAX package; phase 3 checks and times
+it beside K3. `--profile` adds one step of each of phases 4-6 under
 torch.profiler and prints its device-time table.
 
 The line before the last is the JSON kernel record; the last line is
@@ -151,6 +177,7 @@ TANGENT_VARIANTS = (
 )
 _HEALTH = ("C1 health_scale", "C2 health_add_one")
 _MG3D = ("K3 q1_structured", "K5 q2_structured")
+_STENCIL3D = _HEALTH + ("K1 tangent_matvec", "K5 q2_structured", "K6 q1_stencil")
 # which kernels each path must launch
 PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
@@ -159,7 +186,47 @@ PATH_KERNELS = {
     "linear2d": _HEALTH + ("K4b q1_structured_2d",),
     "nonlinear2d": _HEALTH + ("K1 tangent_matvec", "K4b q1_structured_2d"),
     "vcycle_bf16": _HEALTH + ("K4b q1_structured_2d",),
+    "stencil3d": _STENCIL3D,
+    "coupled3d": _STENCIL3D,
+    "cli": _HEALTH + ("K4b q1_structured_2d",),
 }
+# kernels a path must NOT launch: the stencil paths replace K3 with K6
+PATH_EXCLUDES = {"stencil3d": ("K3 q1_structured",),
+                 "coupled3d": ("K3 q1_structured",)}
+# the coupled3d phase: window, end time, implicit iterations per window
+COUPLED_WINDOW, COUPLED_END, COUPLED_ITERATIONS = 0.01, 0.04, 2
+COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
+# the cli phase: tests/test_cli.py's case, refined so that the multigrid
+# hierarchy has a Q1 level above its coarse solve (MG in f32, f32 CG)
+CLI_PRM = """
+subsection Time
+  set End time = 0.02
+  set Time step size = 0.01
+  set Output interval = 1
+  set Output folder = {out}
+end
+subsection System properties
+  set Shear modulus = 0.5e6
+  set Poisson's ratio = 0.4
+  set rho = 1000
+end
+subsection Solver
+  set Model = linear
+  set Solver type = CG
+end
+subsection Discretization
+  set Polynomial degree = 1
+end
+subsection precice configuration
+  set Scenario = PF
+end
+subsection TPU
+  set Preconditioner = MG
+  set Solve dtype = float32
+  set Preconditioner dtype = float32
+end
+"""
+CLI_REFINE = 4
 
 
 def log(msg):
@@ -172,7 +239,7 @@ def require(cond, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, reps=25, warmup=3):
+def cuda_ms(fn, reps=15, warmup=3):
     """Median CUDA-event milliseconds of one call of `fn`."""
     import torch
 
@@ -191,6 +258,29 @@ def cuda_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=5):
+    """Mean device time in ms of the kernels one call of `fn` launches,
+    from torch.profiler's CUDA activity: the kernel's own duration,
+    without the host's launch cost (which `cuda_ms` includes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiling session now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError("chip_smoke: torch.profiler recorded no device time "
+                       "in 3 sessions")
+
+
 def compare(out, ref):
     d = (out.double() - ref.double())
     max_abs = d.abs().max().item()
@@ -206,9 +296,14 @@ def bound(n_bytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gather_work(grid_shape, p, io_bytes):
-    """Bytes (u read once, y written once, E) and f32 operations (each
-    cell's element matrix applied once) of a structured gather apply."""
+def operator_work(grid_shape, p, io_bytes):
+    """Bytes and f32 operations that a structured operator apply needs.
+    Q1 (K3, K4, K4b, K6): the assembled stencil's, 3^dim neighbours x dim^2
+    FMA per node (fewer than each cell's element matrix applied once).
+    Q2 (K5): u read once, y written once, E, and each cell's element matrix
+    applied once."""
+    if p == 1:
+        return stencil_work(grid_shape, io_bytes)
     dim = len(grid_shape)
     n_nodes = math.prod(grid_shape)
     n_cells = math.prod((n - 1) // p for n in grid_shape)
@@ -287,29 +382,99 @@ def assembled_csr(E, grid_shape, p, dev):
 
 
 def library_spmv_ms(E, grid_shape, p, dev):
-    """CUDA-event time of one CSR SpMV (f32) of the assembled matrix."""
+    """Device time of one CSR SpMV (f32) of the assembled matrix."""
     import torch
 
     A = assembled_csr(E, grid_shape, p, dev)
     x = torch.randn(A.shape[1], 1, device=dev)
-    ms = cuda_ms(lambda: A @ x)
+    ms = device_ms(lambda: A @ x)
     del A, x
     torch.cuda.empty_cache()
     return ms
 
 
-def check_gather(op, u, limit):
-    """One structured-kernel check: error against the plain version,
-    kernel and plain times, bound."""
-    mx, rel = compare(op(u), op.plain(u))
-    b_ms, b_by = bound(*gather_work(op.grid_shape, op.p, u.element_size()))
+def check_gather(op, u, limit, ref_op=None):
+    """One structured-kernel check: error against the plain version (and
+    against `ref_op`, another kernel of the same function, on the same
+    input), kernel and plain times, bound (`operator_work`)."""
+    out = op(u)
+    mx, rel = compare(out, op.plain(u))
+    b_ms, b_by = bound(*operator_work(op.grid_shape, op.p, u.element_size()))
     chk = dict(
         dtype=str(u.dtype).replace("torch.", ""), max_abs_err=mx,
-        rel_l2_err=rel, limit=limit, ms=cuda_ms(lambda: op(u)),
-        plain_ms=cuda_ms(lambda: op.plain(u)), bound_ms=b_ms, bound_by=b_by,
+        rel_l2_err=rel, limit=limit, ms=device_ms(lambda: op(u)),
+        call_ms=cuda_ms(lambda: op(u)), plain_ms=cuda_ms(lambda: op.plain(u)),
+        bound_ms=b_ms, bound_by=b_by,
     )
-    require(rel <= limit, chk)
+    if ref_op is not None:
+        chk["rel_l2_vs_ref_kernel"] = compare(out, ref_op(u))[1]
+    require(rel <= limit and chk.get("rel_l2_vs_ref_kernel", 0.0) <= limit, chk)
     return chk
+
+
+def stencil_work(grid_shape, io_bytes):
+    """Bytes (u read once, y written once, the class tables) and f32
+    operations (3^dim neighbours x dim^2 FMA per node: 243 in 3D, 36 in
+    2D) of one assembled-stencil apply."""
+    dim = len(grid_shape)
+    n_nodes = math.prod(grid_shape)
+    n_off = 3**dim
+    return (2 * n_nodes * dim * io_bytes + 4 * n_off * n_off * dim * dim,
+            2 * n_nodes * n_off * dim * dim)
+
+
+def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
+    """K4 (3D) and K6 (3D and 2D) on the paths' Q1 level shapes, each held
+    against its plain version and against K3 / K4b on the same input;
+    `lib3`/`lib2` are the CSR SpMV times of the same level matrices."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.q1_structured import (
+        Q1PlaneOperator,
+        Q1StructuredOperator,
+        Q1StructuredOperator2D,
+    )
+    from dealii_adapter_tpu_torch.ops.stencil import StencilQ1Operator
+
+    records = []
+    k4, k6, k6_2d = [], [], []
+    for dtype, lim in ((torch.bfloat16, BF16_RTOL), (torch.float32, F32_RTOL)):
+        u = randn(math.prod(lattice), 3, dtype=dtype)
+        k3 = Q1StructuredOperator(E1, lattice, dtype, dev)
+        k4.append(check_gather(Q1PlaneOperator(E1, lattice, dtype, dev), u,
+                               lim, ref_op=k3))
+        k6.append(check_gather(
+            StencilQ1Operator(E1, lattice, dtype, device=dev), u, lim, k3))
+        u2 = randn(math.prod(lattice2), 2, dtype=dtype)
+        k6_2d.append(check_gather(
+            StencilQ1Operator(E4, lattice2, dtype, device=dev), u2, lim,
+            Q1StructuredOperator2D(E4, lattice2, dtype, dev)))
+        k6_2d[-1]["shape"] = f"lattice {lattice2} x 2, 9-point"
+        k6_2d[-1]["library_ms"] = lib2
+    for name, checks in (("K4", k4), ("K6 3D", k6), ("K6 2D", k6_2d)):
+        for c in checks:
+            log(f"kernel {name} {c['dtype']}: rel_l2 {c['rel_l2_err']:.3e} "
+                f"(vs K3/K4b {c['rel_l2_vs_ref_kernel']:.3e}) max_abs "
+                f"{c['max_abs_err']:.3e}  {c['ms']:.4f} ms (per call {c['call_ms']:.4f}) vs plain "
+                f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']})")
+    records.append(dict(
+        name="K4 q1_plane", route="cuda",
+        source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
+        replaces="dealii_adapter_tpu/ops/pallas_structured.py:445",
+        shape=f"lattice {lattice} x 3, E 24x24", library_ms=lib3,
+        library_call="CSR SpMV (torch sparse, f32)",
+        **k4[0], other_checks=k4[1:],
+    ))
+    records.append(dict(
+        name="K6 q1_stencil", route="cuda",
+        source="dealii_adapter_tpu_torch/csrc/q1_stencil.cu",
+        replaces="dealii_adapter_tpu/ops/stencil.py:244",
+        shape=f"lattice {lattice} x 3, 27-point", library_ms=lib3,
+        library_call="CSR SpMV (torch sparse, f32)",
+        **k6[0], other_checks=k6[1:] + k6_2d,
+    ))
+    return records
 
 
 def tangent_check(name, shape, fn, plain, stored_bytes, edofs, n_cells,
@@ -324,14 +489,15 @@ def tangent_check(name, shape, fn, plain, stored_bytes, edofs, n_cells,
                        2 * edofs * edofs * n_cells)
     chk = dict(
         shape=shape, max_abs_err=mx, rel_l2_err=rel, limit=F32_RTOL,
-        ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+        bound_ms=b_ms, bound_by=b_by,
         # one batched product over the cells (PyTorch lays the operands out
         # for it itself)
-        library_ms=cuda_ms(lambda: torch.bmm(K_rows.permute(2, 0, 1),
+        library_ms=device_ms(lambda: torch.bmm(K_rows.permute(2, 0, 1),
                                              u2.T.unsqueeze(-1))),
     )
     log(f"kernel {name} {shape}: rel_l2 {rel:.3e} max_abs {mx:.3e}  "
-        f"{chk['ms']:.4f} ms vs plain {chk['plain_ms']:.4f}, library (bmm) "
+        f"{chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain {chk['plain_ms']:.4f}, library (bmm) "
         f"{chk['library_ms']:.4f}, bound {b_ms:.4f} ms ({b_by})")
     require(rel <= F32_RTOL, chk)
     return chk
@@ -453,17 +619,17 @@ def phase_kernels():
         chk = check_gather(Q1StructuredOperator(E1, lattice, dtype, dev),
                            randn(n_nodes, 3, dtype=dtype), lim)
         log(f"kernel K3 {chk['dtype']}: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
-            f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms vs plain "
+            f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
             f"{chk['plain_ms']:.4f}, bound {chk['bound_ms']:.4f} ms "
             f"({chk['bound_by']})")
         checks.append(chk)
-    lib = library_spmv_ms(E1, lattice, 1, dev)
-    log(f"kernel K3 library (CSR SpMV f32 of the assembled level): {lib:.4f} ms")
+    lib3 = library_spmv_ms(E1, lattice, 1, dev)
+    log(f"kernel K3 library (CSR SpMV f32 of the assembled level): {lib3:.4f} ms")
     records.append(dict(
         name="K3 q1_structured", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
         replaces="dealii_adapter_tpu/ops/pallas_structured.py:345",
-        shape=f"lattice {lattice} x 3, E 24x24", library_ms=lib,
+        shape=f"lattice {lattice} x 3, E 24x24", library_ms=lib3,
         library_call="CSR SpMV (torch sparse, f32)",
         **checks[0], other_checks=checks[1:],
     ))
@@ -481,20 +647,25 @@ def phase_kernels():
         chk = check_gather(Q1StructuredOperator2D(E4, lattice2, dtype, dev),
                            randn(math.prod(lattice2), 2, dtype=dtype), lim)
         log(f"kernel K4b {chk['dtype']}: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
-            f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms vs plain "
+            f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
             f"{chk['plain_ms']:.4f}, bound {chk['bound_ms']:.4f} ms "
             f"({chk['bound_by']})")
         checks.append(chk)
-    lib = library_spmv_ms(E4, lattice2, 1, dev)
-    log(f"kernel K4b library (CSR SpMV f32 of the assembled level): {lib:.4f} ms")
+    lib2 = library_spmv_ms(E4, lattice2, 1, dev)
+    log(f"kernel K4b library (CSR SpMV f32 of the assembled level): {lib2:.4f} ms")
     records.append(dict(
         name="K4b q1_structured_2d", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
         replaces="dealii_adapter_tpu/ops/pallas_structured.py:488",
-        shape=f"lattice {lattice2} x 2, E 8x8", library_ms=lib,
+        shape=f"lattice {lattice2} x 2, E 8x8", library_ms=lib2,
         library_call="CSR SpMV (torch sparse, f32)",
         **checks[0], other_checks=checks[1:],
     ))
+
+    # K4 and K6 at the same 3D level shape and element matrix as K3, K6
+    # also at K4b's 2D shape
+    records += q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3,
+                                lib2)
 
     # K5: 3D Q2 fine proxy, bf16, with the small-strain proxy element matrix
     E2 = lattice_E(2, (0.1 / 27, 1.0 / 162, 0.3 / 9), lam_eff, mu, mass)
@@ -502,7 +673,7 @@ def phase_kernels():
                        randn(n_nodes, 3, dtype=torch.bfloat16), BF16_RTOL)
     lib = library_spmv_ms(E2, lattice, 2, dev)
     log(f"kernel K5 bf16: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
-        f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms vs plain "
+        f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
         f"{chk['plain_ms']:.4f}, library (CSR SpMV f32) {lib:.4f}, bound "
         f"{chk['bound_ms']:.4f} ms ({chk['bound_by']})")
     records.append(dict(
@@ -528,12 +699,13 @@ def phase_kernels():
             name=name, route="cuda",
             source="dealii_adapter_tpu_torch/csrc/health.cu", replaces=replaces,
             shape="(8, 128) f32", max_abs_err=mx, limit=0.0,
-            ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+            ms=device_ms(fn), call_ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+            bound_ms=b_ms,
             bound_by=b_by,
             # the same one elementwise PyTorch call, timed on its own
-            library_ms=cuda_ms(plain), library_call=library_call,
+            library_ms=device_ms(plain), library_call=library_call,
         )
-        log(f"kernel {name}: max_abs {mx!r}  {rec['ms']:.4f} ms vs plain "
+        log(f"kernel {name}: max_abs {mx!r}  {rec['ms']:.4f} ms (per call {rec['call_ms']:.4f}) vs plain "
             f"{rec['plain_ms']:.4f} ms, library ({library_call}) "
             f"{rec['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         require(mx == 0.0, rec)
@@ -541,43 +713,26 @@ def phase_kernels():
     return records
 
 
-def counters():
-    from dealii_adapter_tpu_torch.kernels import _build
-    from dealii_adapter_tpu_torch.ops import assembled_tangent as at
-    from dealii_adapter_tpu_torch.ops.q1_structured import (
-        Q1StructuredOperator,
-        Q1StructuredOperator2D,
-    )
-    from dealii_adapter_tpu_torch.ops.q2_structured import Q2StructuredOperator
-
-    return {
-        "C1 health_scale": _build.health_scale,
-        "C2 health_add_one": _build.health_add_one,
-        "K1 tangent_matvec": at.apply_packed_tangents_T,
-        "K1b tangent_matvec_rows": at.apply_packed_tangents,
-        "K1c tangent_matvec_blocks": at.apply_block_tangents,
-        "K2 tangent_matvec_sym": at.apply_packed_tangents_sym,
-        "K2b tangent_matvec_sym_blocks": at.apply_sym_block_tangents,
-        "K3 q1_structured": Q1StructuredOperator,
-        "K4b q1_structured_2d": Q1StructuredOperator2D,
-        "K5 q2_structured": Q2StructuredOperator,
-    }
-
-
 def start_counts():
     """Forget the bound library (the path's first kernel call loads it again
     and runs the C1/C2 check) and set every launch count to 0."""
-    from dealii_adapter_tpu_torch.kernels import _build
+    from dealii_adapter_tpu_torch.kernels import _build, counters
 
     _build.unload()
-    for obj in counters().values():
-        obj.launches = 0
+    counters.reset()
 
 
-def read_counts(path):
-    launches = {k: obj.launches for k, obj in counters().items()}
-    missing = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
+def read_counts(path, launches=None):
+    """The launch counts of `path` (this process's, unless given); every
+    kernel of the path must have launched, and none it excludes."""
+    from dealii_adapter_tpu_torch.kernels import counters
+
+    if launches is None:
+        launches = counters.launch_counts()
+    missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) <= 0]
     require(not missing, f"{path}: kernels launched on the path: missing {missing}")
+    extra = [k for k in PATH_EXCLUDES.get(path, ()) if launches.get(k, 0)]
+    require(not extra, f"{path}: launched {extra}, which the path replaces")
     return launches
 
 
@@ -726,6 +881,7 @@ def phase_main(profile):
     return launches, dict(
         mesh_tags=(model.mesh, model.tags), checksum=checksum,
         lam_max=[lv.lam_max for lv in model._precond.levels],
+        cg=[i.cg_iterations for i in infos], newton=[i.iterations for i in infos],
     )
 
 
@@ -766,6 +922,174 @@ def phase_tangent3d(main):
         del model
         torch.cuda.empty_cache()
     return by_path
+
+
+def level_table(model):
+    """K6 against K3 (bf16, the hierarchy's dtype) at every 3D Q1 level
+    shape of `model`'s hierarchy, with that level's element matrix: the
+    measurement that decides between the two level operators."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.q1_structured import Q1StructuredOperator
+    from dealii_adapter_tpu_torch.ops.stencil import StencilQ1Operator
+    from dealii_adapter_tpu_torch.solvers.multigrid import _geometry_skeleton
+
+    p, dev = model.params, model.device
+    lam_eff = model.material.kappa - 2.0 * p.mu / 3
+    mass = model.alpha_1 * p.rho
+    geoms = _geometry_skeleton(model.mesh, model.tags, p.mg_coarse_size,
+                               p.mg_fem_sem, lam_eff, p.mu)
+    g = torch.Generator(device="cpu").manual_seed(99)
+    rows = []
+    for li, gm in enumerate(geoms):
+        E = p.mu * gm.K_e_unit + mass * gm.M_e_unit
+        u = torch.randn(gm.space_c.n_nodes, 3, generator=g).to(dev, torch.bfloat16)
+        k3 = Q1StructuredOperator(E, gm.shape_c, torch.bfloat16, dev)
+        k6 = StencilQ1Operator(E, gm.shape_c, torch.bfloat16, device=dev)
+        _, rel = compare(k6(u), k3(u))
+        require(rel <= BF16_RTOL, f"level {li + 1}: K6 vs K3 rel {rel}")
+        row = dict(level=li + 1, lattice=gm.shape_c, coarse=li == len(geoms) - 1,
+                   k3_ms=device_ms(lambda: k3(u)), k6_ms=device_ms(lambda: k6(u)),
+                   k3_call_ms=cuda_ms(lambda: k3(u)),
+                   k6_call_ms=cuda_ms(lambda: k6(u)), k6_vs_k3_rel_l2=rel)
+        rows.append(row)
+        log(f"stencil3d: level {li + 1} {gm.shape_c}"
+            f"{' (coarse solve)' if row['coarse'] else ''}: K3 "
+            f"{row['k3_ms']:.4f} ms, K6 {row['k6_ms']:.4f} ms (bf16, device "
+            f"time; per call {row['k3_call_ms']:.4f} / {row['k6_call_ms']:.4f}), "
+            f"rel_l2 {rel:.3e}")
+    return rows
+
+
+def phase_stencil3d(main):
+    """The main configuration with every 3D Q1 level on K6, on the main
+    path's mesh and lam_max values; returns (launches, model, checksum)."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_model(dev, mesh_tags=main["mesh_tags"],
+                        mg_lam_max=main["lam_max"],
+                        mg_level_backend="stencil_vmem", end_time=COUPLED_END)
+    torch.cuda.synchronize()
+    describe("stencil3d", model, time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    stress = interface_traction(model)
+    start_counts()
+    _, infos, _, checksum = run_steps("stencil3d", model, stress, newton_fmt)
+    launches = read_counts("stencil3d")
+    log(f"stencil3d: launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"stencil3d: CG per step {[i.cg_iterations for i in infos]}, Newton "
+        f"{[i.iterations for i in infos]}; main path (K3 levels): CG "
+        f"{main['cg']}, Newton {main['newton']}; checksum rel. difference to "
+        f"the main path's {abs(checksum - main['checksum']) / main['checksum']:.3e}")
+    require(all(i.converged for i in infos), "stencil3d: every step converged")
+    check_checksum("stencil3d", checksum, CHECKSUM_REF, CHECKSUM_RTOL)
+    level_table(model)
+    return launches, model, checksum
+
+
+def phase_coupled3d(model, stencil_checksum):
+    """`coupled_run` on the stencil3d model: 4 windows x 2 implicit
+    iterations against stencil3d's 4 steps; one VTU of the last window."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
+    from dealii_adapter_tpu_torch.runner import coupled_run
+    from dealii_adapter_tpu_torch.utils import write_vtu
+
+    load = np.array([1000.0, 0.0, 0.0])  # interface_traction's load
+    fake = FakeParticipant(
+        dim=3, window_dt=COUPLED_WINDOW, end_time=COUPLED_END,
+        read_fn=lambda t, coords: np.tile(load, (len(coords), 1)),
+        implicit_iterations=COUPLED_ITERATIONS,
+    )
+    adapter = Adapter(model.params, model.interface_id, model.space,
+                      participant=fake, dtype=model.dtype, device=model.device)
+    windows = []
+    marks = [time.perf_counter()]
+
+    def output_cb(state, t, info):
+        now = time.perf_counter()
+        windows.append(dict(t=t.current(), seconds=now - marks[-1],
+                            newton=info.iterations, cg=info.cg_iterations))
+        marks.append(now)
+
+    start_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = coupled_run(model, adapter, output_cb=output_cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts("coupled3d")
+    u = state.displacement
+    checksum = torch.dot(u.reshape(-1), u.reshape(-1)).item()
+    n_windows = round(COUPLED_END / COUPLED_WINDOW)
+    log(f"coupled3d: {n_windows} windows x {COUPLED_ITERATIONS} implicit "
+        f"iterations in {wall:.3f} s; per window {windows}")
+    log(f"coupled3d: write history (t, iteration, ||values||): "
+        f"{[(round(h[0], 10), h[1], float(np.linalg.norm(h[2]))) for h in fake.write_history]}")
+    log(f"coupled3d: launches {launches}")
+    require(fake.finalized and len(windows) == n_windows,
+            f"coupled3d: {len(windows)} windows completed")
+    require(len(fake.write_history) == n_windows * COUPLED_ITERATIONS,
+            f"coupled3d: {len(fake.write_history)} writes")
+    require(bool(torch.isfinite(u).all()), "coupled3d: non-finite displacement")
+    rel = abs(checksum - stencil_checksum) / stencil_checksum
+    log(f"coupled3d: checksum {checksum!r}, rel. difference to stencil3d's "
+        f"{rel:.3e} (limit {COUPLED_RTOL})")
+    require(rel <= COUPLED_RTOL, "coupled3d: checksum against stencil3d's")
+    check_checksum("coupled3d", checksum, CHECKSUM_REF, CHECKSUM_RTOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "solution-3d-4.vtu")
+        ts = time.perf_counter()
+        write_vtu(path, model.space, state.displacement,
+                  extra_point_data={"velocity": state.velocity})
+        log(f"coupled3d: VTU of the last window {os.path.getsize(path)} bytes "
+            f"written in {time.perf_counter() - ts:.3f} s")
+    return launches
+
+
+def phase_cli():
+    """`python -m dealii_adapter_tpu_torch` on `CLI_PRM` in a subprocess;
+    returns the launch counts it prints."""
+    import ast
+    import os
+    import pathlib
+    import sys
+    import tempfile
+
+    import torch
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        prm = os.path.join(tmp, "case.prm")
+        pathlib.Path(prm).write_text(CLI_PRM.format(out=out))
+        env = dict(os.environ, PYTHONPATH=str(root))
+        ts = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "dealii_adapter_tpu_torch", prm,
+             "--standalone", "--traction", "1000", "0", "--refine",
+             str(CLI_REFINE)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - ts
+        for line in r.stdout.splitlines():
+            log(f"cli| {line}")
+        require(r.returncode == 0, f"cli: exit code {r.returncode}: {r.stderr[-2000:]}")
+        files = sorted(os.listdir(out))
+        log(f"cli: exit code 0 in {wall:.1f} s (process start included), "
+            f"VTU files {[(f, os.path.getsize(os.path.join(out, f))) for f in files]}")
+    require(torch.cuda.get_device_name(0) in r.stdout, "cli: banner names the card")
+    require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"], f"cli: files {files}")
+    line = next(x for x in r.stdout.splitlines() if x.startswith("kernel launches: "))
+    return read_counts("cli", ast.literal_eval(line[len("kernel launches: "):]))
 
 
 def phase_vcycle_bf16():
@@ -893,17 +1217,32 @@ def main():
     phase_device()
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
 
-    phase_build()
-    records = phase_kernels()
+    t_script = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"{name}: phase took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    records = timed("kernels", phase_kernels)
     by_path = {}
-    by_path["main3d"], main_run = phase_main(args.profile)
-    by_path.update(phase_tangent3d(main_run))
+    by_path["main3d"], main_run = timed("main", phase_main, args.profile)
+    by_path.update(timed("tangent3d", phase_tangent3d, main_run))
+    by_path["stencil3d"], model, checksum = timed(
+        "stencil3d", phase_stencil3d, main_run)
     del main_run
-    by_path["linear2d"] = phase_linear2d(args.profile)
-    by_path["nonlinear2d"] = phase_nonlinear2d(args.profile)
-    by_path["vcycle_bf16"] = phase_vcycle_bf16()
+    by_path["coupled3d"] = timed("coupled3d", phase_coupled3d, model, checksum)
+    del model
+    torch.cuda.empty_cache()
+    by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
+    by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
+    by_path["vcycle_bf16"] = timed("vcycle_bf16", phase_vcycle_bf16)
+    by_path["cli"] = timed("cli", phase_cli)
+    log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
     for rec in records:
-        per_path = {p: n[rec["name"]] for p, n in by_path.items()
+        per_path = {p: n.get(rec["name"], 0) for p, n in by_path.items()
                     if rec["name"] in PATH_KERNELS[p]}
         rec["launches"] = sum(per_path.values())
         rec["launches_by_path"] = per_path

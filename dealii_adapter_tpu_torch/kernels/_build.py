@@ -51,9 +51,12 @@ _SIGNATURES = {
                                       ctypes.c_longlong, _P),
     # K2/K2b (ptrs[n_upper_blocks], u, out, dim, npc, n_cells, stream)
     "dat_tangent_matvec_sym_f32": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
-    # (u, y, E, nz, ny, nx, io_bf16, stream)
+    # (u, y, E, nz, ny, nx, io_bf16, stream): K3, K4 and K5
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "dat_q1_plane": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q2_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # K6 (u, y, class tables, nz, ny, nx, ndim, io_bf16, stream)
+    "dat_q1_stencil": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (u, y, E, ny, nx, io_bf16, stream)
     "dat_q1_structured_2d": (_P, _P, _P, _I, _I, _I, _P),
     # (x, y, salt, n, stream) and (x, y, n, stream)

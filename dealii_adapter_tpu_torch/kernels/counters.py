@@ -1,0 +1,48 @@
+"""The launch counts of every kernel wrapper of the package.
+
+Each wrapper adds one to its `launches` where it launches its kernel, and
+nowhere else (a CPU tensor takes the plain version and counts nothing).
+`counters()` names them all, so a run can set them to 0, drive a path and
+read which kernels the path launched (`chip_smoke.py`, the CLI summary).
+"""
+
+from __future__ import annotations
+
+
+def counters() -> dict:
+    """{kernel name: the object whose `launches` counts its launches}."""
+    from ..ops import assembled_tangent as at
+    from ..ops.q1_structured import (
+        Q1PlaneOperator,
+        Q1StructuredOperator,
+        Q1StructuredOperator2D,
+    )
+    from ..ops.q2_structured import Q2StructuredOperator
+    from ..ops.stencil import StencilQ1Operator
+    from . import _build
+
+    return {
+        "C1 health_scale": _build.health_scale,
+        "C2 health_add_one": _build.health_add_one,
+        "K1 tangent_matvec": at.apply_packed_tangents_T,
+        "K1b tangent_matvec_rows": at.apply_packed_tangents,
+        "K1c tangent_matvec_blocks": at.apply_block_tangents,
+        "K2 tangent_matvec_sym": at.apply_packed_tangents_sym,
+        "K2b tangent_matvec_sym_blocks": at.apply_sym_block_tangents,
+        "K3 q1_structured": Q1StructuredOperator,
+        "K4 q1_plane": Q1PlaneOperator,
+        "K4b q1_structured_2d": Q1StructuredOperator2D,
+        "K5 q2_structured": Q2StructuredOperator,
+        "K6 q1_stencil": StencilQ1Operator,
+    }
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far in this process}."""
+    return {name: obj.launches for name, obj in counters().items()}
+
+
+def reset() -> None:
+    """Set every launch count to 0."""
+    for obj in counters().values():
+        obj.launches = 0

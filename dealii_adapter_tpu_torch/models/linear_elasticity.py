@@ -285,10 +285,10 @@ def _check_ported(params: AllParameters) -> None:
     if params.element_backend == "gather":
         raise NotImplementedError(
             "element_backend='gather' is not ported to the PyTorch package "
-            "(ROADMAP Queue 1 item 12)"
+            "(ROADMAP Queue 1 item 13)"
         )
     if params.n_devices > 1:
         raise NotImplementedError(
             "n_devices > 1 is not ported to the PyTorch package (ROADMAP "
-            "Queue 1 item 13)"
+            "Queue 1 item 14)"
         )

@@ -12,7 +12,8 @@ Newton iteration assembles the per-cell tangents in the solve dtype (f32
 on the production path), lays them out for the selected matvec kernel,
 and runs a CG whose matvec is extract -> tangent kernel -> overlap-add,
 preconditioned by the geometric-multigrid V-cycle (kernels K5 and K3 in
-3D, K4b in 2D) or Jacobi/Chebyshev. The tangent kernel follows
+3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
+`mg_level_backend`) or Jacobi/Chebyshev. The tangent kernel follows
 `tangent_block_symmetric` and `tangent_matvec_kernel` as the JAX package
 picks its Pallas kernel (`tangent_kernel_id`): full storage runs K1 (the
 column-major pack; `auto`, `packedt`, `xla`), K1b (`packed`) or K1c
@@ -38,6 +39,7 @@ Unported variants raise NotImplementedError naming their ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -189,7 +191,7 @@ class NonlinearElasticity:
                 f"type_lin='Direct' materializes the dense "
                 f"({self.space.n_dofs})^2 tangent; capped at "
                 f"{DIRECT_MAX_UNKNOWNS} unknowns (a sparse direct solver is "
-                "not ported, ROADMAP Queue 1 item 12)"
+                "not ported, ROADMAP Queue 1 item 13)"
             )
         self.dtype = torch.float64 if params.dtype == "float64" else torch.float32
         self.material = NeoHookean(params.mu, params.nu, params.rho)
@@ -245,7 +247,7 @@ class NonlinearElasticity:
                 raise NotImplementedError(
                     "interface faces that do not cover complete lattice sides "
                     "need the gather Neumann path, which is not ported "
-                    "(ROADMAP Queue 1 item 12)"
+                    "(ROADMAP Queue 1 item 13)"
                 )
             sides.append(
                 dict(
@@ -278,8 +280,11 @@ class NonlinearElasticity:
             self._int_force32_J = None
         if self.device.type == "cuda" and tdt != torch.float32:
             raise NotImplementedError(
-                "the tangent matvec kernels (K1, K1b, K1c, K2, K2b) are f32: "
-                "set solve_dtype='float32' on CUDA"
+                "an f64 inner solve (solve_dtype == dtype, the reference's "
+                "default) runs the jvp tangent in the JAX package, which is "
+                "not ported (ROADMAP Queue 1 item 12); the tangent matvec "
+                "kernels (K1, K1b, K1c, K2, K2b) are f32: set "
+                "solve_dtype='float32' on CUDA"
             )
 
         # assembled per-cell tangent in the solve dtype, in the layout of
@@ -700,19 +705,39 @@ class NonlinearElasticity:
             info,
         )
 
+    def with_delta_t(self, delta_t: float) -> "NonlinearElasticity":
+        """A solver clone stepping with a different dt on the same mesh and
+        device, memoized per dt (subcycling: a coupling window that is not
+        an integer multiple of delta_t is closed with a shortened stepper,
+        `adapter.h:104-107`). The Newmark coefficients, the tangent's mass
+        term and the preconditioner depend on dt, so the clone rebuilds
+        them once; the multigrid geometry cached on the mesh is shared. The
+        clone estimates its own lam_max values by power iteration, as the
+        JAX package's clone does: values given to this model as
+        `mg_lam_max` belong to its dt."""
+        if float(delta_t) == float(self.params.delta_t):
+            return self
+        cache = self.__dict__.setdefault("_dt_clones", {})
+        key = float(delta_t)
+        if key not in cache:
+            cache[key] = type(self)(
+                dataclasses.replace(self.params, delta_t=key),
+                mesh=self.mesh, tags=self.tags,
+                quasi_static=self.quasi_static, device=self.device,
+            )
+        return cache[key]
+
 
 def _check_ported(params: AllParameters) -> None:
     """Raise for configurations whose code path is not ported yet."""
     unported = [
-        (params.newton_tangent_reuse, "newton_tangent_reuse", "Queue 1 item 12"),
-        (params.mg_fine_tangent, "mg_fine_tangent", "Queue 1 item 12"),
-        (params.use_sumfact, "use_sumfact", "Queue 1 item 12"),
         (params.tangent_backend == "jvp", "tangent_backend='jvp'", "Queue 1 item 12"),
+        (params.newton_tangent_reuse, "newton_tangent_reuse", "Queue 1 item 13"),
+        (params.mg_fine_tangent, "mg_fine_tangent", "Queue 1 item 13"),
+        (params.use_sumfact, "use_sumfact", "Queue 1 item 13"),
         (params.element_backend == "gather", "element_backend='gather'",
-         "Queue 1 item 12"),
-        (params.n_devices > 1, "n_devices > 1", "Queue 1 item 13"),
-        (params.mg_level_backend.startswith("stencil"),
-         f"mg_level_backend={params.mg_level_backend!r}", "Queue 2 K6"),
+         "Queue 1 item 13"),
+        (params.n_devices > 1, "n_devices > 1", "Queue 1 item 14"),
     ]
     for flag, name, item in unported:
         if flag:

@@ -1,14 +1,16 @@
-"""Q1 structured element operators (kernels K3 and K4b), the multigrid
+"""Q1 structured element operators (kernels K3, K4 and K4b), the multigrid
 level operators.
 
 Counterpart of `dealii_adapter_tpu/ops/pallas_structured.py`
-(`PallasQ1SlabOperator` in 3D, `PallasQ1Operator` in 2D).
-`make_q1_operator(space, E)(u)` computes y = A u for a constant element
-matrix (24 x 24 in 3D, 8 x 8 in 2D) over a Q1 node lattice:
+(`PallasQ1SlabOperator` in 3D, `PallasQ1Operator` in 2D and, through
+`make_q1_plane_operator`, in 3D). `make_q1_operator(space, E)(u)` computes
+y = A u for a constant element matrix (24 x 24 in 3D, 8 x 8 in 2D) over a
+Q1 node lattice:
 
 * on a CUDA tensor it launches the gather kernel of csrc/q1_structured.cu
   for the lattice's dimension (bf16 or f32 I/O, f32 accumulation; E is a
-  runtime argument, so one kernel serves every level);
+  runtime argument, so one kernel serves every level); the 3D operator of
+  `make_q1_plane_operator` launches the plane-marching kernel K4 instead;
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, computing in f32 (f64 for f64 I/O) and rounding
   the output to the I/O dtype.
@@ -129,6 +131,16 @@ class Q1StructuredOperator2D(StructuredKernelOperator):
     launches = 0
 
 
+class Q1PlaneOperator(StructuredKernelOperator):
+    """K4: the 3D Q1 operator marching along z one node plane at a time
+    (csrc/q1_structured.cu, `dat_q1_plane`); the same function as K3."""
+
+    p = 1
+    dim = 3
+    entry = "dat_q1_plane"
+    launches = 0
+
+
 def make_q1_operator(
     space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
 ) -> StructuredKernelOperator:
@@ -136,4 +148,16 @@ def make_q1_operator(
     if space.mesh.degree != 1:
         raise ValueError(f"Q1 operator on a degree-{space.mesh.degree} space")
     cls = Q1StructuredOperator2D if space.dim == 2 else Q1StructuredOperator
+    return cls(E, _grid_shape(space), dtype, device)
+
+
+def make_q1_plane_operator(
+    space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
+) -> StructuredKernelOperator:
+    """The plane-at-a-time Q1 operator of a 3D (K4) or 2D (K4b) Q1 space:
+    the counterpart of the JAX package's `make_pallas_q1_operator`. No
+    model path selects it; the level operators are `make_q1_operator`'s."""
+    if space.mesh.degree != 1:
+        raise ValueError(f"Q1 operator on a degree-{space.mesh.degree} space")
+    cls = Q1StructuredOperator2D if space.dim == 2 else Q1PlaneOperator
     return cls(E, _grid_shape(space), dtype, device)

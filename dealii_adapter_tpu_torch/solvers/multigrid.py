@@ -7,9 +7,12 @@ Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
 * level 1: Q1 on the same node lattice (FEM-SEM), or at half resolution;
 * levels >= 2: aspect-aware semi-coarsened Q1 lattices, down to a dense
   Cholesky coarse solve;
-* every Q1 level operator is a hand-written kernel (K3 in 3D, K4b in 2D,
-  `ops/q1_structured.py`) with that level's own (anisotropic) element
-  matrix;
+* every Q1 level operator is a hand-written kernel with that level's own
+  (anisotropic) element matrix: K3 in 3D and K4b in 2D
+  (`ops/q1_structured.py`) under `level_backend` `auto`, `xla` or
+  `pallas`, and the assembled stencil K6 (`ops/stencil.py`) under every
+  `stencil*` backend; the level diagonal comes from the element matrices'
+  diagonals either way;
 * transfers: 1D linear interpolation per axis, applied separably;
   restriction is the exact transpose, so the V-cycle stays SPD;
 * smoother: Chebyshev on the Jacobi-scaled level operator.
@@ -34,7 +37,14 @@ from ..fem.dofspace import DofSpace
 from ..mesh.generator import StructuredMesh, subdivided_hyper_rectangle
 from ..ops.element_ops import ElementMatrices, assemble_dense, assemble_diagonal
 from ..ops.q1_structured import make_q1_operator
+from ..ops.stencil import STRATEGIES, make_q1_stencil_operator
 from .cg import estimate_lambda_max
+
+# `auto`, `xla` and `pallas` build the Q1 levels on K3 (3D) / K4b (2D);
+# every `stencil*` backend on the assembled stencil, K6
+LEVEL_BACKENDS = ("auto", "xla", "pallas", "stencil") + tuple(
+    "stencil_" + s for s in STRATEGIES
+)
 
 
 def _interp_1d(x_fine: np.ndarray, x_coarse: np.ndarray) -> np.ndarray:
@@ -271,13 +281,11 @@ class GeometricMultigrid:
         rho-scaled mass coefficient of the operator (alpha_1 rho for
         Newmark). `lam_max`, when given, holds one value per level (fine
         first) and replaces the power iterations."""
-        if level_backend.startswith("stencil"):
-            raise NotImplementedError(
-                f"mg_level_backend={level_backend!r}: the assembled-stencil Q1 "
-                "operator is not ported (ROADMAP Queue 2, K6)"
+        if level_backend not in LEVEL_BACKENDS:
+            raise ValueError(
+                f"unknown mg_level_backend {level_backend!r}; expected one of "
+                f"{LEVEL_BACKENDS}"
             )
-        if level_backend not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown mg_level_backend {level_backend!r}")
         device = resolve_device(device)
         self.dtype = dtype
         self.smooth_degree = smooth_degree
@@ -313,7 +321,15 @@ class GeometricMultigrid:
             space_c = gm.space_c
             E_c = mu * gm.K_e_unit + mass_coeff * gm.M_e_unit
             mask_c = torch.as_tensor(gm.mask_c, dtype=dtype, device=device)
-            op_c = _masked(make_q1_operator(space_c, E_c, dtype, device), mask_c)
+            if level_backend.startswith("stencil"):
+                op_raw = make_q1_stencil_operator(
+                    space_c, E_c, dtype,
+                    strategy=level_backend[len("stencil_"):] or "shift",
+                    device=device,
+                )
+            else:
+                op_raw = make_q1_operator(space_c, E_c, dtype, device)
+            op_c = _masked(op_raw, mask_c)
             diag_c = mask_c * torch.as_tensor(
                 mu * gm.diag_K + mass_coeff * gm.diag_M, dtype=dtype, device=device
             ) + (1.0 - mask_c)

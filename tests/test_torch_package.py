@@ -1,10 +1,11 @@
 """Package-level guarantees of the PyTorch port: it never imports jax, its
 models run on the CUDA card unless asked for the CPU, its kernel wrappers
-(the five tangent matvecs K1, K1b, K1c, K2, K2b, and K3, K4b, K5) take the
-plain version only for CPU tensors, unported variants raise, the
-kernel build needs nvcc and binds every entry point, and chip_smoke.py
-fails without a GPU. One test compares the kernels with their plain
-versions on the card; it skips where there is none."""
+(the five tangent matvecs K1, K1b, K1c, K2, K2b, and K3, K4, K4b, K5, K6)
+take the plain version only for CPU tensors, unported variants raise, the
+kernel build needs nvcc and binds every entry point, the launch counters
+name every wrapper, and chip_smoke.py fails without a GPU. Two tests
+compare the kernels with their plain versions on the card; they skip
+where there is none."""
 
 import os
 import shutil
@@ -25,11 +26,22 @@ from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
     NonlinearElasticity,
 )
 from dealii_adapter_tpu_torch.ops import assembled_tangent as at
+from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
+from dealii_adapter_tpu_torch.kernels import counters
+from dealii_adapter_tpu_torch.mesh.generator import subdivided_hyper_rectangle
+from dealii_adapter_tpu_torch.ops.element_ops import ElementMatrices
 from dealii_adapter_tpu_torch.ops.q1_structured import (
+    Q1PlaneOperator,
     Q1StructuredOperator,
     Q1StructuredOperator2D,
+    make_q1_operator,
+    make_q1_plane_operator,
 )
 from dealii_adapter_tpu_torch.ops.q2_structured import Q2StructuredOperator
+from dealii_adapter_tpu_torch.ops.stencil import (
+    StencilQ1Operator,
+    make_q1_stencil_operator,
+)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,18 +57,29 @@ def _run(code_or_args, cwd=REPO, timeout=300):
 
 
 def test_package_never_imports_jax():
+    """Every module of the package (`__main__` runs the CLI, whose module
+    is imported here) and chip_smoke.py import neither jax nor the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dealii_adapter_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    if not name.endswith('.__main__'):\n"
+        "        importlib.import_module(name)\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'dealii_adapter_tpu' not in sys.modules\n"
-        "print('ok')\n"
+        "print(' '.join(sorted(names)))\n"
     )
     r = _run(code)
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    assert r.returncode == 0, r.stderr
+    names = set(r.stdout.split())
+    pkg = "dealii_adapter_tpu_torch."
+    assert {pkg + m for m in (
+        "ops.stencil", "adapter.adapter", "adapter.participant", "runner",
+        "cli", "__main__", "time_handler", "utils.vtk", "utils.timer",
+        "utils.postprocessor", "kernels.counters")} <= names
 
 
 def test_precision_policy_is_set():
@@ -130,13 +153,19 @@ def test_cpu_tensors_take_the_plain_path():
     for cls, E in ((Q1StructuredOperator, E1), (Q2StructuredOperator, E2)):
         op = cls(E, lattice, torch.float32, "cpu")
         torch.testing.assert_close(op(u), op.plain(u), rtol=0, atol=0)
-    lattice2, E, u = _small_inputs_2d()
+    lattice2, E, u2d = _small_inputs_2d()
     Q1StructuredOperator2D.launches = 0
     op = Q1StructuredOperator2D(E, lattice2, torch.float32, "cpu")
-    torch.testing.assert_close(op(u), op.plain(u), rtol=0, atol=0)
+    torch.testing.assert_close(op(u2d), op.plain(u2d), rtol=0, atol=0)
     assert at.apply_packed_tangents_T.launches == 0
     assert Q1StructuredOperator.launches == Q2StructuredOperator.launches == 0
     assert Q1StructuredOperator2D.launches == 0
+    Q1PlaneOperator.launches = StencilQ1Operator.launches = 0
+    for op, v in ((Q1PlaneOperator(E1, lattice, torch.float32, "cpu"), u),
+                  (StencilQ1Operator(E1, lattice, torch.float32, device="cpu"), u),
+                  (StencilQ1Operator(E, lattice2, torch.float32, device="cpu"), u2d)):
+        torch.testing.assert_close(op(v), op.plain(v), rtol=0, atol=0)
+    assert Q1PlaneOperator.launches == StencilQ1Operator.launches == 0
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -148,6 +177,22 @@ def test_non_cpu_non_cuda_tensors_raise():
             wrapper(*_to(args, "meta"))
     with pytest.raises(ValueError):
         Q1StructuredOperator(E1, lattice, torch.float32, "cpu")(u.to("meta"))
+    with pytest.raises(ValueError):
+        Q1PlaneOperator(E1, lattice, torch.float32, "cpu")(u.to("meta"))
+    with pytest.raises(ValueError):
+        StencilQ1Operator(E1, lattice, torch.float32, device="cpu")(u.to("meta"))
+
+
+def test_launch_counters_name_every_wrapper():
+    """`kernels.counters` lists each kernel's wrapper once, and `reset`
+    sets every count to 0."""
+    objs = counters.counters()
+    assert len(objs) == 12 and len({id(o) for o in objs.values()}) == 12
+    assert objs["K4 q1_plane"] is Q1PlaneOperator
+    assert objs["K6 q1_stencil"] is StencilQ1Operator
+    StencilQ1Operator.launches = 3
+    counters.reset()
+    assert set(counters.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize(
@@ -159,7 +204,6 @@ def test_non_cpu_non_cuda_tensors_raise():
         dict(tangent_backend="jvp"),
         dict(element_backend="gather"),
         dict(n_devices=2),
-        dict(mg_level_backend="stencil_vmem"),
         dict(type_lin="Direct", dim=3, poly_degree=5),
     ],
     ids=lambda d: next(iter(d)),
@@ -205,19 +249,19 @@ def test_models_run_on_the_card_unless_asked_for_the_cpu(model):
 def test_linear_unported_variants_raise(override):
     params = AllParameters(model="linear", type_lin="CG", scenario="PF",
                            dim=2, poly_degree=2, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[23]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[34]"):
         LinearElastodynamics(params, device="cpu")
 
 
 def test_build_binds_every_entry_point():
-    """The C entry points of the library: K1, K1b, K1c, K2/K2b, K3, K5, the
-    2D K4b and the C1/C2 health-check kernels, each defined in a source
-    under csrc/."""
+    """The C entry points of the library: K1, K1b, K1c, K2/K2b, K3, K4, K5,
+    the 2D K4b, K6 and the C1/C2 health-check kernels, each defined in a
+    source under csrc/."""
     names = set(_build._SIGNATURES)
     assert {"dat_tangent_matvec_f32", "dat_tangent_matvec_rows_f32",
             "dat_tangent_matvec_blocks_f32", "dat_tangent_matvec_sym_f32",
-            "dat_q1_structured", "dat_q2_structured",
-            "dat_q1_structured_2d", "dat_health_scale",
+            "dat_q1_structured", "dat_q1_plane", "dat_q2_structured",
+            "dat_q1_structured_2d", "dat_q1_stencil", "dat_health_scale",
             "dat_health_add_one"} <= names
     sources = "".join(p.read_text() for p in _build._sources())
     for name in names:
@@ -287,3 +331,49 @@ def test_kernels_match_plain_on_card():
     x = torch.randn(8, 128, generator=torch.Generator().manual_seed(1)).to(dev)
     assert torch.equal(_build.health_scale(x, 1.5), x * 1.5)
     assert torch.equal(_build.health_add_one(x), x + 1.0)
+
+
+def _q1_box(reps):
+    """A degree-1 box with anisotropic cells and its K + M element
+    matrix."""
+    dim = len(reps)
+    p1 = tuple(0.7 * r for r in reps)
+    space = DofSpace.create(subdivided_hyper_rectangle(reps, (0.0,) * dim, p1, 1))
+    el = ElementMatrices(space, 1.3, 0.7, 2.1)
+    return space, el.K_e + el.M_e
+
+
+@pytest.mark.cuda
+def test_k4_k6_match_plain_on_card():
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. K6 (3D and 2D, with lattices of a
+    2-node axis) and K4 against their plain versions and against K3 / K4b
+    on the same input, bf16 and f32 I/O; f64 I/O and lattices the kernels
+    do not take raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for reps in ((3, 2), (1, 4), (3, 2, 4), (1, 1, 1), (2, 1, 3), (7, 9, 5),
+                 (40, 37)):
+        space, E = _q1_box(reps)
+        dim = len(reps)
+        u = torch.randn(space.n_nodes, dim,
+                        generator=torch.Generator().manual_seed(2))
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = u.to(dev, dtype)
+            ref = make_q1_operator(space, E, dtype, dev)(x).double()
+            ops = [make_q1_stencil_operator(space, E, dtype, device=dev),
+                   make_q1_plane_operator(space, E, dtype, dev)]
+            for op in ops:
+                before = type(op).launches
+                out, plain = op(x).double(), op.plain(x).double()
+                torch.cuda.synchronize()
+                assert type(op).launches == before + 1
+                assert ((out - plain).norm() / plain.norm()).item() <= tol
+                assert ((out - ref).norm() / ref.norm()).item() <= tol
+        with pytest.raises(TypeError):
+            make_q1_stencil_operator(space, E, torch.float64, device=dev)(
+                u.to(dev, torch.float64))
+        with pytest.raises(ValueError):
+            make_q1_stencil_operator(space, E, torch.float32, device=dev)(
+                u.to(dev)[:-1])
