@@ -12,7 +12,9 @@ script exits non-zero without printing a result):
    exactly) runs as it loads.
 3. kernels — each hand-written kernel against its plain PyTorch version
    on seeded random inputs at the paths' shapes, with the kernel's device
-   time (`ms`: torch.profiler's CUDA time of 5 launches, averaged), its
+   time (`ms`: torch.profiler's CUDA time over 20 launches after 30 ms of
+   back-to-back launches, each kernel's mean duration: `device_ms`, also
+   used by the level table of phase 9), its
    time per call from the host (`call_ms`: CUDA events around one call,
    median of 15 after warmup, the launch cost included), the same
    per-call time of the plain version, and the device time of one
@@ -27,8 +29,13 @@ script exits non-zero without printing a result):
    stencil's count, 243 FMA per node in 3D and 36 in 2D).
    Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
-   plus order); C1/C2 exact. K4 and K6 are also held against K3's output
-   on the same input (K6 in 2D against K4b's) with the same limits.
+   plus order), K5's bf16 output <= 5e-4 (`K5_BF16_RTOL`, set on the card
+   between the sound kernel's error and a planted fault's); C1/C2 exact. K4 and K6 are also held against K3's output
+   on the same input (K6 in 2D against K4b's) with the same limits. K3 and
+   K5 (redesigned) are also timed in turns (old, new, new, old) against
+   their first gather design on the same input (`old_design`); K5's bf16
+   bound is its tensor-core design's (bf16 products at 989 TFLOP/s
+   against the bytes), with the f32-FMA bound beside it.
 4. main    — `NonlinearElasticity` with the benchmark configuration of
    `bench.py` (3D Neo-Hookean perpendicular flap, Q2, scale 9:
    1,018,875 DoF), traction 1000 in x on the interface, 1 warmup and 3
@@ -57,17 +64,20 @@ script exits non-zero without printing a result):
    within rtol 1e-4 of the JAX package's value; prints per-step times, CG
    and Newton counts, peak device memory and the checksum's difference
    from phase 4's (the K1 path).
-8. vcycle_bf16 — the 2D linear model of phase 5 at scale 24 (250,850 DoF)
-   with the bf16 multigrid hierarchy, step 0 with each inner CG capped at
-   `VCYCLE_BF16_CAP`: its CG count must be at most 1.25x the JAX
-   package's on the CPU (`VCYCLE_BF16_REF`), residual <= 1e-10.
+8. vcycle_bf16 — the 2D linear model of phase 5 and the 2D Neo-Hookean
+   model of phase 6 at scale 24 (250,850 DoF) with the bf16 multigrid
+   hierarchy, step 0 with each CG capped at `VCYCLE_BF16_CAP`: each CG
+   count (over the Newton iterations for the Neo-Hookean step) must be at
+   most 1.25x the JAX package's on the CPU (`VCYCLE_BF16_REF`,
+   `VCYCLE_BF16_NL_REF`); linear residual <= 1e-10, Neo-Hookean converged.
 9. stencil3d — phase 4's configuration with `mg_level_backend=
    "stencil_vmem"` (every 3D Q1 level on the assembled stencil, K6) on
    phase 4's mesh and lam_max values, 1 warmup and 3 timed steps: every
    step converged, ||u||^2 within rtol 1e-4 of the JAX package's; K6, K5,
-   K1 and C1/C2 launched and K3 not at all. Then K6 against K3 (bf16, the
-   hierarchy's dtype) at every 3D Q1 level shape of the hierarchy, with
-   that level's element matrix.
+   K1 and C1/C2 launched and K3 not at all. Then the level table: K3
+   against its first (gather) design, timed in turns, and against K6
+   (bf16, the hierarchy's dtype) at every 3D Q1 level shape of the
+   hierarchy, with that level's element matrix.
 10. coupled3d — `runner.coupled_run` on phase 9's model through the
    port's `Adapter` and a `FakeParticipant` (window 0.01, end time 0.04, a
    constant read field (1000, 0, 0) — `interface_traction`'s load —,
@@ -117,15 +127,27 @@ GOLDEN_RTOL = 1e-9  # tests/test_golden_trajectory.py's linear tolerance
 #   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py linear --scale 24 \
 #       --steps 1 --precond-dtype bfloat16
 VCYCLE_BF16_REF = 160
+# the same for the Neo-Hookean model (NONLINEAR_2D with the bf16
+# hierarchy): CG over step 0's Newton iterations, and those iterations
+#   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py nonlinear \
+#       --scale 24 --steps 1 --precond-dtype bfloat16
+VCYCLE_BF16_NL_REF = 200
+VCYCLE_BF16_NL_NEWTON = 5
 VCYCLE_BF16_RATIO = 1.25
 VCYCLE_BF16_SCALE = 24
 VCYCLE_BF16_CAP = 2000  # per inner solve, so that a stall ends the phase
 F32_RTOL = 1e-5
 BF16_RTOL = 1e-2
+# K5 in bf16: both outputs round f32-accurate sums (E split into E_hi +
+# E_lo), so they differ only where a sum lies near a rounding boundary;
+# the limit lies between the sound kernel's largest error and that of a
+# planted fault, E_lo's MMA dropped (tests/test_torch_package.py)
+K5_BF16_RTOL = 5e-4
 SCALE = 9  # 3D main path: 1,018,875 DoF
 SCALE_2D = 48  # 2D paths: 999,362 DoF
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 # bench.py's build_model with its environment defaults (the 3D benchmark
 # step), without `dim`
@@ -186,6 +208,8 @@ PATH_KERNELS = {
     "linear2d": _HEALTH + ("K4b q1_structured_2d",),
     "nonlinear2d": _HEALTH + ("K1 tangent_matvec", "K4b q1_structured_2d"),
     "vcycle_bf16": _HEALTH + ("K4b q1_structured_2d",),
+    "vcycle_bf16 nonlinear": _HEALTH + ("K1 tangent_matvec",
+                                        "K4b q1_structured_2d"),
     "stencil3d": _STENCIL3D,
     "coupled3d": _STENCIL3D,
     "cli": _HEALTH + ("K4b q1_structured_2d",),
@@ -258,27 +282,83 @@ def cuda_ms(fn, reps=15, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
+def device_ms(fn, reps=20, warmup_s=0.03):
     """Mean device time in ms of the kernels one call of `fn` launches,
     from torch.profiler's CUDA activity: the kernel's own duration,
-    without the host's launch cost (which `cuda_ms` includes)."""
+    without the host's launch cost (which `cuda_ms` includes). The
+    profiled `reps` calls follow `warmup_s` seconds of back-to-back calls,
+    so that the card's clocks and L2 are in the state the paths run in.
+    A session may miss some kernels (seen on the H100: a kernel recorded
+    fewer than `reps` times), so the time per call is each kernel's mean
+    duration times the times a call launches it (its count over `reps`,
+    rounded, at least 1), not the session's total over `reps`; kernels
+    missed are counted in `MISSED_KERNELS`. Every device time of the
+    kernel record and of the level table is taken this way."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warmup_s:
+        fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiling session now and then records nothing
+    for _ in range(3):  # a session now and then records nothing
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / reps / 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count > 0]
+        us = sum(e.self_device_time_total for e in kernels)
+        if us <= 0:
+            continue
+        per_call = 0.0
+        for e in kernels:
+            launches = max(1, round(e.count / reps))
+            per_call += e.self_device_time_total / e.count * launches
+            MISSED_KERNELS[0] += max(0, launches * reps - e.count)
+        return per_call / 1e3
     raise RuntimeError("chip_smoke: torch.profiler recorded no device time "
                        "in 3 sessions")
+
+
+MISSED_KERNELS = [0]  # kernels the profiled sessions did not record
+
+
+def in_turns(old, new):
+    """Device times of two implementations of one function, taken in turns
+    old, new, new, old in one process on one card (the fair comparison):
+    (old mean, new mean, [the four times])."""
+    t = [device_ms(old), device_ms(new), device_ms(new), device_ms(old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def gather_entry(op, entry):
+    """A call of the first (gather) design of K3 or K5, `entry` in the
+    kernel library, on `op`'s lattice and element matrix: the old kernel
+    timed in turns with the new one. Not a wrapper: it counts nothing."""
+    import torch
+
+    from dealii_adapter_tpu_torch.kernels import _build
+
+    fn = getattr(_build.load_library(), entry)
+
+    def run(u):
+        y = torch.empty_like(u)
+        _build.check(fn(u.data_ptr(), y.data_ptr(), op.E_dev.data_ptr(),
+                        *op.grid_shape, int(u.dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream), entry)
+        return y
+
+    return run
+
+
+def sm_clock():
+    """The card's SM clock now, as nvidia-smi reads it (MHz)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip()
 
 
 def compare(out, ref):
@@ -338,6 +418,10 @@ def phase_build():
     h = _build.health
     require(h is not None and not any(h["mismatches"].values()), f"health {h}")
     log(f"build: C1/C2 health check passed: {h}")
+    for src, report in sorted((_build.ptxas_report or {}).items()):
+        for line in report.splitlines():  # -Xptxas -v: per kernel
+            if "entry function" in line or "Used" in line or "spill" in line:
+                log(f"build: ptxas {src}: {line.strip()}")
 
 
 def lattice_E(p, h, lmbda, mu, mass_coeff):
@@ -410,6 +494,23 @@ def check_gather(op, u, limit, ref_op=None):
         chk["rel_l2_vs_ref_kernel"] = compare(out, ref_op(u))[1]
     require(rel <= limit and chk.get("rel_l2_vs_ref_kernel", 0.0) <= limit, chk)
     return chk
+
+
+def old_design(op, u, limit, entry):
+    """The first (gather) design of K3 or K5 on the same operator and input:
+    its error against the plain version, and both designs' device times
+    taken in turns (`in_turns`)."""
+    old, new = gather_entry(op, entry), (lambda: op(u))
+    mx, rel = compare(old(u), op.plain(u))
+    require(rel <= limit, f"{entry}: rel_l2 {rel}")
+    old_ms, new_ms, turns = in_turns(lambda: old(u), new)
+    return dict(entry=entry, rel_l2_err=rel, max_abs_err=mx, ms=old_ms,
+                new_ms_in_turns=new_ms, turns_old_new_new_old=turns)
+
+
+def fmt_old(o):
+    return (f"old design {o['ms']:.4f} ms vs new {o['new_ms_in_turns']:.4f} "
+            f"in turns {[round(t, 4) for t in o['turns_old_new_new_old']]}")
 
 
 def stencil_work(grid_shape, io_bytes):
@@ -614,14 +715,17 @@ def phase_kernels():
     lattice = (19, 325, 55)
     n_nodes = math.prod(lattice)
     E1 = lattice_E(1, (0.1 / 27, 1.0 / 162, 0.3 / 18), lam_eff, mu, mass)
+    log(f"kernels: SM clock {sm_clock()} before K3")
     checks = []
     for dtype, lim in ((torch.bfloat16, BF16_RTOL), (torch.float32, F32_RTOL)):
-        chk = check_gather(Q1StructuredOperator(E1, lattice, dtype, dev),
-                           randn(n_nodes, 3, dtype=dtype), lim)
+        op = Q1StructuredOperator(E1, lattice, dtype, dev)
+        u = randn(n_nodes, 3, dtype=dtype)
+        chk = check_gather(op, u, lim)
+        chk["old_design"] = old_design(op, u, lim, "dat_q1_structured_gather")
         log(f"kernel K3 {chk['dtype']}: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
             f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
             f"{chk['plain_ms']:.4f}, bound {chk['bound_ms']:.4f} ms "
-            f"({chk['bound_by']})")
+            f"({chk['bound_by']}); {fmt_old(chk['old_design'])}")
         checks.append(chk)
     lib3 = library_spmv_ms(E1, lattice, 1, dev)
     log(f"kernel K3 library (CSR SpMV f32 of the assembled level): {lib3:.4f} ms")
@@ -667,21 +771,42 @@ def phase_kernels():
     records += q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3,
                                 lib2)
 
-    # K5: 3D Q2 fine proxy, bf16, with the small-strain proxy element matrix
+    # K5: 3D Q2 fine proxy with the small-strain proxy element matrix, bf16
+    # (every 3D path) on the tensor cores and f32 in f32 FMA
     E2 = lattice_E(2, (0.1 / 27, 1.0 / 162, 0.3 / 9), lam_eff, mu, mass)
-    chk = check_gather(Q2StructuredOperator(E2, lattice, torch.bfloat16, dev),
-                       randn(n_nodes, 3, dtype=torch.bfloat16), BF16_RTOL)
+    log(f"kernels: SM clock {sm_clock()} before K5")
+    checks = []
+    for dtype, lim in ((torch.bfloat16, K5_BF16_RTOL), (torch.float32, F32_RTOL)):
+        op = Q2StructuredOperator(E2, lattice, dtype, dev)
+        u = randn(n_nodes, 3, dtype=dtype)
+        chk = check_gather(op, u, lim)
+        chk["old_design"] = old_design(op, u, lim, "dat_q2_structured_gather")
+        if dtype == torch.bfloat16:
+            # the tensor-core design's bound: bf16 products at 989 TFLOP/s
+            # (E_hi and E_lo: two per element-matrix entry and cell) against
+            # the bytes; the f32-FMA bound stays beside it
+            n_bytes, flops = operator_work(lattice, 2, 2)
+            chk["bound_f32_fma_ms"] = chk["bound_ms"]
+            t_tc = 2 * flops / BF16_TC_FLOPS * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            chk["bound_ms"], chk["bound_by"] = (
+                (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations"))
+        log(f"kernel K5 {chk['dtype']}: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
+            f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call "
+            f"{chk['call_ms']:.4f}) vs plain {chk['plain_ms']:.4f}, bound "
+            f"{chk['bound_ms']:.4f} ms ({chk['bound_by']}); "
+            f"{fmt_old(chk['old_design'])}")
+        checks.append(chk)
     lib = library_spmv_ms(E2, lattice, 2, dev)
-    log(f"kernel K5 bf16: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
-        f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
-        f"{chk['plain_ms']:.4f}, library (CSR SpMV f32) {lib:.4f}, bound "
-        f"{chk['bound_ms']:.4f} ms ({chk['bound_by']})")
+    log(f"kernel K5 library (CSR SpMV f32 of the assembled fine operator): "
+        f"{lib:.4f} ms")
     records.append(dict(
         name="K5 q2_structured", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q2_structured.cu",
         replaces="dealii_adapter_tpu/ops/pallas_phase.py:121",
         shape=f"lattice {lattice} x 3, E 81x81", library_ms=lib,
-        library_call="CSR SpMV (torch sparse, f32)", **chk,
+        library_call="CSR SpMV (torch sparse, f32)",
+        **checks[0], other_checks=checks[1:],
     ))
 
     # C1/C2: the health-check kernels at their 8 x 128 f32 block (exact)
@@ -925,9 +1050,11 @@ def phase_tangent3d(main):
 
 
 def level_table(model):
-    """K6 against K3 (bf16, the hierarchy's dtype) at every 3D Q1 level
-    shape of `model`'s hierarchy, with that level's element matrix: the
-    measurement that decides between the two level operators."""
+    """K3 against its first (gather) design and against K6 (bf16, the
+    hierarchy's dtype) at every 3D Q1 level shape of `model`'s hierarchy,
+    with that level's element matrix: device times (`device_ms`, as the
+    kernel record takes them; K3 and its old design in turns) and per-call
+    times."""
     import torch
 
     from dealii_adapter_tpu_torch.ops.q1_structured import Q1StructuredOperator
@@ -941,23 +1068,36 @@ def level_table(model):
                                p.mg_fem_sem, lam_eff, p.mu)
     g = torch.Generator(device="cpu").manual_seed(99)
     rows = []
+    log(f"level table: SM clock {sm_clock()}")
     for li, gm in enumerate(geoms):
         E = p.mu * gm.K_e_unit + mass * gm.M_e_unit
         u = torch.randn(gm.space_c.n_nodes, 3, generator=g).to(dev, torch.bfloat16)
         k3 = Q1StructuredOperator(E, gm.shape_c, torch.bfloat16, dev)
         k6 = StencilQ1Operator(E, gm.shape_c, torch.bfloat16, device=dev)
-        _, rel = compare(k6(u), k3(u))
-        require(rel <= BF16_RTOL, f"level {li + 1}: K6 vs K3 rel {rel}")
+        old = gather_entry(k3, "dat_q1_structured_gather")
+        y3 = k3(u)
+        _, rel = compare(k6(u), y3)
+        _, rel_old = compare(old(u), y3)
+        _, rel_plain = compare(y3, k3.plain(u))
+        require(max(rel, rel_old, rel_plain) <= BF16_RTOL,
+                f"level {li + 1}: K6 / old K3 / plain vs K3 rel {rel} "
+                f"{rel_old} {rel_plain}")
+        old_ms, k3_ms, turns = in_turns(lambda: old(u), lambda: k3(u))
         row = dict(level=li + 1, lattice=gm.shape_c, coarse=li == len(geoms) - 1,
-                   k3_ms=device_ms(lambda: k3(u)), k6_ms=device_ms(lambda: k6(u)),
+                   k3_ms=k3_ms, k3_old_ms=old_ms, k3_turns=turns,
+                   k6_ms=device_ms(lambda: k6(u)),
                    k3_call_ms=cuda_ms(lambda: k3(u)),
-                   k6_call_ms=cuda_ms(lambda: k6(u)), k6_vs_k3_rel_l2=rel)
+                   k6_call_ms=cuda_ms(lambda: k6(u)), k6_vs_k3_rel_l2=rel,
+                   k3_vs_plain_rel_l2=rel_plain)
         rows.append(row)
-        log(f"stencil3d: level {li + 1} {gm.shape_c}"
+        log(f"level table: level {li + 1} {gm.shape_c}"
             f"{' (coarse solve)' if row['coarse'] else ''}: K3 "
-            f"{row['k3_ms']:.4f} ms, K6 {row['k6_ms']:.4f} ms (bf16, device "
-            f"time; per call {row['k3_call_ms']:.4f} / {row['k6_call_ms']:.4f}), "
-            f"rel_l2 {rel:.3e}")
+            f"{row['k3_ms']:.4f} ms, its old design {old_ms:.4f} (in turns "
+            f"{[round(t, 4) for t in turns]}), K6 "
+            f"{row['k6_ms']:.4f} ms (bf16, "
+            f"device time; per call K3 {row['k3_call_ms']:.4f} / K6 "
+            f"{row['k6_call_ms']:.4f}), rel_l2 K6 {rel:.3e}, old {rel_old:.3e}, "
+            f"plain {rel_plain:.3e}")
     return rows
 
 
@@ -1093,33 +1233,53 @@ def phase_cli():
 
 
 def phase_vcycle_bf16():
-    """Step 0 of the 2D linear model at `VCYCLE_BF16_SCALE` with the bf16
-    hierarchy: CG iterations against the JAX package's on the CPU."""
+    """Step 0 of the 2D linear and Neo-Hookean models at `VCYCLE_BF16_SCALE`
+    with the bf16 hierarchy: CG iterations against the JAX package's on
+    the CPU; returns {path: launches}."""
     import torch
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    model = build_linear_model(dev, scale=VCYCLE_BF16_SCALE,
-                               precond_dtype="bfloat16")
-    torch.cuda.synchronize()
-    describe("vcycle_bf16", model, time.perf_counter() - t0)
-    model._max_cg_iter = VCYCLE_BF16_CAP
-    stress = interface_traction(model)
-    start_counts()
-    torch.cuda.synchronize()
-    ts = time.perf_counter()
-    _, info = model.step(model.initial_state(), stress)
-    torch.cuda.synchronize()
-    launches = read_counts("vcycle_bf16")
-    limit = VCYCLE_BF16_RATIO * VCYCLE_BF16_REF
-    log(f"vcycle_bf16: step 0 at {model.space.n_dofs} DoF in "
-        f"{time.perf_counter() - ts:.4f} s: cg {info.iterations} (JAX package "
-        f"on the CPU: {VCYCLE_BF16_REF}; limit {limit:g}), residual "
-        f"{info.residual!r}; launches {launches}")
-    require(info.residual <= 1e-10, f"vcycle_bf16: residual {info.residual}")
-    require(info.iterations <= limit,
-            f"vcycle_bf16: {info.iterations} CG > {limit:g}")
-    return launches
+    by_path = {}
+    for path, build, ref in (
+        ("vcycle_bf16", lambda: build_linear_model(
+            dev, scale=VCYCLE_BF16_SCALE, precond_dtype="bfloat16"),
+         VCYCLE_BF16_REF),
+        ("vcycle_bf16 nonlinear", lambda: build_model(
+            dev, dim=2, scale=VCYCLE_BF16_SCALE, precond_dtype="bfloat16"),
+         VCYCLE_BF16_NL_REF),
+    ):
+        t0 = time.perf_counter()
+        model = build()
+        torch.cuda.synchronize()
+        describe(path, model, time.perf_counter() - t0)
+        model._max_cg_iter = VCYCLE_BF16_CAP
+        stress = interface_traction(model)
+        start_counts()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        _, info = model.step(model.initial_state(), stress)
+        torch.cuda.synchronize()
+        by_path[path] = read_counts(path)
+        limit = VCYCLE_BF16_RATIO * ref
+        nonlinear = path.endswith("nonlinear")
+        cg = info.cg_iterations if nonlinear else info.iterations
+        log(f"{path}: step 0 at {model.space.n_dofs} DoF in "
+            f"{time.perf_counter() - ts:.4f} s: cg {cg}"
+            + (f", newton {info.iterations}" if nonlinear else "")
+            + f" (JAX package on the CPU: {ref}"
+            + (f" / {VCYCLE_BF16_NL_NEWTON}" if nonlinear else "")
+            + f"; limit {limit:g}), "
+            + (f"converged {info.converged}" if nonlinear
+               else f"residual {info.residual!r}")
+            + f"; launches {by_path[path]}")
+        if nonlinear:
+            require(info.converged, f"{path}: step 0 converged")
+        else:
+            require(info.residual <= 1e-10, f"{path}: residual {info.residual}")
+        require(cg <= limit, f"{path}: {cg} CG > {limit:g}")
+        del model
+        torch.cuda.empty_cache()
+    return by_path
 
 
 def golden_linear_pf_q2(dev):
@@ -1238,9 +1398,10 @@ def main():
     torch.cuda.empty_cache()
     by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
-    by_path["vcycle_bf16"] = timed("vcycle_bf16", phase_vcycle_bf16)
+    by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"] = timed("cli", phase_cli)
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
+    log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}")
     for rec in records:
         per_path = {p: n.get(rec["name"], 0) for p, n in by_path.items()
                     if rec["name"] in PATH_KERNELS[p]}

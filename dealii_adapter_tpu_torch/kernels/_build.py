@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libdat_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -51,10 +51,14 @@ _SIGNATURES = {
                                       ctypes.c_longlong, _P),
     # K2/K2b (ptrs[n_upper_blocks], u, out, dim, npc, n_cells, stream)
     "dat_tangent_matvec_sym_f32": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
-    # (u, y, E, nz, ny, nx, io_bf16, stream): K3, K4 and K5
+    # (u, y, coefficients, nz, ny, nx, io_bf16, stream): K3 (class
+    # tables), K4 and the first (gather) designs of K3 and K5 (E)
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q1_plane": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "dat_q2_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "dat_q1_structured_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "dat_q2_structured_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # K5 (u, y, mma fragments, E, nz, ny, nx, io_bf16, stream)
+    "dat_q2_structured": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # K6 (u, y, class tables, nz, ny, nx, ndim, io_bf16, stream)
     "dat_q1_stencil": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (u, y, E, ny, nx, io_bf16, stream)
@@ -66,6 +70,9 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
+# ptxas's resource report per source of that build (-Xptxas -v: registers,
+# shared memory, spills of each kernel)
+ptxas_report = None
 health = None  # result of the last health check in this process
 
 
@@ -98,28 +105,30 @@ def _nvcc() -> str:
 
 
 def _run_all(cmds):
-    """Run the commands in parallel; raise with the first failure's
-    output."""
+    """Run the commands in parallel; raise with the failures' output.
+    Returns each command's standard error."""
     procs = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                stderr=subprocess.PIPE, text=True))
         for cmd in cmds
     ]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed (exit {proc.returncode}): "
                           f"{' '.join(cmd)}\n{err}{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def build(force: bool = False) -> Path:
     """Compile every kernel source (one nvcc per source, in parallel) and
     link the shared library (skipped when the library on disk was built
     from the same sources). Returns its path."""
-    global build_seconds
+    global build_seconds, ptxas_report
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     key = source_hash()
@@ -144,7 +153,8 @@ def build(force: bool = False) -> Path:
     tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
     try:
-        _run_all(compiles)
+        errs = _run_all(compiles)
+        ptxas_report = {Path(c[-1]).name: e for c, e in zip(compiles, errs)}
         _run_all([[nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objs]])
     finally:
         for obj in objs:

@@ -7,9 +7,11 @@ Counterpart of `dealii_adapter_tpu/ops/pallas_structured.py`
 y = A u for a constant element matrix (24 x 24 in 3D, 8 x 8 in 2D) over a
 Q1 node lattice:
 
-* on a CUDA tensor it launches the gather kernel of csrc/q1_structured.cu
-  for the lattice's dimension (bf16 or f32 I/O, f32 accumulation; E is a
-  runtime argument, so one kernel serves every level); the 3D operator of
+* on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O, f32
+  accumulation; the level's element matrix is a runtime argument, so one
+  kernel serves every level): in 3D K3, the folded 27-point form with the
+  per-node-class tables K6 reads (`ops/stencil.py:class_tables`); in 2D
+  K4b, the cell-wise gather form; the 3D operator of
   `make_q1_plane_operator` launches the plane-marching kernel K4 instead;
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, computing in f32 (f64 for f64 I/O) and rounding
@@ -18,6 +20,7 @@ Q1 node lattice:
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -25,6 +28,8 @@ import torch
 
 from ..device import resolve_device
 from ..fem.dofspace import DofSpace
+from ..kernels import _build
+from .stencil import class_tables, q1_stencil_tables
 from .structured import _grid_shape, structured_operator_from_lattice
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -32,9 +37,13 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 class StructuredKernelOperator:
     """y = A u over a `dim`-dimensional lattice of degree-`p` cells, through
-    a hand-written gather kernel on the card and `StructuredOperator` on the
-    CPU. Subclasses name the kernel entry point, whose arguments are
-    (u, y, E, *lattice, io_bf16, stream), and keep its launch count."""
+    a hand-written kernel on the card and `StructuredOperator` on the CPU.
+    Subclasses name the kernel entry point, whose arguments are (u, y,
+    *coefficient pointers, *lattice, io_bf16, stream), say what it reads
+    (`_coefficients`) and keep its launch count. Everything but u, y and
+    the stream is bound once, in `__init__`; a call checks u, allocates y
+    with `torch.empty_like`, launches on PyTorch's current stream and never
+    synchronises, so that whole V-cycles can be captured in a CUDA graph."""
 
     p: int
     dim: int
@@ -57,8 +66,16 @@ class StructuredKernelOperator:
         self._plain = structured_operator_from_lattice(
             E, self.grid_shape, self.p, cdt, self.device
         )
-        # row = output dof, node-major, as the kernel reads it
+        # row = output dof, node-major, as the kernels read it
         self.E_dev = torch.as_tensor(E, dtype=torch.float32, device=self.device)
+        self._coef = self._coefficients(E)
+        self._args = tuple(c.data_ptr() for c in self._coef) + self.grid_shape
+        self._u_shape = (math.prod(self.grid_shape), self.dim)
+        self._lib = self._fn = None
+
+    def _coefficients(self, E: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """The device arrays the kernel reads, in argument order."""
+        return (self.E_dev,)
 
     def plain(self, u: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version: f32 (f64) compute, output rounded to
@@ -75,25 +92,26 @@ class StructuredKernelOperator:
                 f"{type(self).__name__} kernel takes float32 or bfloat16 I/O, "
                 f"got {u.dtype}"
             )
-        n_nodes = int(np.prod(self.grid_shape))
-        if tuple(u.shape) != (n_nodes, self.dim) or not u.is_contiguous():
+        if u.shape != self._u_shape or not u.is_contiguous():
             raise ValueError(
                 f"{type(self).__name__}: u must be a contiguous "
-                f"({n_nodes}, {self.dim}) tensor, got {tuple(u.shape)}"
+                f"{self._u_shape} tensor, got {tuple(u.shape)}"
             )
-        if self.E_dev.device != u.device:
+        if u.device != self.E_dev.device:
             raise ValueError(
                 f"{type(self).__name__}: operator on {self.E_dev.device}, "
                 f"u on {u.device}"
             )
-        from ..kernels._build import check, load_library, stream_of
-
+        lib = _build.load_library()
+        if lib is not self._lib:  # (re)bound library: look the entry up once
+            self._lib, self._fn = lib, getattr(lib, self.entry)
         y = torch.empty_like(u)
-        err = getattr(load_library(), self.entry)(
-            u.data_ptr(), y.data_ptr(), self.E_dev.data_ptr(), *self.grid_shape,
-            int(u.dtype == torch.bfloat16), stream_of(u),
+        err = self._fn(
+            u.data_ptr(), y.data_ptr(), *self._args,
+            u.dtype == torch.bfloat16,
+            torch.cuda.current_stream(u.device).cuda_stream,
         )
-        check(err, self.entry)
+        _build.check(err, self.entry)
         type(self).launches += 1
         return y
 
@@ -114,12 +132,20 @@ class StructuredKernelOperator:
 
 
 class Q1StructuredOperator(StructuredKernelOperator):
-    """K3: the 3D Q1 level operator (csrc/q1_structured.cu)."""
+    """K3: the 3D Q1 level operator (csrc/q1_structured.cu), the folded
+    27-point stencil with per-node-class coefficients."""
 
     p = 1
     dim = 3
     entry = "dat_q1_structured"
     launches = 0
+
+    def _coefficients(self, E):
+        # K6's per-node-class tables in f32, each (class, offset, output
+        # component) row padded to 4 source components: one float4
+        table = np.zeros((27, 27, 3, 4), dtype=np.float32)
+        table[..., :3] = class_tables(q1_stencil_tables(E, 3, 3), 3)
+        return (torch.as_tensor(table, device=self.device),)
 
 
 class Q1StructuredOperator2D(StructuredKernelOperator):

@@ -219,13 +219,15 @@ def _coef(c: float, dtype) -> float:
     return torch.tensor(c, dtype=dtype).item()
 
 
-def _chebyshev_smooth(level: MGLevel, b, x, degree: int, x_is_zero=False):
+def _chebyshev_smooth(level: MGLevel, b, x, degree: int, x_is_zero=False,
+                      out_dtype=None):
     """`degree` Chebyshev iterations on [lam_max/4, 1.05 lam_max] of the
     Jacobi-scaled level operator. `x_is_zero` skips the initial residual
     apply. Each operation rounds to the hierarchy dtype, and so do the
     polynomial's coefficients (`_coef`), as in the JAX package's smoother
     run by XLA on the CPU; in f32 and f64 this is PyTorch's own
-    arithmetic."""
+    arithmetic. `out_dtype` computes the closing update `x + d` in that
+    dtype instead (see `GeometricMultigrid.__call__`)."""
     dt = b.dtype
     inv = 1.0 / level.diag
     lmax = level.lam_max * 1.05
@@ -243,6 +245,8 @@ def _chebyshev_smooth(level: MGLevel, b, x, degree: int, x_is_zero=False):
         d = (_coef(rho_next * rho, dt) * d
              + _coef(2.0 * rho_next / delta, dt) * (inv * resid))
         rho = rho_next
+    if out_dtype is not None:
+        return x.to(out_dtype) + d.to(out_dtype)
     return x + d
 
 
@@ -389,7 +393,7 @@ class GeometricMultigrid:
         ef = _apply_sep(ec_grid, lv.P_1d)
         return lv.mask * ef.reshape(-1, self.dim)
 
-    def _vcycle(self, li: int, b):
+    def _vcycle(self, li: int, b, out_dtype=None):
         lv = self.levels[li]
         if li == 0 and self.skip_fine_smoothing:
             return self._prolong(0, self._vcycle(1, self._restrict(0, b)))
@@ -398,16 +402,26 @@ class GeometricMultigrid:
         if li == len(self.levels) - 1:  # coarsest without factorization
             return _chebyshev_smooth(
                 lv, b, torch.zeros_like(b), self.smooth_degree * 2,
-                x_is_zero=True,
+                x_is_zero=True, out_dtype=out_dtype,
             )
         deg = self.smooth_degree_fine if li == 0 else self.smooth_degree
         x = _chebyshev_smooth(lv, b, torch.zeros_like(b), deg, x_is_zero=True)
         r = b - lv.operator(x)
         ec = self._vcycle(li + 1, self._restrict(li, r))
         x = x + self._prolong(li, ec)
-        return _chebyshev_smooth(lv, b, x, deg)
+        return _chebyshev_smooth(lv, b, x, deg, out_dtype=out_dtype)
 
     def __call__(self, r):
         """One symmetric V-cycle in the hierarchy dtype; output in r's
-        dtype."""
-        return self._vcycle(0, r.to(self.dtype)).to(r.dtype)
+        dtype. A bf16 hierarchy called with an f32 r computes the fine
+        post-smoother's closing `x + d` in f32 instead of rounding it to
+        bf16, as XLA does in the JAX package's jitted V-cycle on the CPU:
+        there the bf16 arithmetic runs in f32 with every line rounded back
+        to bf16, except this last one, whose bf16 -> f32 convert pair at the
+        program's output XLA removes (`--xla_allow_excess_precision`; with
+        an f64 output the rounding stays). Rounded, the bf16 V-cycle
+        preconditioned the CG measurably worse than the JAX package's
+        (1.68x its CG at the 250,850-DoF 2D Neo-Hookean step 0)."""
+        wide = self.dtype == torch.bfloat16 and r.dtype == torch.float32
+        z = self._vcycle(0, r.to(self.dtype), out_dtype=r.dtype if wide else None)
+        return z.to(r.dtype)

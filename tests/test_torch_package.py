@@ -377,3 +377,78 @@ def test_k4_k6_match_plain_on_card():
         with pytest.raises(ValueError):
             make_q1_stencil_operator(space, E, torch.float32, device=dev)(
                 u.to(dev)[:-1])
+
+
+def _cell_E(p, h):
+    """K + M element matrix of one degree-p cell of edges h (3D)."""
+    m = subdivided_hyper_rectangle((1, 1, 1), (0.0,) * 3, h, p)
+    el = ElementMatrices(DofSpace.create(m), 1.3, 0.7, 2.1)
+    return el.K_e + el.M_e
+
+
+# the main path's five Q1 level lattices, ragged small ones (2-node axes,
+# partial tiles, nx within one tile of 8, 16 or 32) and the Q2 fine lattice
+# with ragged Q2 ones (z beyond one block of 9 cells, partial y/x tiles)
+K3_LATTICES = ((19, 325, 55), (19, 163, 28), (19, 82, 15), (19, 42, 8),
+               (10, 22, 5), (2, 2, 2), (2, 5, 3), (3, 2, 9), (7, 9, 5),
+               (5, 37, 33), (11, 6, 17))
+K5_LATTICES = ((19, 325, 55), (3, 3, 3), (5, 7, 9), (21, 11, 9), (3, 19, 13),
+               (23, 5, 61))
+
+
+# K5's bf16 limit (chip_smoke.py's K5_BF16_RTOL): between the sound
+# kernel's largest error over these lattices and the smallest of the
+# planted fault below (E_lo's MMA dropped), both read on the card
+K5_BF16_RTOL = 5e-4
+
+
+def _rel_l2(out, ref):
+    ref = ref.double()
+    return ((out.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.cuda
+def test_k3_k5_match_plain_on_card():
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. The redesigned K3 (folded stencil) and
+    K5 (tensor cores for bf16 I/O, f32 FMA for f32) against their plain
+    versions at the main path's lattices and ragged small ones, bf16 and
+    f32 I/O (relative L2 1e-2 and 1e-5: one output rounding, 2^-9, plus
+    the summation order, and f32 roundoff over a few hundred terms; K5 in
+    bf16 at `K5_BF16_RTOL`, since both outputs round the same f32-accurate
+    sums and differ only where a sum lies near a rounding boundary); each
+    launch counted once; two launches give the same bits. A planted fault
+    shows that K5's bf16 limit holds E's split: with E_lo's fragments
+    zeroed, as if its MMA were dropped, K5 errs by E_hi's bf16 rounding
+    (2^-9 a coefficient) and fails the limit at every lattice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    for cls, p, lattices in ((Q1StructuredOperator, 1, K3_LATTICES),
+                             (Q2StructuredOperator, 2, K5_LATTICES)):
+        E = _cell_E(p, (0.004, 0.006, 0.02))
+        bf16_tol = K5_BF16_RTOL if p == 2 else 1e-2
+        for grid in lattices:
+            u = torch.randn(int(np.prod(grid)), 3, generator=g)
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, bf16_tol)):
+                op = cls(E, grid, dtype, dev)
+                x = u.to(dev, dtype)
+                before = cls.launches
+                out = op(x)
+                again = op(x)
+                torch.cuda.synchronize()
+                assert cls.launches == before + 2
+                assert torch.equal(out, again), (cls.__name__, grid, dtype)
+                rel = _rel_l2(out, op.plain(x))
+                print(f"{cls.__name__} {grid} {dtype}: rel_l2 {rel:.3e}")
+                assert rel <= tol, (cls.__name__, grid, dtype, rel)
+                if p == 2 and dtype == torch.bfloat16:
+                    faulty = cls(E, grid, dtype, dev)
+                    faulty._coef[0][1].zero_()  # E_lo's B fragments
+                    fault = _rel_l2(faulty(x), op.plain(x))
+                    print(f"  E_lo = 0 (planted fault): rel_l2 {fault:.3e}")
+                    assert fault > tol, (grid, fault)
+        with pytest.raises(ValueError):
+            cls(E, lattices[1], torch.float32, dev)(
+                torch.zeros(7, 3, device=dev))

@@ -189,23 +189,26 @@ def test_bf16_hierarchy_rounds_as_the_reference():
     """The rounding rules of the bf16 hierarchy: cuBLAS may not reduce bf16
     or fp16 products in reduced precision (the transfers are bf16 matrix
     products; PyTorch on the CPU and XLA sum them in f32); a fine proxy
-    without a kernel holds its element matrix in bf16, as the JAX
-    package's `StructuredOperator` does (with the f32 one the 2D linear
-    step took ~1.7x the JAX package's CG iterations at 250,850 DoF); the
-    Chebyshev polynomial's coefficients round to the hierarchy dtype, as
-    JAX rounds weakly typed scalars (PyTorch keeps a bf16 op's scalar in
-    f32); f32 and f64 hierarchies compute as before."""
+    without a kernel computes in bf16 as the JAX package's
+    `StructuredOperator` does (element matrix in bf16, one bf16 matrix
+    product, overlap-add rounded after each slot; with the f32 element
+    matrix the 2D linear step took ~1.7x the JAX package's CG iterations
+    at 250,850 DoF, computed in f32 and rounded once the 2D Neo-Hookean
+    step 0 took 39 against 27 at 63,218); the Chebyshev polynomial's
+    coefficients round to the hierarchy dtype, as JAX rounds weakly typed
+    scalars (PyTorch keeps a bf16 op's scalar in f32), and the smoother's
+    closing update is computed in `out_dtype` when the V-cycle asks for
+    it; f32 and f64 hierarchies compute as before."""
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
     assert torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction is False
     P = _problem(2, 2)
     v = torch.from_numpy(
         np.random.default_rng(3).standard_normal((P["ts"].n_nodes, 2))
     ).to(torch.bfloat16)
-    E16 = torch.as_tensor(P["E"]).to(torch.bfloat16).double().numpy()
-    ref = make_structured_operator(P["ts"], E16, torch.float32, "cpu")
+    ref = make_structured_operator(P["ts"], P["E"], torch.bfloat16, "cpu")
+    assert ref.EpT.dtype == torch.bfloat16
     out = make_q2_operator(P["ts"], P["E"], torch.bfloat16, "cpu")(v)
-    torch.testing.assert_close(out, ref(v.float()).to(torch.bfloat16),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(out, ref(v), rtol=0, atol=0)
     for dt in (torch.float32, torch.float64):
         ref = make_structured_operator(P["ts"], P["E"], dt, "cpu")
         torch.testing.assert_close(
@@ -232,6 +235,11 @@ def test_bf16_hierarchy_rounds_as_the_reference():
         d = c[0] * (inv * b.to(dt))
         d2 = c[1] * d + c[2] * (inv * (b.to(dt) - 2.0 * d))
         torch.testing.assert_close(got, d + d2, rtol=0, atol=0)
+        wide = tmg_mod._chebyshev_smooth(
+            level, b.to(dt), torch.zeros_like(b, dtype=dt), 1, x_is_zero=True,
+            out_dtype=torch.float32)
+        assert wide.dtype == torch.float32
+        torch.testing.assert_close(wide, d.float() + d2.float(), rtol=0, atol=0)
     assert c[0] == torch.tensor(1.0 / theta, dtype=torch.float32).item()
 
 

@@ -4,7 +4,8 @@ JAX package: the stencil tables bitwise, the operator against
 `make_q1_stencil_operator` (strategy `vmem`, its Pallas kernel in
 interpret mode, in 3D; `shift` in 2D) in f64 (atol 1e-12 x max) and bf16
 (relative L2 1e-2), its diagonal (1e-12), the folded per-class tables K6
-reads (a numpy mirror of the kernel's loop, 1e-12), the K4 factory against
+reads (a numpy mirror of the kernel's loop, 1e-12) and K3 reads in f32
+(against the JAX `StructuredOperator`, 1e-6), the K4 factory against
 `make_pallas_q1_operator(..., interpret=True)` (1e-13) and a V-cycle with
 `level_backend="stencil_vmem"` (atol 1e-11 x max). K4 and K6 against
 their plain versions on the card: tests/test_torch_package.py."""
@@ -36,16 +37,21 @@ from dealii_adapter_tpu_torch.ops.element_ops import (
 )
 from dealii_adapter_tpu_torch.ops.q1_structured import (
     Q1PlaneOperator,
+    Q1StructuredOperator,
     Q1StructuredOperator2D,
     make_q1_plane_operator,
 )
 from dealii_adapter_tpu_torch.ops.stencil import (
     STRATEGIES,
+    StencilQ1Operator,
     make_q1_stencil_operator,
     q1_stencil_tables,
 )
 from dealii_adapter_tpu_torch.ops.structured import make_structured_operator
-from dealii_adapter_tpu_torch.solvers.multigrid import GeometricMultigrid
+from dealii_adapter_tpu_torch.solvers.multigrid import (
+    GeometricMultigrid,
+    _geometry_skeleton,
+)
 
 torch.set_num_threads(1)
 
@@ -82,10 +88,11 @@ def _jax_apply(jspace, E, dtype, u):
     return np.asarray(jax.jit(_jax_op(jspace, E, dtype))(u), dtype=np.float64)
 
 
-def _class_apply(op, u):
-    """K6's loop in numpy: every node applies its class's folded table to
-    its in-lattice neighbours (the zero padding of the plain version)."""
-    shape, nd, dim = op.grid_shape, op.ndim, op.dim
+def _class_apply(tables, shape, u):
+    """K6's (and K3's) loop in numpy, in f64: every node applies its
+    class's folded table to its in-lattice neighbours (the zero padding
+    of the plain version)."""
+    nd, dim = len(shape), u.shape[-1]
     g = u.reshape(shape + (dim,))
     gp = np.zeros(tuple(n + 2 for n in shape) + (dim,))
     gp[(slice(1, -1),) * nd] = g
@@ -97,7 +104,7 @@ def _class_apply(op, u):
     out = np.zeros(shape + (dim,))
     for o, delta in enumerate(np.ndindex(*(3,) * nd)):
         win = gp[tuple(slice(d, d + n) for d, n in zip(delta, shape))]
-        out += np.einsum("...de,...e->...d", op.class_tables[cls, o], win)
+        out += np.einsum("...de,...e->...d", tables[cls, o], win)
     return out.reshape(-1, dim)
 
 
@@ -123,10 +130,52 @@ def test_stencil_matches_jax_f64(dim, reps):
     atol = 1e-12 * np.abs(ref).max()
     np.testing.assert_allclose(op(torch.as_tensor(u)).numpy(), ref, rtol=0,
                                atol=atol)
-    np.testing.assert_allclose(_class_apply(op, u), ref, rtol=0, atol=atol)
+    np.testing.assert_allclose(_class_apply(op.class_tables, op.grid_shape, u),
+                               ref, rtol=0, atol=atol)
     dref = np.asarray(_jax_op(jspace, E, jnp.float64).diagonal())
     np.testing.assert_allclose(op.diagonal().numpy(), dref, rtol=1e-12,
                                atol=1e-12 * np.abs(dref).max())
+
+
+def _k3_table_check(E, shape, jspace, seed):
+    """K3 reads K6's tables: the f32 class tables, each row padded to a
+    float4. Applied by the kernels' loop (in f64, from the f32 table) they
+    match the JAX package's f64 `StructuredOperator` (the per-cell form,
+    K3's plain version) to 1e-6 relative L2: one f32 rounding per
+    coefficient (2^-24), summed over 27 x 3 terms a component."""
+    table = Q1StructuredOperator(E, shape, torch.float32, "cpu")._coef[0].numpy()
+    k6 = StencilQ1Operator(E, shape, torch.float64, device="cpu")
+    assert table.dtype == np.float32 and table.shape == (27, 27, 3, 4)
+    assert not table[..., 3].any()  # the float4 padding
+    np.testing.assert_array_equal(table[..., :3],
+                                  k6.class_tables.astype(np.float32))
+    u = np.random.default_rng(seed).standard_normal((int(np.prod(shape)), 3))
+    ref = np.asarray(jax_structured(jspace, E, jnp.float64)(jnp.asarray(u)))
+    got = _class_apply(table[..., :3].astype(np.float64), shape, u)
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
+
+
+@pytest.mark.parametrize("reps", [(1, 1, 1), (1, 2, 4), (3, 1, 2), (4, 3, 5)])
+def test_k3_folded_stencil_matches_jax_structured_operator(reps):
+    """K3's table on lattices with 2-node axes (reps 1) and on the
+    interior of a larger one (`_k3_table_check`)."""
+    space, jspace, E = _setup(3, reps)
+    _k3_table_check(E, tuple(r + 1 for r in reversed(reps)), jspace,
+                    sum(reps))
+
+
+def test_k3_tables_at_every_level_of_a_hierarchy():
+    """K3's table (`_k3_table_check`) at every 3D Q1 level shape of the
+    bench flap's hierarchy at scale 1 (the FEM-SEM level and the
+    semi-coarsened ones), with the level's own anisotropic element
+    matrix, as the multigrid builds K3."""
+    mesh, tags = make_scenario_grid("PF", 3, 2, solver="neo-Hookean")
+    geoms = _geometry_skeleton(mesh, tags, 300, True, 1.9e6, 0.5e6)
+    assert len(geoms) >= 3
+    for li, gm in enumerate(geoms):
+        m = gm.m_c
+        _k3_table_check(0.5e6 * gm.K_e_unit + 4.0e7 * gm.M_e_unit, gm.shape_c,
+                        JaxDofSpace.create(jax_rect(m.reps, m.p0, m.p1, 1)), li)
 
 
 @pytest.mark.parametrize("dim,reps", [(2, (5, 3)), (3, (3, 2, 4))])
