@@ -14,7 +14,8 @@ script exits non-zero without printing a result):
    on seeded random inputs at the paths' shapes, with the kernel's device
    time (`ms`: torch.profiler's CUDA time over 20 launches after 30 ms of
    back-to-back launches, each kernel's mean duration: `device_ms`, also
-   used by the level table of phase 9), its
+   used by the level tables; `graph_ms` beside it for the Q1/Q2 operators:
+   CUDA events around replays of a CUDA graph of 20 calls), its
    time per call from the host (`call_ms`: CUDA events around one call,
    median of 15 after warmup, the launch cost included), the same
    per-call time of the plain version, and the device time of one
@@ -30,12 +31,15 @@ script exits non-zero without printing a result):
    Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
    plus order), K5's bf16 output <= 5e-4 (`K5_BF16_RTOL`, set on the card
-   between the sound kernel's error and a planted fault's); C1/C2 exact. K4 and K6 are also held against K3's output
-   on the same input (K6 in 2D against K4b's) with the same limits. K3 and
-   K5 (redesigned) are also timed in turns (old, new, new, old) against
-   their first gather design on the same input (`old_design`); K5's bf16
-   bound is its tensor-core design's (bf16 products at 989 TFLOP/s
-   against the bytes), with the f32-FMA bound beside it.
+   between the sound kernel's error and a planted fault's); C1/C2 exact.
+   K4 and K6 are also held against K3's output on the same input (K6 in 2D
+   against K4b's) with the same limits, and K6 must equal K3 (K4b in 2D)
+   bit for bit: it launches the same kernel with the same tables. K3, K4b,
+   K5 and K6 (redesigned) are also timed in turns (old, new, new, old)
+   against their first design on the same input (`old_design`: the gather
+   kernels of K3, K4b and K5, K6's pointwise kernel); K5's bf16 bound is
+   its tensor-core design's (bf16 products at 989 TFLOP/s against the
+   bytes), with the f32-FMA bound beside it.
 4. main    — `NonlinearElasticity` with the benchmark configuration of
    `bench.py` (3D Neo-Hookean perpendicular flap, Q2, scale 9:
    1,018,875 DoF), traction 1000 in x on the interface, 1 warmup and 3
@@ -50,7 +54,12 @@ script exits non-zero without printing a result):
    be <= 1e-10 (the reference's absolute contract) and ||u||^2 within rtol
    1e-6 of the JAX package's value. Then the recorded golden tip
    trajectory `linear_pf_q2` (20 steps, tests/golden_trajectories.json)
-   at rtol 1e-9.
+   at rtol 1e-9. Then the 2D level table (`level_table_2d`): at every 2D Q1
+   level lattice of the model's hierarchy, with that level's element
+   matrix, in f32 and bf16, K4b against its gather design and K6 against
+   its pointwise design, each pair in turns, K4b and K6 bitwise equal and
+   within the limits of the plain version; per-call times, the bound and
+   the CSR SpMV library time.
 6. nonlinear2d — `NonlinearElasticity` with the configuration of phase 4
    in 2D at scale 48 (999,362 DoF) and, as in phase 5, an f32 hierarchy
    (`NONLINEAR_2D`), same traction and steps; every step
@@ -74,10 +83,12 @@ script exits non-zero without printing a result):
    "stencil_vmem"` (every 3D Q1 level on the assembled stencil, K6) on
    phase 4's mesh and lam_max values, 1 warmup and 3 timed steps: every
    step converged, ||u||^2 within rtol 1e-4 of the JAX package's; K6, K5,
-   K1 and C1/C2 launched and K3 not at all. Then the level table: K3
-   against its first (gather) design, timed in turns, and against K6
-   (bf16, the hierarchy's dtype) at every 3D Q1 level shape of the
-   hierarchy, with that level's element matrix.
+   K1 and C1/C2 launched and K3 not at all. Then the level table: at every
+   3D Q1 level shape of the hierarchy, with that level's element matrix
+   (bf16, the hierarchy's dtype), K3 against its first (gather) design,
+   K6 against its first (pointwise) design and K6 against K3, each pair
+   timed in turns, K6 bitwise equal to K3; per-call times, the bound and
+   the CSR SpMV library time.
 10. coupled3d — `runner.coupled_run` on phase 9's model through the
    port's `Adapter` and a `FakeParticipant` (window 0.01, end time 0.04, a
    constant read field (1000, 0, 0) — `interface_traction`'s load —,
@@ -293,7 +304,9 @@ def device_ms(fn, reps=20, warmup_s=0.03):
     duration times the times a call launches it (its count over `reps`,
     rounded, at least 1), not the session's total over `reps`; kernels
     missed are counted in `MISSED_KERNELS`. Every device time of the
-    kernel record and of the level table is taken this way."""
+    kernel record and of the level tables is taken this way; where three
+    sessions in a row record nothing (seen on the H100 late in a run),
+    the time is `graph_ms`'s instead, counted in `GRAPH_FALLBACKS`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -318,11 +331,40 @@ def device_ms(fn, reps=20, warmup_s=0.03):
             per_call += e.self_device_time_total / e.count * launches
             MISSED_KERNELS[0] += max(0, launches * reps - e.count)
         return per_call / 1e3
-    raise RuntimeError("chip_smoke: torch.profiler recorded no device time "
-                       "in 3 sessions")
+    GRAPH_FALLBACKS[0] += 1
+    return graph_ms(fn, reps)
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Device time in ms of one call of `fn` from CUDA events around
+    replays of a CUDA graph that holds `reps` calls, so that no host
+    launch cost lies between the kernels (the wrappers launch on the
+    current stream, allocate with `torch.empty` and never synchronise,
+    so they can be captured)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (replays * reps)
 
 
 MISSED_KERNELS = [0]  # kernels the profiled sessions did not record
+GRAPH_FALLBACKS = [0]  # device times taken by `graph_ms` instead
 
 
 def in_turns(old, new):
@@ -333,20 +375,30 @@ def in_turns(old, new):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def gather_entry(op, entry):
-    """A call of the first (gather) design of K3 or K5, `entry` in the
-    kernel library, on `op`'s lattice and element matrix: the old kernel
-    timed in turns with the new one. Not a wrapper: it counts nothing."""
+def first_design(op, entry):
+    """A call of the first design of K3, K4b, K5 or K6, `entry` in the
+    kernel library, on `op`'s lattice: the gather kernels
+    (`dat_q*_structured*_gather`) with the element matrix, K6's pointwise
+    kernel (`dat_q1_stencil_pointwise`) with the unpadded f32 class
+    tables. The old kernel is timed in turns with the new one. Not a
+    wrapper: it counts nothing."""
     import torch
 
     from dealii_adapter_tpu_torch.kernels import _build
 
     fn = getattr(_build.load_library(), entry)
+    if entry == "dat_q1_stencil_pointwise":
+        coef = torch.as_tensor(op.class_tables, dtype=torch.float32,
+                               device=op.device).contiguous()
+        nz = op.grid_shape[0] if op.ndim == 3 else 1
+        lattice = (nz, *op.grid_shape[-2:], op.ndim)
+    else:
+        coef, lattice = op.E_dev, op.grid_shape
 
     def run(u):
         y = torch.empty_like(u)
-        _build.check(fn(u.data_ptr(), y.data_ptr(), op.E_dev.data_ptr(),
-                        *op.grid_shape, int(u.dtype == torch.bfloat16),
+        _build.check(fn(u.data_ptr(), y.data_ptr(), coef.data_ptr(),
+                        *lattice, int(u.dtype == torch.bfloat16),
                         torch.cuda.current_stream().cuda_stream), entry)
         return y
 
@@ -481,26 +533,31 @@ def check_gather(op, u, limit, ref_op=None):
     """One structured-kernel check: error against the plain version (and
     against `ref_op`, another kernel of the same function, on the same
     input), kernel and plain times, bound (`operator_work`)."""
+    import torch
+
     out = op(u)
     mx, rel = compare(out, op.plain(u))
     b_ms, b_by = bound(*operator_work(op.grid_shape, op.p, u.element_size()))
     chk = dict(
         dtype=str(u.dtype).replace("torch.", ""), max_abs_err=mx,
         rel_l2_err=rel, limit=limit, ms=device_ms(lambda: op(u)),
+        graph_ms=graph_ms(lambda: op(u)),
         call_ms=cuda_ms(lambda: op(u)), plain_ms=cuda_ms(lambda: op.plain(u)),
         bound_ms=b_ms, bound_by=b_by,
     )
     if ref_op is not None:
-        chk["rel_l2_vs_ref_kernel"] = compare(out, ref_op(u))[1]
+        ref_out = ref_op(u)
+        chk["rel_l2_vs_ref_kernel"] = compare(out, ref_out)[1]
+        chk["equal_to_ref_kernel"] = bool(torch.equal(out, ref_out))
     require(rel <= limit and chk.get("rel_l2_vs_ref_kernel", 0.0) <= limit, chk)
     return chk
 
 
 def old_design(op, u, limit, entry):
-    """The first (gather) design of K3 or K5 on the same operator and input:
-    its error against the plain version, and both designs' device times
-    taken in turns (`in_turns`)."""
-    old, new = gather_entry(op, entry), (lambda: op(u))
+    """The first design of K3, K4b, K5 or K6 (`first_design`) on the same
+    operator and input: its error against the plain version, and both
+    designs' device times taken in turns (`in_turns`)."""
+    old, new = first_design(op, entry), (lambda: op(u))
     mx, rel = compare(old(u), op.plain(u))
     require(rel <= limit, f"{entry}: rel_l2 {rel}")
     old_ms, new_ms, turns = in_turns(lambda: old(u), new)
@@ -526,8 +583,10 @@ def stencil_work(grid_shape, io_bytes):
 
 def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
     """K4 (3D) and K6 (3D and 2D) on the paths' Q1 level shapes, each held
-    against its plain version and against K3 / K4b on the same input;
-    `lib3`/`lib2` are the CSR SpMV times of the same level matrices."""
+    against its plain version and against K3 / K4b on the same input (K6
+    bitwise: the same kernel and tables), K6 also timed in turns against
+    its first (pointwise) design; `lib3`/`lib2` are the CSR SpMV times of
+    the same level matrices."""
     import torch
 
     from dealii_adapter_tpu_torch.ops.q1_structured import (
@@ -544,21 +603,29 @@ def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
         k3 = Q1StructuredOperator(E1, lattice, dtype, dev)
         k4.append(check_gather(Q1PlaneOperator(E1, lattice, dtype, dev), u,
                                lim, ref_op=k3))
-        k6.append(check_gather(
-            StencilQ1Operator(E1, lattice, dtype, device=dev), u, lim, k3))
-        u2 = randn(math.prod(lattice2), 2, dtype=dtype)
-        k6_2d.append(check_gather(
-            StencilQ1Operator(E4, lattice2, dtype, device=dev), u2, lim,
-            Q1StructuredOperator2D(E4, lattice2, dtype, dev)))
+        for checks, lat, E, v, ref in (
+                (k6, lattice, E1, u, k3),
+                (k6_2d, lattice2, E4,
+                 randn(math.prod(lattice2), 2, dtype=dtype),
+                 Q1StructuredOperator2D(E4, lattice2, dtype, dev))):
+            op = StencilQ1Operator(E, lat, dtype, device=dev)
+            chk = check_gather(op, v, lim, ref)
+            require(chk["equal_to_ref_kernel"],
+                    f"K6 {lat} {dtype}: not bitwise K3's / K4b's output")
+            chk["old_design"] = old_design(op, v, lim,
+                                           "dat_q1_stencil_pointwise")
+            checks.append(chk)
         k6_2d[-1]["shape"] = f"lattice {lattice2} x 2, 9-point"
         k6_2d[-1]["library_ms"] = lib2
     for name, checks in (("K4", k4), ("K6 3D", k6), ("K6 2D", k6_2d)):
         for c in checks:
             log(f"kernel {name} {c['dtype']}: rel_l2 {c['rel_l2_err']:.3e} "
-                f"(vs K3/K4b {c['rel_l2_vs_ref_kernel']:.3e}) max_abs "
+                f"(vs K3/K4b {c['rel_l2_vs_ref_kernel']:.3e}, bitwise "
+                f"{c['equal_to_ref_kernel']}) max_abs "
                 f"{c['max_abs_err']:.3e}  {c['ms']:.4f} ms (per call {c['call_ms']:.4f}) vs plain "
                 f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} ms "
-                f"({c['bound_by']})")
+                f"({c['bound_by']})"
+                + (f"; {fmt_old(c['old_design'])}" if "old_design" in c else ""))
     records.append(dict(
         name="K4 q1_plane", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
@@ -748,12 +815,15 @@ def phase_kernels():
     E4 = lattice_E(1, (0.1 / 144, 1.0 / 864), c * lam, c * mu, rho)
     checks = []
     for dtype, lim in ((torch.bfloat16, BF16_RTOL), (torch.float32, F32_RTOL)):
-        chk = check_gather(Q1StructuredOperator2D(E4, lattice2, dtype, dev),
-                           randn(math.prod(lattice2), 2, dtype=dtype), lim)
+        op = Q1StructuredOperator2D(E4, lattice2, dtype, dev)
+        u2 = randn(math.prod(lattice2), 2, dtype=dtype)
+        chk = check_gather(op, u2, lim)
+        chk["old_design"] = old_design(op, u2, lim,
+                                       "dat_q1_structured_2d_gather")
         log(f"kernel K4b {chk['dtype']}: rel_l2 {chk['rel_l2_err']:.3e} max_abs "
             f"{chk['max_abs_err']:.3e}  {chk['ms']:.4f} ms (per call {chk['call_ms']:.4f}) vs plain "
             f"{chk['plain_ms']:.4f}, bound {chk['bound_ms']:.4f} ms "
-            f"({chk['bound_by']})")
+            f"({chk['bound_by']}); {fmt_old(chk['old_design'])}")
         checks.append(chk)
     lib2 = library_spmv_ms(E4, lattice2, 1, dev)
     log(f"kernel K4b library (CSR SpMV f32 of the assembled level): {lib2:.4f} ms")
@@ -761,7 +831,7 @@ def phase_kernels():
         name="K4b q1_structured_2d", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
         replaces="dealii_adapter_tpu/ops/pallas_structured.py:488",
-        shape=f"lattice {lattice2} x 2, E 8x8", library_ms=lib2,
+        shape=f"lattice {lattice2} x 2, 9-point", library_ms=lib2,
         library_call="CSR SpMV (torch sparse, f32)",
         **checks[0], other_checks=checks[1:],
     ))
@@ -1049,16 +1119,70 @@ def phase_tangent3d(main):
     return by_path
 
 
-def level_table(model):
-    """K3 against its first (gather) design and against K6 (bf16, the
-    hierarchy's dtype) at every 3D Q1 level shape of `model`'s hierarchy,
-    with that level's element matrix: device times (`device_ms`, as the
-    kernel record takes them; K3 and its old design in turns) and per-call
-    times."""
+def level_row(level, E, shape, dtype, dev, g, coarse=False, lib_ms=None):
+    """One row of a level table at the Q1 level lattice `shape` (3D or 2D)
+    with the level's element matrix E, in `dtype`: the level operator (K3
+    in 3D, K4b in 2D) against its first (gather) design, K6 against its
+    first (pointwise) design and K6 against the level operator, each pair
+    timed in turns (`in_turns`, device time); K6 must give the level
+    operator's output bit for bit and both designs stay within the limits
+    of the plain version; per-call times (`cuda_ms`), the bound and its
+    share, and the CSR SpMV library time (`lib_ms` when already taken)."""
     import torch
 
-    from dealii_adapter_tpu_torch.ops.q1_structured import Q1StructuredOperator
+    from dealii_adapter_tpu_torch.ops.q1_structured import (
+        Q1StructuredOperator,
+        Q1StructuredOperator2D,
+    )
     from dealii_adapter_tpu_torch.ops.stencil import StencilQ1Operator
+
+    dim = len(shape)
+    name, cls, gather = (
+        ("K3", Q1StructuredOperator, "dat_q1_structured_gather") if dim == 3
+        else ("K4b", Q1StructuredOperator2D, "dat_q1_structured_2d_gather"))
+    lim = BF16_RTOL if dtype == torch.bfloat16 else F32_RTOL
+    u = torch.randn(math.prod(shape), dim, generator=g).to(dev, dtype)
+    lv = cls(E, shape, dtype, dev)
+    k6 = StencilQ1Operator(E, shape, dtype, device=dev)
+    old_lv, old_k6 = first_design(lv, gather), first_design(k6, "dat_q1_stencil_pointwise")
+    y = lv(u)
+    rel = {"plain": compare(y, lv.plain(u))[1],
+           f"old {name}": compare(old_lv(u), y)[1],
+           "old K6": compare(old_k6(u), y)[1]}
+    require(max(rel.values()) <= lim and torch.equal(k6(u), y),
+            f"level {level} {shape} {dtype}: rel_l2 to {name} {rel}, K6 "
+            f"bitwise {torch.equal(k6(u), y)}")
+    old_ms, ms, turns = in_turns(lambda: old_lv(u), lambda: lv(u))
+    k6_old_ms, k6_ms, k6_turns = in_turns(lambda: old_k6(u), lambda: k6(u))
+    lv_ms_vs, k6_ms_vs, vs_turns = in_turns(lambda: lv(u), lambda: k6(u))
+    b_ms, b_by = bound(*stencil_work(shape, u.element_size()))
+    if lib_ms is None:
+        lib_ms = library_spmv_ms(E, shape, 1, dev)
+    row = dict(level=level, lattice=tuple(shape), kernel=name,
+               dtype=str(dtype).replace("torch.", ""), coarse=coarse,
+               ms=ms, old_ms=old_ms, turns_old_new_new_old=turns,
+               k6_ms=k6_ms, k6_old_ms=k6_old_ms, k6_turns=k6_turns,
+               vs_k6_turns=vs_turns, call_ms=cuda_ms(lambda: lv(u)),
+               k6_call_ms=cuda_ms(lambda: k6(u)), bound_ms=b_ms,
+               bound_by=b_by, share_of_bound=b_ms / ms, library_ms=lib_ms,
+               rel_l2=rel)
+    log(f"level table: level {level} {tuple(shape)} {row['dtype']}"
+        f"{' (coarse solve)' if coarse else ''}: {name} {ms:.4f} ms "
+        f"({b_ms / ms:.0%} of the {b_by} bound {b_ms:.4f}), its old design "
+        f"{old_ms:.4f} (in turns {[round(t, 4) for t in turns]}); K6 "
+        f"{k6_ms:.4f}, its old design {k6_old_ms:.4f} (in turns "
+        f"{[round(t, 4) for t in k6_turns]}); {name} vs K6 in turns "
+        f"{[round(t, 4) for t in vs_turns]}; per call {name} "
+        f"{row['call_ms']:.4f} / K6 {row['k6_call_ms']:.4f}; library "
+        f"{lib_ms:.4f}; rel_l2 {({k: float(f'{v:.3e}') for k, v in rel.items()})}")
+    return row
+
+
+def level_table(model):
+    """`level_row` at every 3D Q1 level shape of `model`'s hierarchy (bf16,
+    the hierarchy's dtype), with that level's element matrix."""
+    import torch
+
     from dealii_adapter_tpu_torch.solvers.multigrid import _geometry_skeleton
 
     p, dev = model.params, model.device
@@ -1067,37 +1191,36 @@ def level_table(model):
     geoms = _geometry_skeleton(model.mesh, model.tags, p.mg_coarse_size,
                                p.mg_fem_sem, lam_eff, p.mu)
     g = torch.Generator(device="cpu").manual_seed(99)
-    rows = []
     log(f"level table: SM clock {sm_clock()}")
+    return [level_row(li + 1, p.mu * gm.K_e_unit + mass * gm.M_e_unit,
+                      gm.shape_c, torch.bfloat16, dev, g,
+                      coarse=li == len(geoms) - 1)
+            for li, gm in enumerate(geoms)]
+
+
+def level_table_2d(model):
+    """`level_row` at every 2D Q1 level shape of the linear `model`'s
+    hierarchy (that of every 2D path at scale 48; the bf16 paths at scale
+    24 run its levels 2 and below), with that level's element matrix, in
+    f32 (linear2d, nonlinear2d) and bf16 (vcycle_bf16)."""
+    import torch
+
+    from dealii_adapter_tpu_torch.solvers.multigrid import _geometry_skeleton
+
+    p, dev = model.params, model.device
+    c = (p.theta * p.delta_t) ** 2
+    geoms = _geometry_skeleton(model.mesh, model.tags, p.mg_coarse_size,
+                               p.mg_fem_sem, c * p.lmbda, c * p.mu)
+    g = torch.Generator(device="cpu").manual_seed(98)
+    log(f"level table 2D: SM clock {sm_clock()}")
+    rows = []
     for li, gm in enumerate(geoms):
-        E = p.mu * gm.K_e_unit + mass * gm.M_e_unit
-        u = torch.randn(gm.space_c.n_nodes, 3, generator=g).to(dev, torch.bfloat16)
-        k3 = Q1StructuredOperator(E, gm.shape_c, torch.bfloat16, dev)
-        k6 = StencilQ1Operator(E, gm.shape_c, torch.bfloat16, device=dev)
-        old = gather_entry(k3, "dat_q1_structured_gather")
-        y3 = k3(u)
-        _, rel = compare(k6(u), y3)
-        _, rel_old = compare(old(u), y3)
-        _, rel_plain = compare(y3, k3.plain(u))
-        require(max(rel, rel_old, rel_plain) <= BF16_RTOL,
-                f"level {li + 1}: K6 / old K3 / plain vs K3 rel {rel} "
-                f"{rel_old} {rel_plain}")
-        old_ms, k3_ms, turns = in_turns(lambda: old(u), lambda: k3(u))
-        row = dict(level=li + 1, lattice=gm.shape_c, coarse=li == len(geoms) - 1,
-                   k3_ms=k3_ms, k3_old_ms=old_ms, k3_turns=turns,
-                   k6_ms=device_ms(lambda: k6(u)),
-                   k3_call_ms=cuda_ms(lambda: k3(u)),
-                   k6_call_ms=cuda_ms(lambda: k6(u)), k6_vs_k3_rel_l2=rel,
-                   k3_vs_plain_rel_l2=rel_plain)
-        rows.append(row)
-        log(f"level table: level {li + 1} {gm.shape_c}"
-            f"{' (coarse solve)' if row['coarse'] else ''}: K3 "
-            f"{row['k3_ms']:.4f} ms, its old design {old_ms:.4f} (in turns "
-            f"{[round(t, 4) for t in turns]}), K6 "
-            f"{row['k6_ms']:.4f} ms (bf16, "
-            f"device time; per call K3 {row['k3_call_ms']:.4f} / K6 "
-            f"{row['k6_call_ms']:.4f}), rel_l2 K6 {rel:.3e}, old {rel_old:.3e}, "
-            f"plain {rel_plain:.3e}")
+        E = c * p.mu * gm.K_e_unit + p.rho * gm.M_e_unit
+        lib_ms = None
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(level_row(li + 1, E, gm.shape_c, dtype, dev, g,
+                                  coarse=li == len(geoms) - 1, lib_ms=lib_ms))
+            lib_ms = rows[-1]["library_ms"]
     return rows
 
 
@@ -1338,7 +1461,9 @@ def phase_linear2d(profile):
     check_checksum("linear2d", checksum, LINEAR2D_REF, LINEAR2D_RTOL)
     if profile:
         profile_step("linear2d", model, state, stress)
-    del model, state
+    del state
+    level_table_2d(model)
+    del model
     golden_linear_pf_q2(dev)
     return launches
 
@@ -1401,7 +1526,9 @@ def main():
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"] = timed("cli", phase_cli)
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
-    log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}")
+    log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}; "
+        f"device times taken from CUDA-graph replays instead: "
+        f"{GRAPH_FALLBACKS[0]}")
     for rec in records:
         per_path = {p: n.get(rec["name"], 0) for p, n in by_path.items()
                     if rec["name"] in PATH_KERNELS[p]}

@@ -1,44 +1,39 @@
-// K6: the assembled Q1 stencil operator y = A u on a 3D (27-point) or 2D
-// (9-point) nodal lattice, the multigrid level operator of the `stencil*`
-// level backends.
+// K6's first design: the pointwise assembled Q1 stencil y = A u on a 3D
+// (27-point) or 2D (9-point) nodal lattice, one thread a node. K6 itself,
+// the level operator of the `stencil*` multigrid backends
+// (ops/stencil.py:StencilQ1Operator, entry dat_q1_stencil), now launches
+// the folded level kernels of q1_structured.cu (K3's q1_level_kernel in 3D,
+// q1_level_kernel_2d in 2D) with the same per-node-class tables; this
+// kernel stays as the entry point dat_q1_stencil_pointwise, which only
+// chip_smoke.py's timing calls, so that the two designs can be timed side
+// by side.
 //
-// Replaces: dealii_adapter_tpu/ops/stencil.py:_vmem_pass (the
-//   whole-field-in-VMEM Pallas interior pass of StencilQ1Operator,
-//   strategy "vmem", 3D) together with the inclusion-exclusion boundary
-//   corrections that StencilQ1Operator.apply adds around it as 26 separate
-//   XLA slice-and-add pieces, and the XLA `shift` pass the JAX package runs
-//   in 2D.
+// Replaced, in dealii_adapter_tpu/: ops/stencil.py:_vmem_pass (the
+//   whole-field-in-VMEM Pallas interior pass, pallas_call at :244)
+//   together with the inclusion-exclusion boundary corrections that
+//   StencilQ1Operator.apply adds around it, and the XLA `shift` pass the
+//   JAX package runs in 2D.
 //
 //   y[n, d] = sum_{delta in {-1,0,1}^NDIM, n+delta in the lattice}
 //             sum_e T[class(n)][delta][d][e] * u[n + delta, e]
 //
 // The lattice is (nz, ny, nx) nodes in 3D and (ny, nx) in 2D (passed as
-// nz = 1), x fastest, NDIM components per node stored node-major (the
-// (n_nodes, NDIM) layout of the rest of the package). class(n) has one
-// digit per axis, slowest first: 0 on the low face, 1 inside, 2 on the high
-// face. T (3^NDIM classes x 3^NDIM offsets x NDIM x NDIM, f32) is built on
-// the host (ops/stencil.py:class_tables): the interior stencil S3 with the
-// face, edge and corner corrections of the node's class folded in, so the
-// boundary is exact in the same launch and an out-of-lattice neighbour is
-// simply skipped (the zero padding of the plain version).
+// nz = 1), x fastest, NDIM components per node stored node-major. T (3^NDIM
+// classes x 3^NDIM offsets x NDIM x NDIM, f32) is ops/stencil.py:
+// class_tables, unpadded.
 //
-// What bounds it on an H100: at the largest 3D level, the (19, 325, 55)
-//   FEM-SEM lattice, 339,625 nodes x 243 FMA is 0.165 GFLOP, 2.5 us at the
-//   card's 67 TFLOP/s f32 rate, against u read once and y written once
-//   (4.1 MB in bf16, 1.2 us at 3.35 TB/s): operations.
+// What bounds the function on an H100: operations in 3D (243 FMA a node,
+//   2.5 us at the (19, 325, 55) level), bytes in 2D (2.39 us in f32 at the
+//   (1729, 289) level).
 //
-// What the design does about it: one thread per output node (a
-//   grid-stride loop over at most 8 blocks per SM), each reading its 27 (9)
-//   neighbours straight from the node-major field, x fastest so a warp's
-//   neighbour reads are contiguous and served from L1; no padded or
-//   transposed copy of the field (the JAX wrapper's moveaxis/pad/transpose
-//   is TPU layout work). The tables are a runtime argument staged once per
-//   block into shared memory (26 KB in 3D), since every level has its own
-//   anisotropic element matrix; threads of one class read one address (a
-//   broadcast). f32 accumulation in a fixed order (offsets, then source
-//   components), no atomics: bitwise reproducible from run to run. The
-//   TPU kernel's sequential z-plane loop and lane-major layout are not
-//   carried over.
+// What held this design at ~10% of that bound in 3D (0.0259 ms at the
+//   (19, 325, 55) level on an NVIDIA H100 80GB HBM3, 700.00 W): one
+//   thread per output node on a grid-stride loop with 64-bit `%` and `/`
+//   for its coordinates, 27 (9) neighbours x NDIM scalar global loads each
+//   behind a bounds branch, one scalar shared-memory coefficient load per
+//   FMA, and every block staging the whole 26 KB table: the
+//   instruction-issue profile of K3's gather design. f32 accumulation in a
+//   fixed order, no atomics.
 
 #include "structured_gather.cuh"
 
@@ -149,10 +144,10 @@ cudaError_t launch_q1_stencil(const void* u, void* y, const void* tables,
 
 }  // namespace
 
-extern "C" cudaError_t dat_q1_stencil(const void* u, void* y,
-                                      const void* tables, int nz, int ny,
-                                      int nx, int ndim, int io_bf16,
-                                      void* stream) {
+extern "C" cudaError_t dat_q1_stencil_pointwise(const void* u, void* y,
+                                                const void* tables, int nz,
+                                                int ny, int nx, int ndim,
+                                                int io_bf16, void* stream) {
   if (ndim == 3)
     return launch_q1_stencil<3>(u, y, tables, nz, ny, nx, io_bf16, stream);
   if (ndim == 2)

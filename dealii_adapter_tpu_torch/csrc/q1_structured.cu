@@ -1,61 +1,91 @@
-// K3: the 3D Q1 level operator y = A u on a (nz, ny, nx) nodal lattice, in
-// the folded (assembled 27-point) form, and K4b, the same operator on a 2D
-// (ny, nx) lattice in the cell-wise gather form of structured_gather.cuh.
+// The Q1 level operator y = A u of every multigrid level, in the folded
+// (assembled-stencil) form: K3 on a 3D (nz, ny, nx) nodal lattice
+// (27-point), the 2D kernel on a (ny, nx) lattice (9-point), and K4, the
+// 3D operator marching along z (below).
 //
-// Replaces: dealii_adapter_tpu/ops/pallas_structured.py,
-//   K3: PallasQ1SlabOperator._apply with _make_slab_kernel_3d(nch=3);
-//   K4b: PallasQ1Operator._apply in 2D with _make_kernel_2d (row at a time,
-//   the next row's contributions carried in scratch). Each is the operator
-//   of every Q1 multigrid level (the FEM-SEM level on the Q2 node lattice
-//   and the semi-coarsened levels below it) in its dimension.
+// Replaces, in dealii_adapter_tpu/:
+//   K3: ops/pallas_structured.py:PallasQ1SlabOperator._apply with
+//     _make_slab_kernel_3d(nch=3) (pallas_call at :345), the 3D Q1 level
+//     operator of the default level backends;
+//   K6 in 3D: ops/stencil.py:_vmem_pass (pallas_call at :244) with the
+//     inclusion-exclusion boundary corrections StencilQ1Operator.apply
+//     adds around it (:389), the level operator of the `stencil*`
+//     backends: the same function, so dat_q1_stencil with ndim 3 launches
+//     K3's q1_level_kernel (K6 keeps its own entry point and launch count);
+//   K4b: ops/pallas_structured.py:PallasQ1Operator._apply in 2D with
+//     _make_kernel_2d (:131, pallas_call at :488), and K6 in 2D (the JAX
+//     package's XLA `shift` pass): both launch q1_level_kernel_2d.
+//   The TPU kernels' sequential row / z-slab grid with a carried row or
+//   plane, and the in-plane axis swap, exist for the TPU's sequential grid
+//   and lane width and are not carried over.
 //
-// What bounds K3 on an H100: at the largest level, the (19, 325, 55)
-//   FEM-SEM lattice (339,625 nodes x 3 components, 2 MB in bf16), u read
-//   once and y written once is ~4 MB, 1.2 us at 3.35 TB/s; the assembled
-//   stencil is 27 neighbours x 9 FMA = 243 FMA per node, 82.5 M FMA, 2.5 us
-//   at the card's 67 TFLOP/s f32 rate: operations.
+// The coefficients: the element matrix is folded on the host, in f64, into
+//   per-node-class tables (ops/stencil.py:class_tables, laid out by
+//   ops/stencil.py:kernel_table): a node's class has one digit per axis (0
+//   on the low face, 1 inside, 2 on the high face), and class c's
+//   coefficients are the assembled operator's blocks between a class-c node
+//   and its 3^ndim neighbours, so the lattice boundary is exact in the same
+//   launch and an out-of-lattice neighbour is a zero in shared memory. One
+//   float4 a row: in 3D (27 classes, 27 offsets, 3 output components) rows
+//   of 3 source components and a zero; in 2D (9 classes, 9 offsets) rows
+//   holding the 2 x 2 block (d0e0, d0e1, d1e0, d1e1).
 //
-// What held the first design back (the gather template, kept as the entry
-//   point dat_q1_structured_gather so that the two can be timed side by
-//   side): one thread per node applied each of its 8 cells' 24 x 24 element
-//   matrix, 576 FMA per node where the function needs 243; it gathered 64
-//   3-component neighbours (27 distinct) from global memory with 64-bit
-//   index arithmetic and `%`, `/` per cell, after a __syncthreads staging of
-//   E; it was instruction-issue bound at ~8% of the bound (0.032 ms).
+// What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s f32):
+//   K3 at the largest 3D level, the (19, 325, 55) FEM-SEM lattice: 339,625
+//   nodes x 243 FMA is 0.165 GFLOP, 2.5 us, against u read once and y
+//   written once (4.1 MB in bf16, 1.2 us): operations.
+//   The 2D kernel at the largest 2D level, the (1729, 289) FEM-SEM lattice:
+//   499,681 nodes x 36 FMA is 0.54 us, against 8.0 MB in f32 (2.39 us) and
+//   4.0 MB in bf16 (1.19 us): bytes. Its aim is to move each byte once.
 //
-// What the design does about it (q1_level_kernel): the element matrix is
-//   folded on the host, in f64, into the per-node-class tables that K6
-//   reads (ops/stencil.py:class_tables): a node's class has one digit per
-//   axis (0 on the low face, 1 inside, 2 on the high face), and class c's
-//   27 x 3 x 3 coefficients are the assembled operator's blocks between a
-//   class-c node and its neighbours, so the lattice boundary is exact in
-//   the same launch and out-of-lattice neighbours are zeros. A block of 128 threads
-//   owns a TX x TY column tile of (y, x) nodes and a chunk of z planes; each
-//   thread marches its column along z. The chunk's node planes with a
-//   one-node halo are read from device memory up front, consecutive
-//   threads on consecutive addresses and 16 loads in flight per thread, so
-//   that the block waits on memory a few times and passes one
-//   __syncthreads (a first version loaded one plane per step with one load
-//   in flight and ran no faster than the gather design: latency-bound);
-//   they are kept in f32 in shared memory as float4 per node (one 16-byte
-//   load per neighbour, conflict-free). The block stages only the coefficient
-//   classes its nodes use (2 x 2 x 2 at most on the largest level, 27 when
-//   a tile spans an axis) as float4 rows, read as warp-wide broadcasts.
-//   Per node: 27 neighbour loads, 81 coefficient loads and 243 FMA, 32-bit
-//   index arithmetic, no atomics, a fixed summation order (offsets dz, dy,
-//   dx, then source components): bitwise reproducible from run to run. The
-//   result agrees with the cell-wise plain version to f32 roundoff (the
-//   sums are taken in another order and the folded coefficients are
-//   rounded once to f32), not bitwise. The tile width follows nx (8, 16 or
-//   32 nodes) and the z chunk shrinks (8, 4, 2 planes) until the grid has
-//   two blocks per SM, so every level shape, 2-node axes included, runs.
+// What held the first designs back (kept as entry points that only
+//   chip_smoke.py's timing calls: dat_q1_structured_gather and
+//   dat_q1_structured_2d_gather, structured_gather.cuh; dat_q1_stencil_
+//   pointwise, q1_stencil.cu): the gather form applied each cell's element
+//   matrix, 576 FMA a node in 3D (64 in 2D) where the function needs 243
+//   (36), gathered 64 (16) neighbour loads, 27 (9) distinct, from global
+//   memory with 64-bit `%` and `/` a cell and read E from shared memory
+//   once an FMA; the pointwise K6 ran one thread a node with 64-bit `%` and
+//   `/`, 3^ndim neighbour loads behind bounds branches and one scalar
+//   shared-memory coefficient load an FMA, after staging the whole 26 KB
+//   table in every block. All were instruction-issue bound (K3's gather at
+//   ~8% of its bound).
 //
-// K4b keeps the gather form: one thread per node with x fastest, so the
-//   gathered neighbours of a warp are contiguous and come from L1; the
-//   8 x 8 element matrix is a runtime argument in shared memory. The TPU
-//   kernels' sequential row / z-slab grid with a carried row or plane, and
-//   the in-plane axis swap, exist for the TPU's sequential grid and lane
-//   width and are not carried over.
+// What the designs do about it. Both: a block of 128 threads owns a column
+//   tile (TX nodes in x, the tile width following nx: 8, 16 or 32, so that
+//   2-node axes and narrow coarse levels run) and a chunk of the slowest
+//   axis; it reads the chunk's nodes with a one-node halo from device
+//   memory up front, consecutive threads on consecutive addresses and all
+//   of a thread's loads in flight before the first store to shared memory,
+//   together with the coefficient classes its nodes use (at most 2 per
+//   axis on a large level, 3 when the tile spans an axis), then passes one
+//   __syncthreads. The nodes are kept in f32 in shared memory. A thread
+//   computes up to 4 nodes of its column along the slowest axis, split into
+//   runs of one class, so each coefficient row and each neighbour column is
+//   read once for all of them. Accumulation in f32 in a fixed order
+//   (offsets, then source components), 32-bit lattice arithmetic inside a
+//   block, no atomics: two launches give the same bits. The result agrees
+//   with the cell-wise plain version to f32 roundoff (the sums are taken
+//   in another order and the folded coefficients are rounded once to f32),
+//   not bitwise. The chunk shrinks (8, 4, 2 planes in 3D; 4, 2, 1 rows a
+//   thread in 2D) until the grid has about two blocks per SM.
+//   K3 (q1_level_kernel): TX x TY (TX * TY = 128) columns of (y, x) nodes,
+//   the chunk's z planes (float4 a node: one 16-byte shared-memory load a
+//   neighbour, conflict-free), a warp loading whole halo rows with 32
+//   loads in flight a lane. Per node: 27 neighbour loads, 81 coefficient
+//   loads (warp-wide broadcasts) and 243 FMA. (A first version loaded one
+//   plane a step with one load in flight and ran no faster than the
+//   gather design: latency-bound.)
+//   The 2D kernel (q1_level_kernel_2d) is K3's design carried to the
+//   9-point stencil, not K3 with nz = 1: TX columns x TY row groups, each
+//   thread owning up to 4 consecutive rows of its column; the tile's TY * 4
+//   + 2 halo rows as one float2 a node, read with the flattened
+//   (row, node) index over the block's threads (5-6 loads a thread in
+//   flight). Per node: 36 FMA from 9 float4 coefficient rows and 3 float2
+//   neighbour columns read once for the thread's run. It does not use
+//   cp.async: the register path already keeps every load of the tile in
+//   flight at once and serves bf16 I/O, which has to be widened to f32
+//   before it is stored, with the same code as f32.
 
 //
 // K4: the same 3D Q1 operator, marching along z one node plane at a time.
@@ -329,6 +359,171 @@ cudaError_t launch_q1_level(const void* u, void* y, const void* coef, int nz,
   return launch_q1_level_tx<32>(u, y, coef, nz, ny, nx, io_bf16, s);
 }
 
+// ------------------------------------------------- 2D level operator ----
+
+constexpr int kLevel2dRows = 9;    // float4 rows per class: 9 offsets
+constexpr int kLevel2dMaxRun = 4;  // rows a thread computes, at most
+
+// The tile's halo rows y0 - 1 .. y0 + rows - 2 (HX = TX + 2 nodes each,
+// zeros outside the lattice) as float2 per node into `dst`. The flattened
+// (row, node) index runs over the block's threads, so consecutive threads
+// read consecutive addresses of a row, and every load of a thread is
+// issued before its first store.
+template <int TX, typename T>
+__device__ __forceinline__ void level2d_load_rows(float2* dst,
+                                                  const T* __restrict__ u,
+                                                  int rows, int ny, int nx,
+                                                  int y0, int x0) {
+  constexpr int TY = kLevelThreads / TX, HX = TX + 2;
+  constexpr int K =
+      ((TY * kLevel2dMaxRun + 2) * HX + kLevelThreads - 1) / kLevelThreads;
+  const int total = rows * HX;
+  float2 v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = k * kLevelThreads + threadIdx.x;
+    const int r = i / HX, hx = i - r * HX;
+    const int gy = y0 - 1 + r, gx = x0 - 1 + hx;
+    v[k] = make_float2(0.0f, 0.0f);
+    if (i < total && gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
+      const T* p = u + (gy * nx + gx) * 2;
+      v[k] = make_float2(dat::load_f32(p), dat::load_f32(p + 1));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = k * kLevelThreads + threadIdx.x;
+    if (i < total) dst[i] = v[k];
+  }
+}
+
+// B consecutive nodes (y .. y + B - 1) of one thread's column, all of one
+// class, whose first node sits in halo row r0 + 1: each coefficient row and
+// each neighbour column (B + 2 halo rows) is read once for the B nodes.
+template <int B, int TX, typename T>
+__device__ __forceinline__ void level2d_nodes(const float4* __restrict__ tc,
+                                              const float2* rows, int r0,
+                                              int col, T* __restrict__ y,
+                                              int node, int nx) {
+  constexpr int HX = TX + 2;
+  float acc[B][2];
+#pragma unroll
+  for (int q = 0; q < B; ++q) acc[q][0] = acc[q][1] = 0.0f;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    float2 v[B + 2];  // halo rows r0 .. r0 + B + 1 (nodes y - 1 .. y + B)
+#pragma unroll
+    for (int q = 0; q < B + 2; ++q) v[q] = rows[(r0 + q) * HX + col + dx];
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const float4 c = tc[dy * 3 + dx];
+#pragma unroll
+      for (int q = 0; q < B; ++q) {
+        const float2 w = v[q + dy];
+        acc[q][0] = fmaf(c.x, w.x, acc[q][0]);
+        acc[q][0] = fmaf(c.y, w.y, acc[q][0]);
+        acc[q][1] = fmaf(c.z, w.x, acc[q][1]);
+        acc[q][1] = fmaf(c.w, w.y, acc[q][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < B; ++q) {
+    T* yp = y + (node + q * nx) * 2;
+    dat::store_f32(yp, acc[q][0]);
+    dat::store_f32(yp + 1, acc[q][1]);
+  }
+}
+
+template <int TX, typename T>
+__global__ void __launch_bounds__(kLevelThreads)
+    q1_level_kernel_2d(const T* __restrict__ u, T* __restrict__ y,
+                       const float4* __restrict__ coef, int ny, int nx,
+                       int yc) {
+  constexpr int TY = kLevelThreads / TX, HX = TX + 2;
+  __shared__ float2 rows[(TY * kLevel2dMaxRun + 2) * HX];
+  __shared__ float4 tabs[9 * kLevel2dRows];  // [classes used][9 offsets]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * (TY * yc);
+  const int y1 = min(y0 + TY * yc, ny);
+  // the classes of this block's nodes form a range per axis; one load per
+  // thread (at most 81 rows), issued before the node rows and stored after
+  const int cxl = node_class(x0, nx), cxh = node_class(min(x0 + TX, nx) - 1, nx);
+  const int cyl = node_class(y0, ny), cyh = node_class(y1 - 1, ny);
+  const int ncx = cxh - cxl + 1;
+  const int ntab = ncx * (cyh - cyl + 1) * kLevel2dRows;
+  float4 cv;
+  if (static_cast<int>(threadIdx.x) < ntab) {
+    const int l = threadIdx.x / kLevel2dRows;
+    const int r = threadIdx.x - l * kLevel2dRows;
+    const int lx = l % ncx, ly = l / ncx;
+    cv = coef[((cyl + ly) * 3 + (cxl + lx)) * kLevel2dRows + r];
+  }
+  level2d_load_rows<TX>(rows, u, TY * yc + 2, ny, nx, y0, x0);
+  if (static_cast<int>(threadIdx.x) < ntab) tabs[threadIdx.x] = cv;
+  __syncthreads();
+
+  const int ix = x0 + tx;
+  if (ix >= nx) return;
+  const int cx = node_class(ix, nx);
+  const int ys = y0 + ty * yc, ye = min(ys + yc, ny);
+  // runs of rows of one class: {0}, [1, ny - 2], {ny - 1}; each run in
+  // batches of 4, 2 and 1 nodes
+  for (int iy = ys; iy < ye;) {
+    const int cy = node_class(iy, ny);
+    const int run_end = cy == 1 ? min(ye, ny - 1) : iy + 1;
+    const float4* tc = tabs + ((cy - cyl) * ncx + (cx - cxl)) * kLevel2dRows;
+    while (iy < run_end) {
+      const int left = run_end - iy, r0 = iy - y0, node = iy * nx + ix;
+      if (left >= 4) {
+        level2d_nodes<4, TX>(tc, rows, r0, tx, y, node, nx);
+        iy += 4;
+      } else if (left >= 2) {
+        level2d_nodes<2, TX>(tc, rows, r0, tx, y, node, nx);
+        iy += 2;
+      } else {
+        level2d_nodes<1, TX>(tc, rows, r0, tx, y, node, nx);
+        iy += 1;
+      }
+    }
+  }
+}
+
+template <int TX>
+cudaError_t launch_q1_level_2d_tx(const void* u, void* y, const void* coef,
+                                  int ny, int nx, int io_bf16,
+                                  cudaStream_t s) {
+  constexpr int TY = kLevelThreads / TX;
+  const int bx = (nx + TX - 1) / TX;
+  int yc = kLevel2dMaxRun;  // shrink the run until the grid has ~2 blocks per SM
+  while (yc > 1 && static_cast<long long>(bx) *
+                           ((ny + TY * yc - 1) / (TY * yc)) < 264)
+    yc /= 2;
+  const dim3 grid(bx, (ny + TY * yc - 1) / (TY * yc));
+  const float4* c = static_cast<const float4*>(coef);
+  if (io_bf16) {
+    q1_level_kernel_2d<TX, __nv_bfloat16><<<grid, kLevelThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(y),
+        c, ny, nx, yc);
+  } else {
+    q1_level_kernel_2d<TX, float><<<grid, kLevelThreads, 0, s>>>(
+        static_cast<const float*>(u), static_cast<float*>(y), c, ny, nx, yc);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_q1_level_2d(const void* u, void* y, const void* coef,
+                               int ny, int nx, int io_bf16, void* stream) {
+  // 32-bit node indices inside the kernel
+  if (ny < 2 || nx < 2 || static_cast<long long>(ny) * nx >= (1LL << 30))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nx <= 8) return launch_q1_level_2d_tx<8>(u, y, coef, ny, nx, io_bf16, s);
+  if (nx <= 16) return launch_q1_level_2d_tx<16>(u, y, coef, ny, nx, io_bf16, s);
+  return launch_q1_level_2d_tx<32>(u, y, coef, ny, nx, io_bf16, s);
+}
+
 // ---------------------------------------------------------------- K4 ----
 
 
@@ -447,16 +642,35 @@ extern "C" cudaError_t dat_q1_plane(const void* u, void* y, const void* E,
 }
 
 // K3: `coef` is the (27 classes, 27 offsets, 3, 4) f32 table of
-// ops/stencil.py:class_tables, each row padded to a float4
-// (ops/q1_structured.py:Q1StructuredOperator._coefficients)
+// ops/stencil.py:kernel_table (Q1StructuredOperator._coefficients)
 extern "C" cudaError_t dat_q1_structured(const void* u, void* y,
                                          const void* coef, int nz, int ny,
                                          int nx, int io_bf16, void* stream) {
   return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
 }
 
-// K3's first design (structured_gather.cuh, E the 24 x 24 element matrix):
-// only chip_smoke.py's kernel phase calls it, to time it beside K3
+// K4b: `coef` is the (9 classes, 9 offsets, 4) f32 table of
+// ops/stencil.py:kernel_table (Q1StructuredOperator2D._coefficients)
+extern "C" cudaError_t dat_q1_structured_2d(const void* u, void* y,
+                                            const void* coef, int ny, int nx,
+                                            int io_bf16, void* stream) {
+  return launch_q1_level_2d(u, y, coef, ny, nx, io_bf16, stream);
+}
+
+// K6 (StencilQ1Operator): the same kernels and tables as K3 (ndim 3) and
+// K4b (ndim 2, nz 1), under K6's own entry point
+extern "C" cudaError_t dat_q1_stencil(const void* u, void* y, const void* coef,
+                                      int nz, int ny, int nx, int ndim,
+                                      int io_bf16, void* stream) {
+  if (ndim == 3) return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
+  if (ndim == 2 && nz == 1)
+    return launch_q1_level_2d(u, y, coef, ny, nx, io_bf16, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The first (gather) designs of K3 and K4b (structured_gather.cuh, E the
+// 24 x 24 or 8 x 8 element matrix): only chip_smoke.py calls them, to time
+// them beside K3 and K4b
 extern "C" cudaError_t dat_q1_structured_gather(const void* u, void* y,
                                                 const void* E, int nz, int ny,
                                                 int nx, int io_bf16,
@@ -465,9 +679,10 @@ extern "C" cudaError_t dat_q1_structured_gather(const void* u, void* y,
                                              stream);
 }
 
-extern "C" cudaError_t dat_q1_structured_2d(const void* u, void* y,
-                                            const void* E, int ny, int nx,
-                                            int io_bf16, void* stream) {
+extern "C" cudaError_t dat_q1_structured_2d_gather(const void* u, void* y,
+                                                   const void* E, int ny,
+                                                   int nx, int io_bf16,
+                                                   void* stream) {
   return dat::launch_structured_gather<2, 1>(u, y, E, 1, ny, nx, io_bf16,
                                              stream);
 }

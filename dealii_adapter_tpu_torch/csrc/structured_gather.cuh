@@ -1,8 +1,8 @@
 // Gather-form structured Q_P element operator on a 2D or 3D nodal lattice:
-// K4b (q1_structured.cu) and the first designs of K3 and K5, kept as the
-// entry points dat_q1_structured_gather and dat_q2_structured_gather that
-// chip_smoke.py times beside the redesigned kernels; and the I/O helpers
-// the package's kernels share.
+// the first designs of K3, K4b and K5, kept as the entry points
+// dat_q1_structured_gather, dat_q1_structured_2d_gather and
+// dat_q2_structured_gather that chip_smoke.py times beside the redesigned
+// kernels; and the I/O helpers the package's kernels share.
 //
 //   y[n, d] = sum over cells C containing node n (local slot s of n in C)
 //             sum_{t, e} E[(s, d), (t, e)] * u[node(C, t), e]

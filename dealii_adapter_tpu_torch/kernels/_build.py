@@ -59,10 +59,14 @@ _SIGNATURES = {
     "dat_q2_structured_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
     # K5 (u, y, mma fragments, E, nz, ny, nx, io_bf16, stream)
     "dat_q2_structured": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # K6 (u, y, class tables, nz, ny, nx, ndim, io_bf16, stream)
+    # K6 (u, y, class tables, nz, ny, nx, ndim, io_bf16, stream), and its
+    # first (pointwise) design
     "dat_q1_stencil": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (u, y, E, ny, nx, io_bf16, stream)
+    "dat_q1_stencil_pointwise": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (u, y, coefficients, ny, nx, io_bf16, stream): K4b (class tables)
+    # and its first (gather) design (E)
     "dat_q1_structured_2d": (_P, _P, _P, _I, _I, _I, _P),
+    "dat_q1_structured_2d_gather": (_P, _P, _P, _I, _I, _I, _P),
     # (x, y, salt, n, stream) and (x, y, n, stream)
     "dat_health_scale": (_P, _P, ctypes.c_float, _I, _P),
     "dat_health_add_one": (_P, _P, _I, _P),

@@ -7,8 +7,9 @@ to what the Newton CG runs:
   1. per quadrature point, the closed-form 1st-Piola tangent
      A = dP/dF (`piola_tangent_blocks`, material + geometric terms);
   2. the element tangents K[d][e][i, j, c], contracted from A with the
-     static basis S[(i,j), (k,l,q)] = (w G)[q,i,k] G[q,j,l] — one f32
-     matmul per upper component block (d <= e). Full storage mirrors the
+     static basis S[(i,j), (k,l,q)] = (w G)[q,i,k] G[q,j,l] — one matmul
+     per upper component block (d <= e), summed in f64 and rounded once
+     to the tangent dtype (`_assemble_upper`). Full storage mirrors the
      lower blocks as transposed views, so K = K^T holds bitwise
      (`assemble_cell_tangents`); block-symmetric storage keeps the upper
      blocks only (`assemble_cell_tangents_sym`, 2/3 of the bytes in 3D);
@@ -101,7 +102,17 @@ def upper_blocks(dim):
 def _assemble_upper(ut, G, w, material, mass_term, S):
     """The upper component blocks {(d, e): (npc, npc, c)}, d <= e, in
     `upper_blocks` order; diagonal blocks symmetrized exactly, mass term
-    added to them."""
+    added to them.
+
+    The contraction S @ A sums its dim^2 q terms in f64 and rounds once
+    to the tangent dtype. Summed in f32, it loses the cancellation that
+    leaves a rigid translation with (almost) no stiffness: on the 3D
+    benchmark flap (1,018,875 DoF) the f32 tangent's product with a
+    translation differed by 2.3e-4 relative between the card (cuBLAS)
+    and the CPU, where the products with random vectors agreed to 5e-7,
+    and the Newton CG of the first step took 59 iterations on the card
+    and 34 on the CPU; with the f64 sum both take 31
+    (tools/vcycle_operator_ab.py)."""
     dim, npc, c = ut.shape
     q = G.shape[0]
     grad = [
@@ -111,6 +122,7 @@ def _assemble_upper(ut, G, w, material, mass_term, S):
     if S is None:
         S = contraction_basis(G, w)
     m = mass_term[:, :, None] if mass_term is not None else None
+    S64 = S.to(torch.float64)
     K = {}
     for d, e in upper_blocks(dim):
         A_de = torch.stack(
@@ -121,7 +133,7 @@ def _assemble_upper(ut, G, w, material, mass_term, S):
             ],
             dim=0,
         ).reshape(dim * dim * q, c)
-        Kde = (S @ A_de).reshape(npc, npc, c)
+        Kde = (S64 @ A_de.to(torch.float64)).to(A_de.dtype).reshape(npc, npc, c)
         if d == e:
             # restore exact within-block symmetry lost to summation order
             Kde = 0.5 * (Kde + Kde.transpose(0, 1))

@@ -8,11 +8,12 @@ y = A u for a constant element matrix (24 x 24 in 3D, 8 x 8 in 2D) over a
 Q1 node lattice:
 
 * on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O, f32
-  accumulation; the level's element matrix is a runtime argument, so one
-  kernel serves every level): in 3D K3, the folded 27-point form with the
-  per-node-class tables K6 reads (`ops/stencil.py:class_tables`); in 2D
-  K4b, the cell-wise gather form; the 3D operator of
-  `make_q1_plane_operator` launches the plane-marching kernel K4 instead;
+  accumulation; the level's coefficients are a runtime argument, so one
+  kernel serves every level): K3 in 3D and K4b in 2D, the folded 27- and
+  9-point stencils with the per-node-class tables K6 reads
+  (`ops/stencil.py:class_tables`, laid out by `kernel_table`); the 3D
+  operator of `make_q1_plane_operator` launches the plane-marching kernel
+  K4 instead;
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, computing in f32 (f64 for f64 I/O) and rounding
   the output to the I/O dtype.
@@ -29,7 +30,7 @@ import torch
 from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..kernels import _build
-from .stencil import class_tables, q1_stencil_tables
+from .stencil import class_tables, kernel_table, q1_stencil_tables
 from .structured import _grid_shape, structured_operator_from_lattice
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -141,20 +142,27 @@ class Q1StructuredOperator(StructuredKernelOperator):
     launches = 0
 
     def _coefficients(self, E):
-        # K6's per-node-class tables in f32, each (class, offset, output
-        # component) row padded to 4 source components: one float4
-        table = np.zeros((27, 27, 3, 4), dtype=np.float32)
-        table[..., :3] = class_tables(q1_stencil_tables(E, 3, 3), 3)
-        return (torch.as_tensor(table, device=self.device),)
+        return _folded_table(E, 3, self.device)
 
 
 class Q1StructuredOperator2D(StructuredKernelOperator):
-    """K4b: the 2D Q1 level operator (csrc/q1_structured.cu)."""
+    """K4b: the 2D Q1 level operator (csrc/q1_structured.cu), the folded
+    9-point stencil with per-node-class coefficients."""
 
     p = 1
     dim = 2
     entry = "dat_q1_structured_2d"
     launches = 0
+
+    def _coefficients(self, E):
+        return _folded_table(E, 2, self.device)
+
+
+def _folded_table(E: np.ndarray, dim: int, device) -> Tuple[torch.Tensor]:
+    """K6's per-node-class tables of the element matrix E in the kernels'
+    f32 layout (`kernel_table`), the argument tuple of K3 and K4b."""
+    table = kernel_table(class_tables(q1_stencil_tables(E, dim, dim), dim))
+    return (torch.as_tensor(table, device=device),)
 
 
 class Q1PlaneOperator(StructuredKernelOperator):

@@ -80,12 +80,12 @@ class _PlainDegreeOperator:
     """A fine operator without a kernel (2D, or degree != 2): the plain
     `StructuredOperator` on every device, computing in the I/O dtype as
     the JAX package's `StructuredOperator` does: for a bf16 hierarchy the
-    element matrix is held in bf16, the cell products are one bf16 matrix
-    product (f32 sums, one rounding) and the overlap-add rounds to bf16
-    after each slot's add, as XLA computes it on the CPU. Computed in f32
-    and rounded once, the 2D bf16 V-cycle preconditioned the Newton CG
-    worse than the JAX package's (39 against 27 CG at the 63,218-DoF 2D
-    Neo-Hookean step 0 on the CPU)."""
+    element matrix is held in bf16, the cell products are summed in f32
+    and rounded once (`StructuredOperator.__call__`) and the overlap-add
+    rounds to bf16 after each slot's add, as XLA computes it on the CPU.
+    Computed in f32 and rounded once, the 2D bf16 V-cycle preconditioned
+    the Newton CG worse than the JAX package's (39 against 27 CG at the
+    63,218-DoF 2D Neo-Hookean step 0 on the CPU)."""
 
     def __init__(self, E, grid_shape, p, dtype, device):
         self._op = structured_operator_from_lattice(

@@ -23,12 +23,18 @@ JAX package's host function).
 * On a CPU tensor `StencilQ1Operator` runs the plain version: the shifted
   slices of a zero-padded tensor and the corrections above, in f32 for
   bf16/f32 I/O and in f64 for f64, rounded once to the I/O dtype.
-* On a CUDA tensor it launches K6 (csrc/q1_stencil.cu) for bf16/f32 I/O
-  and raises for any other dtype. K6 applies the whole operator in one
-  launch: the host folds the corrections into one stencil table per node
-  class (low face, interior or high face along each axis: 27 classes in
-  3D, 9 in 2D; `class_tables`), and each thread applies its node's table
-  to its in-lattice neighbours.
+* On a CUDA tensor it launches K6 (entry `dat_q1_stencil`) for bf16/f32
+  I/O and raises for any other dtype. K6 applies the whole operator in
+  one launch: the host folds the corrections into one stencil table per
+  node class (low face, interior or high face along each axis: 27 classes
+  in 3D, 9 in 2D; `class_tables`, laid out for the kernels by
+  `kernel_table`), and the kernel applies each node's table to its
+  neighbours, zeros outside the lattice. These are the tables and the
+  kernels of the Q1 level operators (csrc/q1_structured.cu): K3's
+  `q1_level_kernel` in 3D, `q1_level_kernel_2d` (K4b's) in 2D; K6 keeps
+  its own entry point and launch count. Its first, pointwise design
+  (csrc/q1_stencil.cu, `dat_q1_stencil_pointwise`) is called only by
+  `chip_smoke.py`'s timing.
 
 `strategy` is accepted as the JAX package takes it (`shift`, `conv`,
 `banded`, `flat`, `flatx`, `vmem`). Those are TPU layouts of one
@@ -162,6 +168,20 @@ def class_tables(tables, ndim: int) -> np.ndarray:
     return out.reshape(3**ndim, 3**ndim, dim, dim)
 
 
+def kernel_table(tables: np.ndarray) -> np.ndarray:
+    """`class_tables` as the level kernels read them (csrc/q1_structured.cu),
+    in f32, one float4 a row: in 3D (27 classes, 27 offsets, 3 output
+    components, 4), each row's 3 source components padded with a zero; in
+    2D (9 classes, 9 offsets, 4), the 2 x 2 block row-major (d0e0, d0e1,
+    d1e0, d1e1)."""
+    n_cls, n_off, dim, _ = tables.shape
+    if dim == 2:
+        return tables.astype(np.float32).reshape(n_cls, n_off, 4)
+    table = np.zeros((n_cls, n_off, dim, 4), dtype=np.float32)
+    table[..., :dim] = tables
+    return table
+
+
 def _conv_nd(g: torch.Tensor, S: np.ndarray, cdt) -> torch.Tensor:
     """Zero-padded stencil convolution: g is (*lattice, dim), S is
     (3,)*nd + (dim, dim); out[..., d] = sum_delta,e S[delta, d, e] *
@@ -218,8 +238,8 @@ class StencilQ1Operator:
         self.tables = q1_stencil_tables(E, self.ndim, self.dim)
         self.class_tables = class_tables(self.tables, self.ndim)
         self._tables_dev = torch.as_tensor(
-            self.class_tables, dtype=torch.float32, device=self.device
-        ).contiguous()
+            kernel_table(self.class_tables), device=self.device
+        )
 
     def plain(self, u: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version (see the module docstring)."""
@@ -316,6 +336,7 @@ __all__ = [
     "STRATEGIES",
     "StencilQ1Operator",
     "class_tables",
+    "kernel_table",
     "make_q1_stencil_operator",
     "q1_stencil_tables",
 ]

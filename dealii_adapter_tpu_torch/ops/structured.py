@@ -101,7 +101,18 @@ class StructuredOperator:
             u.reshape(self.grid_shape + (dim,)), self.p, self.reps_rev
         )
         _, npc, n_cells = ut.shape
-        r = (self.EpT @ ut.reshape(edofs, n_cells)).reshape(dim, npc, n_cells)
+        flat = ut.reshape(edofs, n_cells)
+        if flat.dtype == torch.bfloat16:
+            # bf16 products summed in f32 and rounded once, as one f32
+            # product of the widened operands: the JAX package's bf16 dot
+            # as XLA computes it. PyTorch's bf16 product sums in another
+            # order, and a sum near a rounding boundary then lands on the
+            # next bf16 value (4 to 585 of 28,322 entries of one 2D bf16
+            # V-cycle at scale 8 on the CPU differed)
+            r = (self.EpT.float() @ flat.float()).to(torch.bfloat16)
+        else:
+            r = self.EpT @ flat
+        r = r.reshape(dim, npc, n_cells)
         out = overlap_add_T(r, self.p, self.reps_rev, self.grid_shape)
         return out.reshape(-1, dim)
 

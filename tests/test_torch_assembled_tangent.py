@@ -1,8 +1,9 @@
 """Assembled per-cell tangent of the PyTorch package against the JAX
 package (f64 rtol 1e-10, f32 rtol 1e-5), full and block-symmetric; the
 plain versions of K1, K1b, K1c, K2 and K2b against the Pallas kernels they
-replace (interpret mode, f64 rtol 1e-12); and K1 against `torch.func.jvp`
-of the ported internal force."""
+replace (interpret mode, f64 rtol 1e-12); K1 against `torch.func.jvp`
+of the ported internal force; and the f32 tangent's action on rigid
+translations against the f64 tangent's (2e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -353,3 +354,38 @@ def test_2d_steps_match_jax_for_every_tangent_kernel(sym):
         ut = state_to_numpy(ts)[0]
         np.testing.assert_allclose(ut, uj, rtol=1e-6,
                                    atol=1e-6 * np.abs(uj).max(), err_msg=kern)
+
+
+def test_f32_tangent_keeps_rigid_translations_nearly_free():
+    """The f32 Newton tangent at u = 0 (the benchmark configuration at
+    scale 1, 2,331 DoF) acts on each rigid translation as the same
+    model's f64 tangent does, to 2e-5 relative: the element tangents
+    are contracted with a sum in f64 and rounded once to f32
+    (`ops/assembled_tangent.py:_assemble_upper`), so the stiffness that
+    cancels on a translation stays cancelled to about the rounding of
+    the entries (measured: 1.0e-5, 7.7e-7, 4.5e-7 for x, y, z). Contracted
+    as one f32 product, the defect here was 3.9e-5, 3.5e-6, 2.3e-6; at
+    the benchmark's full size it reached 2.3e-4 between the card and the
+    CPU and the card's Newton CG took 59 iterations in the first step
+    instead of 31 (ROADMAP Queue 3, fixed)."""
+    def params(solve_dtype):
+        return params_from_jax(JaxParams(
+            model="neo-Hookean", dim=3, poly_degree=2, scenario="PF",
+            type_lin="CG", preconditioner="Jacobi", solve_dtype=solve_dtype,
+            mu=MU, nu=NU, rho=RHO, delta_t=0.01,
+        ))
+
+    m32 = NonlinearElasticity(params("float32"), device="cpu")
+    m64 = NonlinearElasticity(params("float64"), mesh=m32.mesh, tags=m32.tags,
+                              device="cpu")
+    n = m32.space.n_nodes
+    for comp in range(3):
+        t = torch.zeros(n, 3, dtype=torch.float64)
+        t[:, comp] = 1.0
+        ys = []
+        for m in (m32, m64):
+            assemble, make = m._make_tangent_fns()
+            K = assemble(torch.zeros(n, 3, dtype=m.solve_dtype))
+            ys.append(make(K)(t.to(m.solve_dtype)).double())
+        rel = float((ys[0] - ys[1]).norm() / ys[1].norm())
+        assert rel <= 2e-5, (comp, rel)

@@ -3,9 +3,9 @@ models run on the CUDA card unless asked for the CPU, its kernel wrappers
 (the five tangent matvecs K1, K1b, K1c, K2, K2b, and K3, K4, K4b, K5, K6)
 take the plain version only for CPU tensors, unported variants raise, the
 kernel build needs nvcc and binds every entry point, the launch counters
-name every wrapper, and chip_smoke.py fails without a GPU. Two tests
-compare the kernels with their plain versions on the card; they skip
-where there is none."""
+name every wrapper, and chip_smoke.py fails without a GPU. The tests
+marked `cuda` compare the kernels with their plain versions (and K6 with
+K3 and K4b) on the card; they skip where there is none."""
 
 import os
 import shutil
@@ -452,3 +452,69 @@ def test_k3_k5_match_plain_on_card():
         with pytest.raises(ValueError):
             cls(E, lattices[1], torch.float32, dev)(
                 torch.zeros(7, 3, device=dev))
+
+
+# the 2D paths' Q1 level lattices (the tutorial flap at scale 48; the bf16
+# paths at scale 24 run the same shapes from the second on) and ragged
+# ones: 2-node axes, partial tiles, nx within one tile of 8, 16 or 32
+K4B_LATTICES = ((1729, 289), (865, 145), (433, 73), (217, 37), (109, 19),
+                (55, 10), (2, 2), (3, 2), (2, 9), (7, 5), (2, 33), (5, 17),
+                (40, 37), (33, 16), (130, 9), (6, 300))
+
+
+@pytest.mark.cuda
+def test_k4b_matches_plain_on_card():
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. The redesigned K4b (the folded 9-point
+    stencil, `q1_level_kernel_2d`) against its plain version at every 2D
+    level lattice of the paths and at ragged ones, f32 and bf16 I/O
+    (relative L2 1e-5 and 1e-2: f32 roundoff over 18 terms a component
+    and the folded coefficients rounded once to f32; one output rounding,
+    2^-9, plus the order); each launch counted once; two launches give
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(6)
+    E = _q1_box((1, 1))[1]
+    for grid in K4B_LATTICES:
+        u = torch.randn(int(np.prod(grid)), 2, generator=g)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            op = Q1StructuredOperator2D(E, grid, dtype, dev)
+            x = u.to(dev, dtype)
+            before = Q1StructuredOperator2D.launches
+            out = op(x)
+            again = op(x)
+            torch.cuda.synchronize()
+            assert Q1StructuredOperator2D.launches == before + 2
+            assert torch.equal(out, again), (grid, dtype)
+            rel = _rel_l2(out, op.plain(x))
+            print(f"K4b {grid} {dtype}: rel_l2 {rel:.3e}")
+            assert rel <= tol, (grid, dtype, rel)
+
+
+@pytest.mark.cuda
+def test_k6_equals_the_level_kernels_on_card():
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. K6 launches the level kernels with the
+    same tables: in 3D its output equals K3's bit for bit, in 2D K4b's, on
+    the same input (f32 and bf16), each wrapper counting its own launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    for grid in ((19, 325, 55), (19, 42, 8), (2, 5, 3), (1729, 289), (55, 10),
+                 (2, 9)):
+        dim = len(grid)
+        E = _q1_box((1,) * dim)[1]
+        u = torch.randn(int(np.prod(grid)), dim, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = u.to(dev, dtype)
+            level = (Q1StructuredOperator if dim == 3
+                     else Q1StructuredOperator2D)(E, grid, dtype, dev)
+            k6 = StencilQ1Operator(E, grid, dtype, device=dev)
+            before = (type(level).launches, StencilQ1Operator.launches)
+            assert torch.equal(k6(x), level(x)), (grid, dtype)
+            torch.cuda.synchronize()
+            assert (type(level).launches, StencilQ1Operator.launches) == (
+                before[0] + 1, before[1] + 1)

@@ -4,8 +4,9 @@ JAX package: the stencil tables bitwise, the operator against
 `make_q1_stencil_operator` (strategy `vmem`, its Pallas kernel in
 interpret mode, in 3D; `shift` in 2D) in f64 (atol 1e-12 x max) and bf16
 (relative L2 1e-2), its diagonal (1e-12), the folded per-class tables K6
-reads (a numpy mirror of the kernel's loop, 1e-12) and K3 reads in f32
-(against the JAX `StructuredOperator`, 1e-6), the K4 factory against
+reads (a numpy mirror of the kernel's loop, 1e-12) and K3 and K4b read
+in f32 (against the JAX `StructuredOperator`, 1e-6; at every level of a 3D
+and a 2D hierarchy), the K4 factory against
 `make_pallas_q1_operator(..., interpret=True)` (1e-13) and a V-cycle with
 `level_backend="stencil_vmem"` (atol 1e-11 x max). K4 and K6 against
 their plain versions on the card: tests/test_torch_package.py."""
@@ -138,28 +139,41 @@ def test_stencil_matches_jax_f64(dim, reps):
 
 
 def _k3_table_check(E, shape, jspace, seed):
-    """K3 reads K6's tables: the f32 class tables, each row padded to a
-    float4. Applied by the kernels' loop (in f64, from the f32 table) they
-    match the JAX package's f64 `StructuredOperator` (the per-cell form,
-    K3's plain version) to 1e-6 relative L2: one f32 rounding per
-    coefficient (2^-24), summed over 27 x 3 terms a component."""
-    table = Q1StructuredOperator(E, shape, torch.float32, "cpu")._coef[0].numpy()
+    """K3 (3D) and K4b (2D) read K6's tables: the f32 class tables, one
+    float4 a row (3D: each row of 3 source components padded with a zero;
+    2D: the 2 x 2 block), bitwise the table K6 itself reads. Applied by the
+    kernels' loop (in f64, from the f32 table) they match the JAX package's
+    f64 `StructuredOperator` (the per-cell form, K3's and K4b's plain
+    version) to 1e-6 relative L2: one f32 rounding per coefficient
+    (2^-24), summed over 27 x 3 (9 x 2) terms a component."""
+    dim = len(shape)
+    cls = Q1StructuredOperator if dim == 3 else Q1StructuredOperator2D
+    table = cls(E, shape, torch.float32, "cpu")._coef[0].numpy()
     k6 = StencilQ1Operator(E, shape, torch.float64, device="cpu")
-    assert table.dtype == np.float32 and table.shape == (27, 27, 3, 4)
-    assert not table[..., 3].any()  # the float4 padding
-    np.testing.assert_array_equal(table[..., :3],
-                                  k6.class_tables.astype(np.float32))
-    u = np.random.default_rng(seed).standard_normal((int(np.prod(shape)), 3))
+    np.testing.assert_array_equal(table, k6._tables_dev.numpy())
+    n_cls = 3**dim
+    assert table.dtype == np.float32
+    if dim == 3:
+        assert table.shape == (n_cls, n_cls, 3, 4)
+        assert not table[..., 3].any()  # the float4 padding
+        folded = table[..., :3]
+    else:
+        assert table.shape == (n_cls, n_cls, 4)
+        folded = table.reshape(n_cls, n_cls, 2, 2)
+    np.testing.assert_array_equal(folded, k6.class_tables.astype(np.float32))
+    u = np.random.default_rng(seed).standard_normal((int(np.prod(shape)), dim))
     ref = np.asarray(jax_structured(jspace, E, jnp.float64)(jnp.asarray(u)))
-    got = _class_apply(table[..., :3].astype(np.float64), shape, u)
+    got = _class_apply(folded.astype(np.float64), shape, u)
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
 
 
-@pytest.mark.parametrize("reps", [(1, 1, 1), (1, 2, 4), (3, 1, 2), (4, 3, 5)])
+@pytest.mark.parametrize("reps", [(1, 1, 1), (1, 2, 4), (3, 1, 2), (4, 3, 5),
+                                  (1, 1), (1, 5), (4, 1), (7, 6)])
 def test_k3_folded_stencil_matches_jax_structured_operator(reps):
-    """K3's table on lattices with 2-node axes (reps 1) and on the
-    interior of a larger one (`_k3_table_check`)."""
-    space, jspace, E = _setup(3, reps)
+    """K3's table (3D reps) and K4b's (2D reps) on lattices with 2-node
+    axes (reps 1) and on the interior of a larger one
+    (`_k3_table_check`)."""
+    space, jspace, E = _setup(len(reps), reps)
     _k3_table_check(E, tuple(r + 1 for r in reversed(reps)), jspace,
                     sum(reps))
 
@@ -172,6 +186,20 @@ def test_k3_tables_at_every_level_of_a_hierarchy():
     mesh, tags = make_scenario_grid("PF", 3, 2, solver="neo-Hookean")
     geoms = _geometry_skeleton(mesh, tags, 300, True, 1.9e6, 0.5e6)
     assert len(geoms) >= 3
+    for li, gm in enumerate(geoms):
+        m = gm.m_c
+        _k3_table_check(0.5e6 * gm.K_e_unit + 4.0e7 * gm.M_e_unit, gm.shape_c,
+                        JaxDofSpace.create(jax_rect(m.reps, m.p0, m.p1, 1)), li)
+
+
+def test_k4b_tables_at_every_level_of_a_hierarchy():
+    """K4b's table (`_k3_table_check`) at every 2D Q1 level shape of the
+    tutorial flap's hierarchy at scale 4 (the FEM-SEM level and the
+    semi-coarsened ones, down to the coarse level), with the level's own
+    anisotropic element matrix, as the multigrid builds K4b."""
+    mesh, tags = make_scenario_grid("PF", 2, 2, scale=4, solver="linear")
+    geoms = _geometry_skeleton(mesh, tags, 300, True, 2.0e6, 0.5e6)
+    assert len(geoms) >= 4
     for li, gm in enumerate(geoms):
         m = gm.m_c
         _k3_table_check(0.5e6 * gm.K_e_unit + 4.0e7 * gm.M_e_unit, gm.shape_c,
