@@ -27,25 +27,39 @@ script exits non-zero without printing a result):
    take (`bound_ms`: the bytes of the stored operands read once and the
    output written once at 3.35 TB/s against f32 operations at 67 TFLOP/s,
    the larger; the Q1 operators K3, K4, K4b and K6 all at the assembled
-   stencil's count, 243 FMA per node in 3D and 36 in 2D).
+   stencil's count, 243 FMA per node in 3D and 36 in 2D; beside it the
+   launch floor, the device time of an empty kernel (`launch_floor_ms`),
+   and `bound_with_floor_ms`, the larger of the two).
    Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
    plus order), K5's bf16 output <= 5e-4 (`K5_BF16_RTOL`, set on the card
    between the sound kernel's error and a planted fault's); C1/C2 exact.
    K4 and K6 are also held against K3's output on the same input (K6 in 2D
-   against K4b's) with the same limits, and K6 must equal K3 (K4b in 2D)
-   bit for bit: it launches the same kernel with the same tables. K3, K4b,
-   K5 and K6 (redesigned) are also timed in turns (old, new, new, old)
+   against K4b's) with the same limits, and both must equal K3 (K4b in 2D)
+   bit for bit: they launch the same kernel with the same tables. K3, K4,
+   K4b, K5 and K6 (redesigned) are also timed in turns (old, new, new, old)
    against their first design on the same input (`old_design`: the gather
-   kernels of K3, K4b and K5, K6's pointwise kernel); K5's bf16 bound is
+   kernels of K3, K4b and K5, K4's plane-marching kernel, K6's pointwise
+   kernel); K5's bf16 bound is
    its tensor-core design's (bf16 products at 989 TFLOP/s against the
    bytes), with the f32-FMA bound beside it.
 4. main    — `NonlinearElasticity` with the benchmark configuration of
    `bench.py` (3D Neo-Hookean perpendicular flap, Q2, scale 9:
    1,018,875 DoF), traction 1000 in x on the interface, 1 warmup and 3
-   timed Newmark steps. Every step must converge and the checksum ||u||^2
-   must lie within rtol 1e-4 of the JAX package's 49.05486138743322
-   (Newton's tol_u of 1e-6 bounds the spread near 1e-5).
+   timed Newmark steps, with the CG in CUDA graphs (`cg_loop="graphs"`,
+   the default on the card), then the same with the host loop
+   (`cg_loop="host"`, path `main3d host`), then 3 more timed steps of
+   each in the reverse order (host loop, graphs), both models on the card.
+   Every step must converge and the checksum ||u||^2 after step 3 must
+   lie within rtol 1e-4 of the JAX package's 49.05486138743322 (Newton's
+   tol_u of 1e-6 bounds the spread near 1e-5); the two loops must take
+   the same CG and Newton counts in every step and their checksums after
+   steps 3 and 6 agree within 1e-12 relative (`LOOPS_RTOL`). For each
+   loop: every step's time (unrounded), host syncs and kernel launches,
+   the peak device memory of its first 4 steps (the other model's bytes
+   left out), and, after all timed steps, the device busy share of one
+   more step under torch.profiler tracing the card only (`--profile`
+   prints its kernel table).
 5. linear2d — `LinearElastodynamics` with `bench.py:build_linear_model`'s
    parameters in 2D (the perpendicular flap, Q2, scale 48: 999,362 DoF;
    MG, f32 CG inside f64 refinement) but an f32 multigrid hierarchy
@@ -102,14 +116,19 @@ script exits non-zero without printing a result):
    VTU files written; its closing `kernel launches` line gives the path's
    counts.
 
+Every path but `main3d host` runs its CG in CUDA graphs; a graph replay
+adds the launches its capture recorded to the counts (`kernels/
+counters.py`), so the counts are device launches, the masked iterations
+of each solve's last chunk included.
 In phases 4-11 the kernel launch counts are set to 0 after the model is
 built (for `cli`: in its own process) and read after its steps; every
-kernel of the path (C1/C2, whose check runs again as the path's first
-kernel call loads the library, and K1, K1b, K1c, K2, K2b, K3, K4b, K5, K6
-as the path uses them) must have launched. K4 (the plane-marching 3D Q1
-operator) is on no path, as in the JAX package; phase 3 checks and times
-it beside K3. `--profile` adds one step of each of phases 4-6 under
-torch.profiler and prints its device-time table.
+kernel of the path (C1/C2, whose check runs again as the library is
+bound anew at the path's start, and K1, K1b, K1c, K2, K2b, K3, K4b, K5, K6
+as the path uses them) must have launched. K4 (the 3D Q1 operator of
+`make_q1_plane_operator`) is on no path, as in the JAX package; phase 3
+checks and times it beside K3. `--profile` prints the kernel device-time
+table of phase 4's profiled steps and adds one profiled step to each of
+phases 5 and 6.
 
 The line before the last is the JSON kernel record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -214,6 +233,7 @@ _STENCIL3D = _HEALTH + ("K1 tangent_matvec", "K5 q2_structured", "K6 q1_stencil"
 # which kernels each path must launch
 PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "main3d host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     **{f"tangent3d {sym} {kind}": _HEALTH + (kern,) + _MG3D
        for sym, kind, kern in TANGENT_VARIANTS},
     "linear2d": _HEALTH + ("K4b q1_structured_2d",),
@@ -231,6 +251,9 @@ PATH_EXCLUDES = {"stencil3d": ("K3 q1_structured",),
 # the coupled3d phase: window, end time, implicit iterations per window
 COUPLED_WINDOW, COUPLED_END, COUPLED_ITERATIONS = 0.01, 0.04, 2
 COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
+# main3d's checksum under CUDA graphs against the host loop's: the same
+# kernels on the same inputs, so they should agree bit for bit
+LOOPS_RTOL = 1e-12
 # the cli phase: tests/test_cli.py's case, refined so that the multigrid
 # hierarchy has a Q1 level above its coarse solve (MG in f32, f32 CG)
 CLI_PRM = """
@@ -376,9 +399,10 @@ def in_turns(old, new):
 
 
 def first_design(op, entry):
-    """A call of the first design of K3, K4b, K5 or K6, `entry` in the
+    """A call of the first design of K3, K4, K4b, K5 or K6, `entry` in the
     kernel library, on `op`'s lattice: the gather kernels
-    (`dat_q*_structured*_gather`) with the element matrix, K6's pointwise
+    (`dat_q*_structured*_gather`) and K4's plane-marching kernel
+    (`dat_q1_plane_marching`) with the element matrix, K6's pointwise
     kernel (`dat_q1_stencil_pointwise`) with the unpadded f32 class
     tables. The old kernel is timed in turns with the new one. Not a
     wrapper: it counts nothing."""
@@ -403,6 +427,24 @@ def first_design(op, entry):
         return y
 
     return run
+
+
+def launch_floor_ms():
+    """(device time, CUDA-graph time) in ms of one launch of an empty
+    kernel of one block (`dat_launch_floor`, csrc/health.cu): the card's
+    floor for any launch, the third term of the bounds in PERF.md. Not a
+    wrapper: it counts nothing."""
+    import torch
+
+    from dealii_adapter_tpu_torch.kernels import _build
+
+    fn = _build.load_library().dat_launch_floor
+
+    def run():
+        _build.check(fn(torch.cuda.current_stream().cuda_stream),
+                     "dat_launch_floor")
+
+    return device_ms(run), graph_ms(run)
 
 
 def sm_clock():
@@ -545,6 +587,7 @@ def check_gather(op, u, limit, ref_op=None):
         call_ms=cuda_ms(lambda: op(u)), plain_ms=cuda_ms(lambda: op.plain(u)),
         bound_ms=b_ms, bound_by=b_by,
     )
+    chk["share_of_bound"] = b_ms / chk["ms"]
     if ref_op is not None:
         ref_out = ref_op(u)
         chk["rel_l2_vs_ref_kernel"] = compare(out, ref_out)[1]
@@ -554,7 +597,7 @@ def check_gather(op, u, limit, ref_op=None):
 
 
 def old_design(op, u, limit, entry):
-    """The first design of K3, K4b, K5 or K6 (`first_design`) on the same
+    """The first design of K3, K4, K4b, K5 or K6 (`first_design`) on the same
     operator and input: its error against the plain version, and both
     designs' device times taken in turns (`in_turns`)."""
     old, new = first_design(op, entry), (lambda: op(u))
@@ -583,10 +626,10 @@ def stencil_work(grid_shape, io_bytes):
 
 def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
     """K4 (3D) and K6 (3D and 2D) on the paths' Q1 level shapes, each held
-    against its plain version and against K3 / K4b on the same input (K6
-    bitwise: the same kernel and tables), K6 also timed in turns against
-    its first (pointwise) design; `lib3`/`lib2` are the CSR SpMV times of
-    the same level matrices."""
+    against its plain version and against K3 / K4b on the same input
+    (bitwise: the same kernel and tables), each also timed in turns
+    against its first design (K4 plane marching, K6 pointwise);
+    `lib3`/`lib2` are the CSR SpMV times of the same level matrices."""
     import torch
 
     from dealii_adapter_tpu_torch.ops.q1_structured import (
@@ -601,8 +644,12 @@ def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
     for dtype, lim in ((torch.bfloat16, BF16_RTOL), (torch.float32, F32_RTOL)):
         u = randn(math.prod(lattice), 3, dtype=dtype)
         k3 = Q1StructuredOperator(E1, lattice, dtype, dev)
-        k4.append(check_gather(Q1PlaneOperator(E1, lattice, dtype, dev), u,
-                               lim, ref_op=k3))
+        op = Q1PlaneOperator(E1, lattice, dtype, dev)
+        chk = check_gather(op, u, lim, ref_op=k3)
+        require(chk["equal_to_ref_kernel"],
+                f"K4 {lattice} {dtype}: not bitwise K3's output")
+        chk["old_design"] = old_design(op, u, lim, "dat_q1_plane_marching")
+        k4.append(chk)
         for checks, lat, E, v, ref in (
                 (k6, lattice, E1, u, k3),
                 (k6_2d, lattice2, E4,
@@ -624,13 +671,14 @@ def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
                 f"{c['equal_to_ref_kernel']}) max_abs "
                 f"{c['max_abs_err']:.3e}  {c['ms']:.4f} ms (per call {c['call_ms']:.4f}) vs plain "
                 f"{c['plain_ms']:.4f}, bound {c['bound_ms']:.4f} ms "
-                f"({c['bound_by']})"
+                f"({c['bound_by']}, {c['share_of_bound']:.1%} of it)"
                 + (f"; {fmt_old(c['old_design'])}" if "old_design" in c else ""))
     records.append(dict(
         name="K4 q1_plane", route="cuda",
         source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
         replaces="dealii_adapter_tpu/ops/pallas_structured.py:445",
-        shape=f"lattice {lattice} x 3, E 24x24", library_ms=lib3,
+        shape=f"lattice {lattice} x 3, 27-point (K3's kernel)",
+        library_ms=lib3,
         library_call="CSR SpMV (torch sparse, f32)",
         **k4[0], other_checks=k4[1:],
     ))
@@ -905,16 +953,27 @@ def phase_kernels():
             f"{rec['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         require(mx == 0.0, rec)
         records.append(rec)
+
+    # the launch floor: no kernel takes less than an empty one
+    floor, floor_graph = launch_floor_ms()
+    log(f"kernels: launch floor (an empty kernel): {floor:.4f} ms device "
+        f"time, {floor_graph:.4f} ms per launch in a CUDA graph")
+    for rec in records:
+        for c in [rec] + rec.get("other_checks", []):
+            c["floor_ms"] = floor
+            c["bound_with_floor_ms"] = max(c["bound_ms"], floor)
     return records
 
 
 def start_counts():
-    """Forget the bound library (the path's first kernel call loads it again
-    and runs the C1/C2 check) and set every launch count to 0."""
+    """Set every launch count to 0 and bind the library again, which runs
+    the C1/C2 check, so that every path counts it (a path that only replays
+    CUDA graphs calls no wrapper that would bind it)."""
     from dealii_adapter_tpu_torch.kernels import _build, counters
 
-    _build.unload()
     counters.reset()
+    _build.unload()
+    _build.load_library()
 
 
 def read_counts(path, launches=None):
@@ -932,11 +991,12 @@ def read_counts(path, launches=None):
 
 
 def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
-                **overrides):
+                cg_loop=None, cg_chunk=None, **overrides):
     """`NonlinearElasticity` on the port: the benchmark configuration of
     bench.py's build_model (its environment defaults) in 3D, `NONLINEAR_2D`
     in 2D, with `overrides`; `mesh_tags` reuses a mesh (and the multigrid
-    geometry cached on it), `mg_lam_max` a hierarchy's lam_max values."""
+    geometry cached on it), `mg_lam_max` a hierarchy's lam_max values;
+    `cg_loop` and `cg_chunk`, when given, the model's Krylov loop."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
@@ -948,14 +1008,16 @@ def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
         solver="neo-Hookean",
     )
     params = NONLINEAR_2D if dim == 2 else dict(NONLINEAR, dim=dim)
+    loop = {k: v for k, v in (("cg_loop", cg_loop), ("cg_chunk", cg_chunk))
+            if v is not None}
     return NonlinearElasticity(AllParameters(**dict(params, **overrides)),
                                mesh=mesh, tags=tags, device=device,
-                               mg_lam_max=mg_lam_max)
+                               mg_lam_max=mg_lam_max, **loop)
 
 
-def build_linear_model(device, scale=None, **overrides):
+def build_linear_model(device, scale=None, cg_loop=None, **overrides):
     """`LinearElastodynamics` with `LINEAR_2D` and `overrides` on the 2D
-    flap, on the port."""
+    flap, on the port (`cg_loop`, when given, its Krylov loop)."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.linear_elasticity import (
@@ -965,8 +1027,9 @@ def build_linear_model(device, scale=None, **overrides):
     mesh, tags = make_scenario_grid(
         "PF", 2, 2, scale=SCALE_2D if scale is None else scale, solver="linear",
     )
+    loop = {} if cg_loop is None else {"cg_loop": cg_loop}
     return LinearElastodynamics(AllParameters(**dict(LINEAR_2D, **overrides)),
-                                mesh=mesh, tags=tags, device=device)
+                                mesh=mesh, tags=tags, device=device, **loop)
 
 
 def interface_traction(model, magnitude=1000.0):
@@ -982,39 +1045,57 @@ def interface_traction(model, magnitude=1000.0):
 
 
 def describe(tag, model, t_build):
+    from dealii_adapter_tpu_torch.solvers.cg import CG_CHUNK
+
     levels = model._precond.levels
     log(f"{tag}: model built in {t_build:.1f} s, {model.space.n_dofs} DoF, "
         f"{len(levels)} MG levels {[lv.grid_shape for lv in levels]}, lam_max "
-        f"{[round(lv.lam_max, 6) for lv in levels]}")
+        f"{[round(lv.lam_max, 6) for lv in levels]}; CG loop {model.cg_loop}"
+        + (f" (chunks of {getattr(model, 'cg_chunk', CG_CHUNK)})"
+           if model.cg_loop == "graphs" else ""))
 
 
-def run_steps(tag, model, stress, fmt):
-    """1 warmup + 3 timed steps from rest; returns (state, infos, times,
-    checksum)."""
+def run_steps(tag, model, stress, fmt, state=None, first=0, n=4):
+    """`n` steps; returns (state, infos, per-step {times, host syncs, kernel
+    launches}, checksum). With no `state`: 1 warmup + `n` - 1 timed steps
+    from rest, step 0 capturing the CG graphs (`cg_loop="graphs"`); from
+    `state` (after step `first` - 1): `n` timed steps."""
     import torch
 
-    state = model.initial_state()
-    infos, times = [], []
-    for i in range(4):
+    from dealii_adapter_tpu_torch.kernels import counters
+
+    warmup = state is None
+    if warmup:
+        state = model.initial_state()
+    infos = []
+    steps = dict(times=[], syncs=[], launches=[])
+    for i in range(first, first + n):
         torch.cuda.synchronize()
+        syncs0 = model.host_syncs
+        launches0 = sum(counters.launch_counts().values())
         ts = time.perf_counter()
         state, info = model.step(state, stress)
         u = state.displacement
         checksum = torch.dot(u.reshape(-1), u.reshape(-1)).item()
-        times.append(time.perf_counter() - ts)
+        steps["times"].append(time.perf_counter() - ts)
+        steps["syncs"].append(model.host_syncs - syncs0)
+        steps["launches"].append(
+            sum(counters.launch_counts().values()) - launches0)
         infos.append(info)
-        log(f"{tag}: step {i} ({'warmup' if i == 0 else 'timed'}) "
-            f"{times[-1]:.4f} s: {fmt(info)}")
+        log(f"{tag}: step {i} ({'warmup' if warmup and i == 0 else 'timed'}) "
+            f"{steps['times'][-1]!r} s: {fmt(info)}; host syncs "
+            f"{steps['syncs'][-1]}, kernel launches {steps['launches'][-1]}")
+    times = steps["times"]
     u = state.displacement
     require(tuple(u.shape) == (model.space.n_nodes, model.space.dim),
             f"{tag}: shape {tuple(u.shape)}")
     require(bool(torch.isfinite(u).all()), f"{tag}: non-finite displacement")
-    timed = times[1:]
+    timed = times[1:] if warmup else times
     log(f"{tag}: timed steps {timed} s; mean {statistics.mean(timed):.4f} "
         f"s/step, {model.space.n_dofs / 1e6 * len(timed) / sum(timed):.4f} "
-        f"MDoF*steps/s; host syncs {model.host_syncs} over 4 steps; max_u "
+        f"MDoF*steps/s; host syncs {model.host_syncs} over {first + n} steps; max_u "
         f"{u.abs().max().item()!r} checksum {checksum!r}")
-    return state, infos, times, checksum
+    return state, infos, steps, checksum
 
 
 def check_checksum(tag, checksum, ref, rtol):
@@ -1024,27 +1105,35 @@ def check_checksum(tag, checksum, ref, rtol):
     require(rel <= rtol, f"{tag}: checksum {checksum!r} vs {ref!r}")
 
 
-def profile_step(tag, model, state, stress):
-    """One more step under torch.profiler: device-time table and busy share
-    of the step's wall time."""
+def profile_step(tag, model, state, stress, table=True):
+    """One more step under torch.profiler, tracing the card's activity
+    only (host-side tracing slows the step it records): the kernels'
+    device-time table (`table`) and the busy share of the step's wall
+    time, which it returns (the kernels' summed device time over the wall,
+    so overlapping kernels could count twice; the paths run on one
+    stream)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    t_session = time.perf_counter()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
         ts = time.perf_counter()
         model.step(state, stress)
         torch.cuda.synchronize()
         wall = time.perf_counter() - ts
     ka = p.key_averages()
-    # kernels only: the aten ops that launched them carry the same time
+    t_session = time.perf_counter() - t_session
     dev_us = sum(
         e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA
     )
-    log(ka.table(sort_by="self_device_time_total", row_limit=30))
+    if table:
+        log(ka.table(sort_by="self_device_time_total", row_limit=30))
     log(f"{tag} profile: step wall {wall * 1e3:.1f} ms (profiled), device busy "
-        f"{dev_us / 1e3:.1f} ms = {dev_us / 1e4 / wall:.1f}% of the wall")
+        f"{dev_us / 1e3:.1f} ms = {dev_us / 1e4 / wall:.1f}% of the wall; the "
+        f"session with its key_averages took {t_session:.2f} s")
+    return dev_us / 1e6 / wall
 
 
 def newton_fmt(info):
@@ -1053,30 +1142,96 @@ def newton_fmt(info):
             f"{info.tangent_assemblies} converged {info.converged}")
 
 
+def main_run(tag, path, model, other=0):
+    """`run_steps` on a main-configuration model (1 warmup + 3 timed steps
+    from rest); returns (launches, {state, stress, CG and Newton per step,
+    checksum, per-step times, syncs and launches, peak memory}). `other`
+    is the bytes another model holds, idle meanwhile, which the peak
+    leaves out."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    stress = interface_traction(model)
+    start_counts()
+    state, infos, steps, checksum = run_steps(tag, model, stress, newton_fmt)
+    launches = read_counts(path)
+    peak = (torch.cuda.max_memory_allocated() - other) / 2**30
+    log(f"{tag}: launches {launches}; peak device memory {peak:.2f} GiB; "
+        f"last step min_det_F {infos[-1].min_det_F!r}")
+    require(all(i.converged for i in infos), f"{tag}: every step converged")
+    check_checksum(tag, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
+    return launches, dict(
+        state=state, stress=stress, cg=[i.cg_iterations for i in infos],
+        newton=[i.iterations for i in infos], checksum=checksum, steps=steps,
+        peak_gib=peak)
+
+
 def phase_main(profile):
+    """The main configuration with the CG in CUDA graphs (the default on the
+    card) and with the host loop, on the same mesh and lam_max values, both
+    models on the card: round 1 runs graphs then host loop (1 warmup + 3
+    timed steps from rest each), round 2 host loop then graphs (3 more
+    timed steps each, from each model's state), so that neither loop
+    always runs first; one profiled step of each only after both rounds.
+    Identical CG and Newton counts in every step, checksums within
+    `LOOPS_RTOL` after each round; every step's time, host syncs and
+    launches, the peak memory of each model's round 1 and the busy share
+    of its profiled step."""
     import torch
 
     dev = torch.device("cuda")
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = build_model(dev)
     torch.cuda.synchronize()
     describe("main", model, time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats()
-    stress = interface_traction(model)
-    start_counts()
-    state, infos, _, checksum = run_steps("main", model, stress, newton_fmt)
-    launches = read_counts("main3d")
-    log(f"main: launches {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last step "
-        f"min_det_F {infos[-1].min_det_F!r}")
-    require(all(i.converged for i in infos), "every step converged")
-    check_checksum("main", checksum, CHECKSUM_REF, CHECKSUM_RTOL)
-    if profile:
-        profile_step("main", model, state, stress)
-    return launches, dict(
-        mesh_tags=(model.mesh, model.tags), checksum=checksum,
-        lam_max=[lv.lam_max for lv in model._precond.levels],
-        cg=[i.cg_iterations for i in infos], newton=[i.iterations for i in infos],
+    require(model.cg_loop == "graphs", "main: the CG runs in CUDA graphs")
+    launches, graphs = main_run("main", "main3d", model)
+    mesh_tags = (model.mesh, model.tags)
+    lam_max = [lv.lam_max for lv in model._precond.levels]
+    other = torch.cuda.memory_allocated() - base  # the graphs model's bytes
+    t0 = time.perf_counter()
+    host_model = build_model(dev, mesh_tags=mesh_tags, mg_lam_max=lam_max,
+                             cg_loop="host")
+    torch.cuda.synchronize()
+    describe("main host", host_model, time.perf_counter() - t0)
+    host_launches, host = main_run("main host", "main3d host", host_model,
+                                   other)
+    runs = (("graphs", "main", model, graphs),
+            ("host loop", "main host", host_model, host))
+    for _, tag, m, r in runs[::-1]:  # round 2: host loop first
+        r["state"], infos, r["steps2"], r["checksum2"] = run_steps(
+            tag, m, r["stress"], newton_fmt, state=r["state"], first=4, n=3)
+        r["cg"] += [i.cg_iterations for i in infos]
+        r["newton"] += [i.iterations for i in infos]
+        require(all(i.converged for i in infos), f"{tag}: every step converged")
+    for _, tag, m, r in runs:
+        r["busy"] = profile_step(tag, m, r["state"], r["stress"], table=profile)
+    del model, host_model, runs
+    torch.cuda.empty_cache()
+    for tag, r in (("graphs", graphs), ("host loop", host)):
+        st, st2 = r["steps"], r["steps2"]
+        log(f"main A/B {tag}: step times round 1 {st['times']} s, round 2 "
+            f"{st2['times']} s (timed means "
+            f"{statistics.mean(st['times'][1:])!r} / "
+            f"{statistics.mean(st2['times'])!r} s), CG {r['cg']}, Newton "
+            f"{r['newton']}, host syncs {st['syncs'] + st2['syncs']}, kernel "
+            f"launches {st['launches'] + st2['launches']} per step, peak "
+            f"device memory {r['peak_gib']:.3f} GiB, busy {r['busy']:.1%} of "
+            f"a profiled step")
+    rels = [abs(graphs[k] - host[k]) / host[k] for k in ("checksum", "checksum2")]
+    log(f"main A/B: checksums graphs {graphs['checksum']!r} / "
+        f"{graphs['checksum2']!r} host loop {host['checksum']!r} / "
+        f"{host['checksum2']!r} after steps 3 / 6, rel. differences "
+        f"{rels[0]:.3e} / {rels[1]:.3e} (limit {LOOPS_RTOL}); bitwise "
+        f"{graphs['checksum'] == host['checksum'] and graphs['checksum2'] == host['checksum2']}")
+    require(graphs["cg"] == host["cg"] and graphs["newton"] == host["newton"],
+            "main: the graphs' CG and Newton counts equal the host loop's")
+    require(max(rels) <= LOOPS_RTOL,
+            "main: graphs' checksums against the host loop's")
+    return {"main3d": launches, "main3d host": host_launches}, dict(
+        mesh_tags=mesh_tags, checksum=graphs["checksum"], lam_max=lam_max,
+        cg=graphs["cg"][:4], newton=graphs["newton"][:4],
     )
 
 
@@ -1513,7 +1668,8 @@ def main():
     timed("build", phase_build)
     records = timed("kernels", phase_kernels)
     by_path = {}
-    by_path["main3d"], main_run = timed("main", phase_main, args.profile)
+    paths, main_run = timed("main", phase_main, args.profile)
+    by_path.update(paths)
     by_path.update(timed("tangent3d", phase_tangent3d, main_run))
     by_path["stencil3d"], model, checksum = timed(
         "stencil3d", phase_stencil3d, main_run)

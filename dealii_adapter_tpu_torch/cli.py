@@ -207,11 +207,13 @@ def main(argv=None) -> int:
 
     # the closing counts are the coupled run's own: the model build's
     # launches (power iterations, the library's C1/C2 check) are printed
-    # here, then every count restarts at 0 and the library is bound again,
-    # so its check runs anew at the run's first kernel call
+    # here, then every count restarts at 0 and, on the card, the library
+    # is bound again, so its check runs anew and counts in the run
     print(f"kernel launches (model build): {_launched()}")
-    _build.unload()
     counters.reset()
+    _build.unload()
+    if device.type == "cuda":
+        _build.load_library()
 
     t0 = _time.perf_counter()
     if args.profile:

@@ -14,6 +14,11 @@
 //   back.
 //
 // What bounds it: launch latency; the block is 4 KB.
+//
+// Beside them, dat_launch_floor launches an empty kernel of one block:
+// chip_smoke.py times it to measure the card's floor for one launch, the
+// third term of every kernel's bound in PERF.md. It replaces no TPU
+// kernel and no path calls it.
 
 #include <cuda_runtime.h>
 
@@ -30,6 +35,8 @@ __global__ void add_one_kernel(const float* __restrict__ x,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) y[i] = x[i] + 1.0f;
 }
+
+__global__ void empty_kernel() {}
 
 constexpr int kThreads = 128;
 
@@ -50,5 +57,10 @@ extern "C" cudaError_t dat_health_add_one(const void* x, void* y, int n,
   add_one_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(y), n);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t dat_launch_floor(void* stream) {
+  empty_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The Q1 level operator y = A u of every multigrid level, in the folded
 // (assembled-stencil) form: K3 on a 3D (nz, ny, nx) nodal lattice
-// (27-point), the 2D kernel on a (ny, nx) lattice (9-point), and K4, the
-// 3D operator marching along z (below).
+// (27-point), the 2D kernel on a (ny, nx) lattice (9-point); K4 launches
+// K3's kernel, and its first design marches along z (below).
 //
 // Replaces, in dealii_adapter_tpu/:
 //   K3: ops/pallas_structured.py:PallasQ1SlabOperator._apply with
@@ -12,6 +12,11 @@
 //     adds around it (:389), the level operator of the `stencil*`
 //     backends: the same function, so dat_q1_stencil with ndim 3 launches
 //     K3's q1_level_kernel (K6 keeps its own entry point and launch count);
+//   K4: ops/pallas_structured.py:PallasQ1Operator._apply in 3D
+//     (_make_kernel_3d, pallas_call at :445), reached through
+//     make_q1_plane_operator: K3's function, so dat_q1_plane launches K3's
+//     q1_level_kernel with K3's tables (K4 keeps its own entry point and
+//     launch count);
 //   K4b: ops/pallas_structured.py:PallasQ1Operator._apply in 2D with
 //     _make_kernel_2d (:131, pallas_call at :488), and K6 in 2D (the JAX
 //     package's XLA `shift` pass): both launch q1_level_kernel_2d.
@@ -41,7 +46,8 @@
 // What held the first designs back (kept as entry points that only
 //   chip_smoke.py's timing calls: dat_q1_structured_gather and
 //   dat_q1_structured_2d_gather, structured_gather.cuh; dat_q1_stencil_
-//   pointwise, q1_stencil.cu): the gather form applied each cell's element
+//   pointwise, q1_stencil.cu; dat_q1_plane_marching, K4's, below): the
+//   gather form applied each cell's element
 //   matrix, 576 FMA a node in 3D (64 in 2D) where the function needs 243
 //   (36), gathered 64 (16) neighbour loads, 27 (9) distinct, from global
 //   memory with 64-bit `%` and `/` a cell and read E from shared memory
@@ -88,18 +94,15 @@
 //   before it is stored, with the same code as f32.
 
 //
-// K4: the same 3D Q1 operator, marching along z one node plane at a time.
-//
-// Replaces: dealii_adapter_tpu/ops/pallas_structured.py:PallasQ1Operator.
-//   _apply in 3D (_make_kernel_3d: grid step k consumes node planes k and
-//   k+1, i.e. cell plane k, writes node plane k and carries the cell
-//   plane's contributions to node plane k+1 in VMEM scratch). Reached
-//   through make_q1_plane_operator, as the JAX package reaches it through
-//   make_pallas_q1_operator on a 3D space; no model path selects it (the
-//   level operators stay on K3), so it is measured beside K3.
-//
-// What bounds it: the same work as K3 (8 cells x 72 FMA per node, u read
-//   once, y written once).
+// K4's first design (dat_q1_plane_marching): the same 3D Q1 operator,
+// marching along z one node plane at a time, as the TPU kernel
+// (_make_kernel_3d: grid step k consumes node planes k and k+1, i.e. cell
+// plane k, writes node plane k and carries the cell plane's contributions
+// to node plane k+1 in VMEM scratch). No model path selects K4 (the level
+// operators stay on K3, as in the JAX package), so it is measured beside
+// K3; at (19, 325, 55) it took 0.0546 ms against K3's 0.0186 (PERF.md),
+// applying each cell's element matrix (576 FMA a node where the folded
+// stencil needs 243), so K4 now launches K3's kernel.
 //
 // What the design does about it: one block of 16 x 8 threads owns a (y, x)
 //   tile of output nodes and marches along z: each node plane of the tile
@@ -635,9 +638,20 @@ cudaError_t launch_q1_plane(const void* u, void* y, const void* E, int nz,
 
 }  // namespace
 
-extern "C" cudaError_t dat_q1_plane(const void* u, void* y, const void* E,
+// K4 (Q1PlaneOperator): K3's function, so K3's q1_level_kernel with K3's
+// tables (`coef` as in dat_q1_structured), under K4's own entry point
+extern "C" cudaError_t dat_q1_plane(const void* u, void* y, const void* coef,
                                     int nz, int ny, int nx, int io_bf16,
                                     void* stream) {
+  return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
+}
+
+// K4's first (plane-marching) design, E the 24 x 24 element matrix: only
+// chip_smoke.py calls it, to time it beside K4
+extern "C" cudaError_t dat_q1_plane_marching(const void* u, void* y,
+                                             const void* E, int nz, int ny,
+                                             int nx, int io_bf16,
+                                             void* stream) {
   return launch_q1_plane(u, y, E, nz, ny, nx, io_bf16, stream);
 }
 

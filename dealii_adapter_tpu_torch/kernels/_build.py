@@ -51,10 +51,12 @@ _SIGNATURES = {
                                       ctypes.c_longlong, _P),
     # K2/K2b (ptrs[n_upper_blocks], u, out, dim, npc, n_cells, stream)
     "dat_tangent_matvec_sym_f32": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
-    # (u, y, coefficients, nz, ny, nx, io_bf16, stream): K3 (class
-    # tables), K4 and the first (gather) designs of K3 and K5 (E)
+    # (u, y, coefficients, nz, ny, nx, io_bf16, stream): K3 and K4 (class
+    # tables), and the first designs of K4 (plane marching), K3 and K5
+    # (gathers) (E)
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q1_plane": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "dat_q1_plane_marching": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q1_structured_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q2_structured_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
     # K5 (u, y, mma fragments, E, nz, ny, nx, io_bf16, stream)
@@ -70,6 +72,8 @@ _SIGNATURES = {
     # (x, y, salt, n, stream) and (x, y, n, stream)
     "dat_health_scale": (_P, _P, ctypes.c_float, _I, _P),
     "dat_health_add_one": (_P, _P, _I, _P),
+    # (stream): an empty kernel, the launch floor chip_smoke.py measures
+    "dat_launch_floor": (_P,),
 }
 
 _lib = None

@@ -4,6 +4,15 @@ Each wrapper adds one to its `launches` where it launches its kernel, and
 nowhere else (a CPU tensor takes the plain version and counts nothing).
 `counters()` names them all, so a run can set them to 0, drive a path and
 read which kernels the path launched (`chip_smoke.py`, the CLI summary).
+
+Under CUDA graphs (`solvers/cg.py:ChunkedCG`) a wrapper runs only while
+its launch is captured, and a replay launches the captured kernels
+without running any Python. So a capture takes the launches its wrappers
+counted back out (`captured`: nothing ran yet) and keeps them as the
+graph's launches per replay, and every replay adds them again (`add`).
+The counts therefore stay device launches: a replay of a CG chunk adds
+the launches of all its iterations, the masked ones after convergence
+included, since those really run.
 """
 
 from __future__ import annotations
@@ -46,3 +55,26 @@ def reset() -> None:
     """Set every launch count to 0."""
     for obj in counters().values():
         obj.launches = 0
+
+
+def captured(before: dict) -> dict:
+    """The launches counted since the `launch_counts()` snapshot `before`,
+    taken just before a CUDA-graph capture: what one replay of the graph
+    launches. Sets every count back to `before`, since the capture itself
+    launched nothing."""
+    objs = counters()
+    per_replay = {}
+    for name, obj in objs.items():
+        n = obj.launches - before.get(name, 0)
+        if n:
+            per_replay[name] = n
+        obj.launches = before.get(name, 0)
+    return per_replay
+
+
+def add(launches: dict, times: int = 1) -> None:
+    """Add `times` replays' worth of `launches` ({kernel name: per
+    replay}) to the counts."""
+    objs = counters()
+    for name, n in launches.items():
+        objs[name].launches += n * times

@@ -22,9 +22,17 @@ Cholesky (`type_lin="Direct"`, up to 16,384 unknowns). The MG
 preconditioner's fine proxy is kernel K5 in 3D Q2 (the plain structured
 operator in 2D), its Q1 levels kernels K3 (3D) or K4b (2D).
 
+The CG runs as `cg_loop` says: "graphs" (the default) runs
+`solvers/cg.py:ChunkedCG`, chunks of guarded CG iterations captured once
+per model in CUDA graphs on the card (run eagerly on the CPU), one
+read-back per chunk, the inner tolerance of each refinement written to
+the solver's tolerance tensor; "host" the host-loop `cg_solve`, one
+read-back per iteration. Both give the same bits.
+
 Differences from the JAX package: the step is eager PyTorch with host
-loops (one read-back per CG iteration and per refinement, counted in
-`host_syncs`) where JAX jits one step function.
+loops (the refinement loop, one read-back per refinement; the CG's
+read-backs; all counted in `host_syncs`) where JAX jits one step
+function.
 """
 
 from __future__ import annotations
@@ -49,11 +57,11 @@ from ..ops.element_ops import (
 from ..ops.q2_structured import make_q2_operator
 from ..ops.structured import make_structured_operator
 from ..solvers.cg import (
-    cg_solve,
     chebyshev_preconditioner,
     estimate_lambda_max,
     ir_cg_solve,
     jacobi_preconditioner,
+    make_cg,
 )
 from ..solvers.direct import DenseCholesky
 
@@ -79,7 +87,10 @@ class StepInfo(NamedTuple):
 class LinearElastodynamics:
     """Builds mesh, space, operators and preconditioner once on `device`
     (default: the CUDA card); `step(state, interface_data) -> (state,
-    StepInfo)`."""
+    StepInfo)`. `cg_loop` ("graphs", the default, or "host") chooses the
+    Krylov loop (module docstring); it exists so that both loops can be
+    measured side by side, and the model never switches between them
+    itself."""
 
     def __init__(
         self,
@@ -89,12 +100,14 @@ class LinearElastodynamics:
         refine: int = 0,
         device=None,
         mg_lam_max: Optional[Sequence[float]] = None,
+        cg_loop: str = "graphs",
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
         hierarchy's power-iteration estimates."""
         _check_ported(params)
         self.params = params
         self.device = resolve_device(device)
+        self.cg_loop = cg_loop
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -186,6 +199,13 @@ class LinearElastodynamics:
             np.fill_diagonal(A_dense, np.diag(A_dense) + (1.0 - flat_mask))
             self._direct = DenseCholesky(A_dense, dt_, dev)
         self._max_cg_iter = int(space.n_dofs * params.max_iterations_lin)
+        # the BC-masked stepping matrix, and the CG solve (the inner solves
+        # of the refinement when it runs in f32)
+        self._A_bc = self._masked(self.A, self.mask)
+        cg_op = (self._masked(self.A_lo, self.mask_lo) if self._mixed
+                 else self._A_bc)
+        self._cg = make_cg(self.cg_loop, cg_op, self._precond)
+        self._cg_op = cg_op
 
     # ------------------------------------------------------------------
 
@@ -232,22 +252,19 @@ class LinearElastodynamics:
             - dt * K(state.displacement)
         )
         rhs = mask * rhs  # zero-valued Dirichlet rows
-        A_bc = self._masked(self.A, mask)
         if self._direct is not None:
             v_new, iters, resn = self._direct.solve(rhs), 1, 0.0
         else:
             if self._mixed:
                 res = ir_cg_solve(
-                    A_bc, self._masked(self.A_lo, self.mask_lo), rhs,
+                    self._A_bc, self._cg_op, rhs,
                     mask * state.velocity, tol=CG_TOL,
                     max_iter=self._max_cg_iter, lo_dtype=self.solve_dtype,
-                    preconditioner=self._precond,
+                    preconditioner=self._precond, inner_solve=self._cg,
                 )
             else:
-                res = cg_solve(
-                    A_bc, rhs, mask * state.velocity, tol=CG_TOL,
-                    max_iter=self._max_cg_iter, preconditioner=self._precond,
-                )
+                res = self._cg(rhs, mask * state.velocity, CG_TOL,
+                               self._max_cg_iter)
             self.host_syncs += res.host_syncs
             v_new, iters, resn = res.x, res.iterations, res.residual_norm
         d_new = (
@@ -267,7 +284,8 @@ class LinearElastodynamics:
         device, memoized per dt (subcycling: a coupling window that is not
         an integer multiple of delta_t is closed with a shortened stepper,
         `adapter.h:104-107`). The stepping matrix and its preconditioner
-        depend on dt, so the clone rebuilds them once."""
+        depend on dt, so the clone rebuilds them once (and, under
+        `cg_loop="graphs"`, captures its own CG graphs)."""
         if float(delta_t) == float(self.params.delta_t):
             return self
         cache = self.__dict__.setdefault("_dt_clones", {})
@@ -276,6 +294,7 @@ class LinearElastodynamics:
             cache[key] = type(self)(
                 dataclasses.replace(self.params, delta_t=key),
                 mesh=self.mesh, tags=self.tags, device=self.device,
+                cg_loop=self.cg_loop,
             )
         return cache[key]
 

@@ -22,10 +22,19 @@ runs K2 (`auto`, `packed`, `packedt` with a warning, `xla`) or K2b
 (`blocks`). `xla` names a library-form matvec that the port does not
 have, so it takes the `auto` kernel.
 
+The CG runs as `cg_loop` says: "graphs" (the default) runs
+`solvers/cg.py:ChunkedCG`, fixed-length chunks of guarded CG iterations
+captured once per model in CUDA graphs on the card (tangent kernel, the
+whole V-cycle, dots; run eagerly on the CPU) with one read-back per
+chunk; "host" the host-loop `cg_solve`, one read-back per iteration.
+Both give the same bits. The assembly writes the tangent into one
+persistent buffer per model (the layouts' `out=`), so the captured matvec
+reads each Newton iteration's tangent at the same address.
+
 Differences from the JAX package, all in the host orchestration:
-* Newton and CG are host loops (`lax.while_loop` in JAX): every Newton
+* Newton is a host loop (`lax.while_loop` in JAX): every Newton
   decision reads its scalars back from the device, one sync each, counted
-  in `host_syncs`;
+  in `host_syncs` with the CG's read-backs;
 * a NaN f32 residual never becomes the noise floor: a non-finite
   calibration leaves the floor uncalibrated (f64 continues), and the
   stall-redo re-calibration keeps the last finite floor (the JAX package
@@ -75,10 +84,12 @@ from ..ops.structured import (
     overlap_add_T,
 )
 from ..solvers.cg import (
-    cg_solve,
+    CG_CHUNK,
+    CG_LOOPS,
     chebyshev_preconditioner,
     estimate_lambda_max,
     jacobi_preconditioner,
+    make_cg,
 )
 from .material import NeoHookean, det_and_inv_c, kinematics_c
 
@@ -150,7 +161,12 @@ def _clip(x: float, lo: float, hi: float) -> float:
 class NonlinearElasticity:
     """Builds mesh, space, operators and preconditioner once on `device`
     (default: the CUDA card); `step(state, stress) -> (state,
-    NewtonInfo)`; `residual` and `_residual32` are exposed for tests."""
+    NewtonInfo)`; `residual` and `_residual32` are exposed for tests.
+    `cg_loop` ("graphs", the default, or "host") chooses the Krylov loop
+    (module docstring); it exists so that both loops can be measured side
+    by side, and the model never switches between them itself. `cg_chunk`
+    (default `CG_CHUNK`) sets the graphs' chunk length; it exists for
+    `tools/cg_chunk_sweep.py`, which measures the lengths on this model."""
 
     def __init__(
         self,
@@ -161,6 +177,8 @@ class NonlinearElasticity:
         quasi_static: bool = False,
         device=None,
         mg_lam_max: Optional[Sequence[float]] = None,
+        cg_loop: str = "graphs",
+        cg_chunk: int = CG_CHUNK,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
         hierarchy's power-iteration estimates."""
@@ -173,6 +191,11 @@ class NonlinearElasticity:
         self.params = params
         self.quasi_static = quasi_static
         self.device = resolve_device(device)
+        self.cg_loop = cg_loop
+        if cg_loop not in CG_LOOPS:
+            raise ValueError(
+                f"unknown cg_loop {cg_loop!r}; expected one of {CG_LOOPS}")
+        self.cg_chunk = int(cg_chunk)
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -205,6 +228,7 @@ class NonlinearElasticity:
         self.alpha_5 = 1.0 - gamma / beta
         self.alpha_6 = (1.0 - gamma / (2.0 * beta)) * dt
         self.host_syncs = 0
+        self._tangent = None  # (persistent tangent, CG solve), at first use
         self._setup_constants(mg_lam_max)
 
     # ------------------------------------------------------------------
@@ -272,12 +296,8 @@ class NonlinearElasticity:
         self._mixed_tangent = tdt != dt
         self._G_t, self._w_t = self.G.to(tdt), self.w.to(tdt)
         self.mask_t = self.mask.to(tdt)
-        if self._mixed_tangent:
-            self.M_t = make_structured_operator(space, elem.M_e, tdt, self.device)
-            self._int_force32_J = self._int_force_t_J
-        else:
-            self.M_t = None
-            self._int_force32_J = None
+        self.M_t = (make_structured_operator(space, elem.M_e, tdt, self.device)
+                    if self._mixed_tangent else None)
         if self.device.type == "cuda" and tdt != torch.float32:
             raise NotImplementedError(
                 "an f64 inner solve (solve_dtype == dtype, the reference's "
@@ -364,12 +384,13 @@ class NonlinearElasticity:
     # ------------------------------------------------------------------
 
     def _make_tangent_fns(self):
-        """`(assemble_Kt, make_tangent_matvec)`: `assemble_Kt(u_t)`
+        """`(assemble_Kt, make_tangent_matvec)`: `assemble_Kt(u_t, out)`
         assembles the per-cell tangents at the solve-dtype iterate in the
         layout `self.tangent_kernel` consumes (the column-major pack KT,
         the row-major pack K, the nested blocks, the symmetric pack or the
-        upper blocks); `make_tangent_matvec(Kt)` is the BC-masked CG
-        operator extract -> that kernel -> overlap-add."""
+        upper blocks), into `out` (an earlier result) if given;
+        `make_tangent_matvec(Kt)` is the BC-masked CG operator extract ->
+        that kernel -> overlap-add."""
         dim = self.space.dim
         deg = self.mesh.degree
         gs, rr = self._grid_shape, self._reps_rev
@@ -382,7 +403,7 @@ class NonlinearElasticity:
         layout = {
             "K1": pack_cell_tangents_T, "K1b": pack_cell_tangents,
             "K2": pack_cell_tangents_sym,
-        }.get(kern, lambda K: K)
+        }.get(kern)
         apply = {
             "K1": apply_packed_tangents_T, "K1b": apply_packed_tangents,
             "K1c": apply_block_tangents,
@@ -390,12 +411,17 @@ class NonlinearElasticity:
             "K2b": lambda Kt, u2: apply_sym_block_tangents(Kt, u2, dim, npc),
         }[kern]
 
-        def assemble_Kt(u_t):
+        def assemble_Kt(u_t, out=None):
             ut_p = extract_cell_patches_T(u_t.reshape(gs + (dim,)), deg, rr)
+            if layout is None:
+                return assemble(
+                    ut_p, self._G_t, self._w_t, self.material,
+                    mass_term=self._tangent_mass, S=self._S_t, out=out,
+                )
             return layout(assemble(
                 ut_p, self._G_t, self._w_t, self.material,
                 mass_term=self._tangent_mass, S=self._S_t,
-            ))
+            ), out=out)
 
         def make_tangent_matvec(Kt):
             def K32(v):
@@ -526,7 +552,7 @@ class NonlinearElasticity:
         term stays f64); returns (rhs, min_J) in the state dtype."""
         tdt = self.solve_dtype
         u = state.displacement + delta
-        r_int, min_J = self._int_force32_J(u.to(tdt))
+        r_int, min_J = self._int_force_t_J(u.to(tdt))
         rhs = self.external_force(u, stress).to(tdt) - r_int
         if self.body_force_enabled:
             rhs = rhs + self._body_vec.to(tdt)
@@ -565,12 +591,9 @@ class NonlinearElasticity:
         mixed_resid = (
             use_cg
             and self._mixed_tangent
-            and self._int_force32_J is not None
             and params.newton_residual == "mixed"
         )
         norm = self._norm
-        if use_cg:
-            assemble_Kt, make_tangent_matvec = self._make_tangent_fns()
 
         if params.newton_predictor and not self.quasi_static:
             delta = mask * (
@@ -649,10 +672,7 @@ class NonlinearElasticity:
             cg_its = asm_inc = 0
             if not conv:
                 cg_tol = _fmax(eta * res_abs_new, 0.5 * T) if ew else params.tol_lin * res_abs_new
-                du, cg_its, asm_inc = self._solve(
-                    delta, state, rhs, cg_tol, assemble_Kt if use_cg else None,
-                    make_tangent_matvec if use_cg else None,
-                )
+                du, cg_its, asm_inc = self._solve(delta, state, rhs, cg_tol)
                 upd_abs_new = norm(mask * du)
                 if it == 0:
                     upd0 = _fmax(upd_abs_new, 1e-300)
@@ -672,19 +692,31 @@ class NonlinearElasticity:
         )
         return delta, info
 
-    def _solve(self, delta, state, rhs, cg_tol, assemble_Kt, make_tangent_matvec):
-        """One Newton correction: (du, CG iterations, tangent assemblies)."""
-        if assemble_Kt is None:
+    def _solve(self, delta, state, rhs, cg_tol):
+        """One Newton correction: (du, CG iterations, tangent assemblies).
+        The first one assembles the tangent into a new buffer and builds
+        the CG solve over it (`cg_loop`); every later one assembles into
+        that buffer."""
+        if not self._use_assembled:
             A = self._dense_tangent(delta, state)
             du = torch.linalg.solve(A, rhs.reshape(-1)).reshape(rhs.shape)
             return du, 1, 1
         tdt = self.solve_dtype
         u_t = (state.displacement + delta).to(tdt)
-        K32 = make_tangent_matvec(assemble_Kt(u_t))
-        r = cg_solve(
-            K32, rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt),
-            tol=cg_tol, max_iter=self._max_cg_iter, preconditioner=self._precond,
-        )
+        # the assembly closure refers to the model and is not kept: kept,
+        # it would make the model, its tangent and its CG graphs a
+        # reference cycle that outlives `del model`
+        assemble_Kt, make_tangent_matvec = self._make_tangent_fns()
+        if self._tangent is None:
+            Kt = assemble_Kt(u_t)
+            solve = make_cg(self.cg_loop, make_tangent_matvec(Kt),
+                            self._precond, self.cg_chunk)
+            self._tangent = (Kt, solve)
+        else:
+            Kt, solve = self._tangent
+            assemble_Kt(u_t, out=Kt)
+        r = solve(rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt), cg_tol,
+                  self._max_cg_iter)
         self.host_syncs += r.host_syncs
         return r.x.to(self.dtype), r.iterations, 1
 
@@ -711,7 +743,8 @@ class NonlinearElasticity:
         an integer multiple of delta_t is closed with a shortened stepper,
         `adapter.h:104-107`). The Newmark coefficients, the tangent's mass
         term and the preconditioner depend on dt, so the clone rebuilds
-        them once; the multigrid geometry cached on the mesh is shared. The
+        them once (and, under `cg_loop="graphs"`, captures its own CG
+        graphs); the multigrid geometry cached on the mesh is shared. The
         clone estimates its own lam_max values by power iteration, as the
         JAX package's clone does: values given to this model as
         `mg_lam_max` belong to its dt."""
@@ -724,6 +757,7 @@ class NonlinearElasticity:
                 dataclasses.replace(self.params, delta_t=key),
                 mesh=self.mesh, tags=self.tags,
                 quasi_static=self.quasi_static, device=self.device,
+                cg_loop=self.cg_loop, cg_chunk=self.cg_chunk,
             )
         return cache[key]
 

@@ -99,10 +99,13 @@ def upper_blocks(dim):
     return [(d, e) for d in range(dim) for e in range(dim) if d <= e]
 
 
-def _assemble_upper(ut, G, w, material, mass_term, S):
+def _assemble_upper(ut, G, w, material, mass_term, S, out=None):
     """The upper component blocks {(d, e): (npc, npc, c)}, d <= e, in
     `upper_blocks` order; diagonal blocks symmetrized exactly, mass term
-    added to them.
+    added to them. `out`, a list of (npc, npc, c) tensors in that order,
+    receives the blocks (the last operation of each writes into it, with
+    the same arithmetic), so the tangent keeps its address from one
+    Newton iteration to the next.
 
     The contraction S @ A sums its dim^2 q terms in f64 and rounds once
     to the tangent dtype. Summed in f32, it loses the cancellation that
@@ -123,8 +126,16 @@ def _assemble_upper(ut, G, w, material, mass_term, S):
         S = contraction_basis(G, w)
     m = mass_term[:, :, None] if mass_term is not None else None
     S64 = S.to(torch.float64)
+    blocks = upper_blocks(dim)
+    if out is not None and (len(out) != len(blocks) or any(
+            tuple(o.shape) != (npc, npc, c) or o.dtype != ut.dtype
+            for o in out)):
+        raise ValueError(
+            f"out must be {len(blocks)} ({npc}, {npc}, {c}) {ut.dtype} "
+            f"blocks, got {[(tuple(o.shape), o.dtype) for o in out]}"
+        )
     K = {}
-    for d, e in upper_blocks(dim):
+    for b, (d, e) in enumerate(blocks):
         A_de = torch.stack(
             [
                 comps[(d * dim + k, e * dim + l_)]
@@ -133,30 +144,38 @@ def _assemble_upper(ut, G, w, material, mass_term, S):
             ],
             dim=0,
         ).reshape(dim * dim * q, c)
-        Kde = (S64 @ A_de.to(torch.float64)).to(A_de.dtype).reshape(npc, npc, c)
+        K64 = (S64 @ A_de.to(torch.float64)).reshape(npc, npc, c)
+        dst = None if out is None else out[b]
         if d == e:
             # restore exact within-block symmetry lost to summation order
-            Kde = 0.5 * (Kde + Kde.transpose(0, 1))
+            Kde = K64.to(A_de.dtype)
+            Kde = torch.mul(Kde + Kde.transpose(0, 1), 0.5, out=dst)
             if m is not None:
-                Kde = Kde + m
+                Kde = Kde.add_(m) if dst is not None else Kde + m
+        else:
+            Kde = K64.to(A_de.dtype) if dst is None else dst.copy_(K64)
         K[(d, e)] = Kde
     return K
 
 
-def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None):
+def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None,
+                           out=None):
     """Element tangents at the current iterate.
 
     ut: (dim, npc, c) cell-patch displacements; G: (q, npc, dim) physical
     reference gradients; w: (q,) weights; mass_term: optional (npc, npc)
     scalar matrix added to the diagonal component blocks (alpha_1 * rho
-    element mass); S: the precomputed `contraction_basis(G, w)`.
+    element mass); S: the precomputed `contraction_basis(G, w)`; out: an
+    earlier result to overwrite (its upper blocks receive the new ones).
 
     Returns K as a dim x dim nested list of (npc, npc, c) tensors,
     K[d][e][i, j, c] = dF_int[d,i,c] / du[e,j,c]; the lower blocks are
     transposed views of the upper ones. Float32 products are true f32 (the
     package sets TF32 off)."""
     dim = ut.shape[0]
-    Ku = _assemble_upper(ut, G, w, material, mass_term, S)
+    if out is not None:
+        out = [out[d][e] for d, e in upper_blocks(dim)]
+    Ku = _assemble_upper(ut, G, w, material, mass_term, S, out)
     K = [[None] * dim for _ in range(dim)]
     for (d, e), Kde in Ku.items():
         K[d][e] = Kde
@@ -165,13 +184,15 @@ def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None):
     return K
 
 
-def assemble_cell_tangents_sym(ut, G, w, material, mass_term=None, S=None):
+def assemble_cell_tangents_sym(ut, G, w, material, mass_term=None, S=None,
+                               out=None):
     """Block-symmetric element tangents: the list [K00, K01, (K02,) K11,
     ...] of the upper blocks in `upper_blocks` order, each a contiguous
-    (npc, npc, c) tensor (arguments as `assemble_cell_tangents`). The lower
-    blocks are never stored; `apply_cell_tangents_sym` applies the upper
-    ones transposed in their place."""
-    return list(_assemble_upper(ut, G, w, material, mass_term, S).values())
+    (npc, npc, c) tensor (arguments as `assemble_cell_tangents`; `out` an
+    earlier such list to overwrite). The lower blocks are never stored;
+    `apply_cell_tangents_sym` applies the upper ones transposed in their
+    place."""
+    return list(_assemble_upper(ut, G, w, material, mass_term, S, out).values())
 
 
 def apply_cell_tangents(K, ut):
@@ -205,14 +226,29 @@ def apply_cell_tangents_sym(Ku, ut):
     )
 
 
-def pack_cell_tangents_T(K) -> torch.Tensor:
+def _pack_out(blocks, rows, cols, out):
+    """`out`, checked to be a contiguous (rows, cols, c) tensor of the
+    blocks' dtype and device, or a new one."""
+    b0 = blocks[0]
+    shape = (rows, cols, b0.shape[-1])
+    if out is None:
+        return torch.empty(shape, dtype=b0.dtype, device=b0.device)
+    if (tuple(out.shape) != shape or out.dtype != b0.dtype
+            or out.device != b0.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous {shape} {b0.dtype} tensor on "
+            f"{b0.device}, got {tuple(out.shape)} {out.dtype} on {out.device}"
+        )
+    return out
+
+
+def pack_cell_tangents_T(K, out=None) -> torch.Tensor:
     """Column-major pack KT[(e, j), (d, i), c] = K[d][e][i, j, c], one
-    contiguous (edofs, edofs, c) tensor (K1)."""
+    contiguous (edofs, edofs, c) tensor (K1), written into `out` if
+    given."""
     dim = len(K)
-    npc, _, c = K[0][0].shape
-    KT = torch.empty(
-        (dim * npc, dim * npc, c), dtype=K[0][0].dtype, device=K[0][0].device
-    )
+    npc = K[0][0].shape[0]
+    KT = _pack_out(K[0], dim * npc, dim * npc, out)
     for e in range(dim):
         for d in range(dim):
             KT[e * npc:(e + 1) * npc, d * npc:(d + 1) * npc] = K[d][e].transpose(
@@ -221,16 +257,25 @@ def pack_cell_tangents_T(K) -> torch.Tensor:
     return KT
 
 
-def pack_cell_tangents(K) -> torch.Tensor:
+def pack_cell_tangents(K, out=None) -> torch.Tensor:
     """Row-major pack K[(d, i), (e, j), c] = K[d][e][i, j, c], one
-    contiguous (edofs, edofs, c) tensor (K1b)."""
-    return torch.cat([torch.cat(row, dim=1) for row in K], dim=0)
+    contiguous (edofs, edofs, c) tensor (K1b), written into `out` if
+    given."""
+    dim = len(K)
+    npc = K[0][0].shape[0]
+    Kp = _pack_out(K[0], dim * npc, dim * npc, out)
+    for d in range(dim):
+        for e in range(dim):
+            Kp[d * npc:(d + 1) * npc, e * npc:(e + 1) * npc] = K[d][e]
+    return Kp
 
 
-def pack_cell_tangents_sym(Ku) -> torch.Tensor:
+def pack_cell_tangents_sym(Ku, out=None) -> torch.Tensor:
     """Upper-block list -> one contiguous (n_blocks * npc, npc, c) tensor,
-    block b in rows [b * npc, (b + 1) * npc) (K2)."""
-    return torch.cat(Ku, dim=0)
+    block b in rows [b * npc, (b + 1) * npc) (K2), written into `out` if
+    given."""
+    npc = Ku[0].shape[0]
+    return torch.cat(Ku, dim=0, out=_pack_out(Ku, len(Ku) * npc, npc, out))
 
 
 def _plain_or_check(name, tensors, u2):

@@ -11,9 +11,11 @@ Q1 node lattice:
   accumulation; the level's coefficients are a runtime argument, so one
   kernel serves every level): K3 in 3D and K4b in 2D, the folded 27- and
   9-point stencils with the per-node-class tables K6 reads
-  (`ops/stencil.py:class_tables`, laid out by `kernel_table`); the 3D
-  operator of `make_q1_plane_operator` launches the plane-marching kernel
-  K4 instead;
+  (`ops/stencil.py:class_tables`, laid out by `kernel_table`); K4, the 3D
+  operator of `make_q1_plane_operator`, computes K3's function and
+  launches K3's kernel with the same tables under its own entry point
+  (its first, plane-marching design stays as `dat_q1_plane_marching` for
+  `chip_smoke.py`'s timing);
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, computing in f32 (f64 for f64 I/O) and rounding
   the output to the I/O dtype.
@@ -166,13 +168,17 @@ def _folded_table(E: np.ndarray, dim: int, device) -> Tuple[torch.Tensor]:
 
 
 class Q1PlaneOperator(StructuredKernelOperator):
-    """K4: the 3D Q1 operator marching along z one node plane at a time
-    (csrc/q1_structured.cu, `dat_q1_plane`); the same function as K3."""
+    """K4: the 3D Q1 operator of `make_q1_plane_operator`, the same function
+    as K3, so `dat_q1_plane` launches K3's kernel with K3's tables
+    (csrc/q1_structured.cu); its own entry point and launch count."""
 
     p = 1
     dim = 3
     entry = "dat_q1_plane"
     launches = 0
+
+    def _coefficients(self, E):
+        return _folded_table(E, 3, self.device)
 
 
 def make_q1_operator(

@@ -125,6 +125,48 @@ def test_assemble_and_pack_match_jax(dtype, dim):
             )
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K1b", "K1c", "K2", "K2b"])
+def test_layouts_write_into_out(kernel):
+    """Each tangent layout, assembled again with `out=` an earlier result,
+    keeps the earlier tensors (the address a captured CG graph reads) and
+    holds the new tangent bit for bit as a fresh assembly; a buffer of
+    another shape raises."""
+    space, t, _ = _setup(3, 2, torch.float32)
+    mat = NeoHookean(MU, NU, RHO)
+    sym = kernel in ("K2", "K2b")
+    assemble = tat.assemble_cell_tangents_sym if sym else tat.assemble_cell_tangents
+    pack = {"K1": tat.pack_cell_tangents_T, "K1b": tat.pack_cell_tangents,
+            "K2": tat.pack_cell_tangents_sym}.get(kernel)
+
+    def layout(ut, out=None):
+        if pack is None:
+            return assemble(ut, t["G"], t["w"], mat, mass_term=t["mass"],
+                            out=out)
+        return pack(assemble(ut, t["G"], t["w"], mat, mass_term=t["mass"]),
+                    out=out)
+
+    def flat(K):
+        if torch.is_tensor(K):
+            return [K]
+        return [b for row in K for b in (row if isinstance(row, list) else [row])]
+
+    first = layout(t["ut"])
+    ptrs = [b.data_ptr() for b in flat(first)]
+    ut2 = 1.5 * t["ut"]
+    again = layout(ut2, out=first)
+    fresh = layout(ut2)
+    assert [b.data_ptr() for b in flat(again)] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(fresh)))
+    assert not torch.equal(flat(first)[0], flat(layout(t["ut"]))[0])
+    with pytest.raises(ValueError, match="out"):
+        if pack is None:
+            assemble(t["ut"], t["G"], t["w"], mat,
+                     out=[b[:-1] for b in flat(first)][:len(tat.upper_blocks(3))]
+                     if sym else [[b[:-1] for b in row] for row in first])
+        else:
+            layout(t["ut"], out=first[:-1])
+
+
 def test_plain_k1_matches_pallas_interpret():
     """K1's plain version against `apply_packed_tangents_T_pallas`
     (interpret mode) on an assembled, packed tangent."""

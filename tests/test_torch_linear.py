@@ -2,7 +2,8 @@
 the interface-traction load (rtol 1e-13), the mixed-precision refinement
 solver (equal iterations, solution within 1e-10), five steps of the model
 in 2D and 3D for the Jacobi/f64, MG/bf16 + f32 refinement and Direct
-solvers, the subcycling clone, and the recorded golden tip trajectories
+solvers, the chunked CG's steps against the host loop's (bit for bit),
+the subcycling clone, and the recorded golden tip trajectories
 `linear_pf_q2` and `linear_pf_q3` (rtol 1e-9)."""
 
 import json
@@ -170,6 +171,31 @@ def test_steps_match_jax(dim, solver):
         _assert_fields_close(ts, js, rtol)
         np.testing.assert_allclose(ti.linf_velocity, float(ji.linf_velocity),
                                    rtol=rtol)
+
+
+@pytest.mark.parametrize("solver", ["jacobi_f64", "mg_bf16_ir"])
+def test_chunked_cg_step_equals_the_host_loop(solver):
+    """Three theta-steps with the CG in chunks (`cg_loop="graphs"`, run
+    eagerly on the CPU; the refinement's inner tolerance written to the
+    solver's tolerance tensor each round) give the host loop's `StepInfo`
+    and state bit for bit, and its clone keeps the loop. The chunk is set
+    to 3 iterations on the built solver, so that masked iterations run."""
+    kw = SOLVERS[solver][0]
+    params = params_from_jax(JaxParams(**dict(GOLDEN, **kw)))
+    models = [LinearElastodynamics(params, device="cpu", cg_loop=loop)
+              for loop in ("host", "graphs")]
+    models[1]._cg.chunk = 3
+    stress = torch.as_tensor(_stress(models[0]))
+    states = [m.initial_state() for m in models]
+    for _ in range(3):
+        (host, hi), (chunked, ci) = (m.step(st, stress)
+                                     for m, st in zip(models, states))
+        assert ci == hi and hi.residual <= 1e-10
+        assert all(torch.equal(a, b) for a, b in zip(chunked, host))
+        states = [host, chunked]
+    assert models[1].host_syncs < models[0].host_syncs
+    clone = models[1].with_delta_t(0.0025)
+    assert clone.cg_loop == "graphs" and isinstance(clone._cg, tcg.ChunkedCG)
 
 
 def test_step_from_a_carried_state_matches_jax():

@@ -1,8 +1,10 @@
 """The PyTorch package's Neo-Hookean Newmark/Newton model against the JAX
 package: residuals at a random state (f64 rtol 1e-12, f32 rtol 1e-5),
-three production-configuration steps of the 3D flap, and the 2D
-production configuration on the recorded golden tip trajectory."""
+three production-configuration steps of the 3D flap, the chunked CG's
+steps against the host loop's (bit for bit), and the 2D production
+configuration on the recorded golden tip trajectory."""
 
+import dataclasses
 import json
 import os
 
@@ -104,6 +106,34 @@ def test_production_steps_3d_match_jax(models_3d):
         np.testing.assert_allclose((ut * ut).sum(), (uj * uj).sum(), rtol=1e-5)
     assert ti.tangent_assemblies == int(ji.tangent_assemblies)
     assert ti.f64_evals + ti.f32_evals >= ti.iterations
+
+
+@pytest.mark.parametrize("sym,kind", [(False, "auto"), (True, "blocks")])
+def test_chunked_cg_step_equals_the_host_loop(models_3d, sym, kind):
+    """Two 3D production steps with the CG in chunks of 3 (`cg_loop=
+    "graphs"`, run eagerly on the CPU) give the host loop's `NewtonInfo`
+    and state bit for bit, with the tangent assembled into one persistent
+    buffer: the column-major pack (K1) and the upper blocks (K2b)."""
+    jm, _ = models_3d
+    lam = [lv.lam_max for lv in jm._precond.levels]
+    p = params_from_jax(JaxParams(dim=3, max_iterations_NR=10, **PRODUCTION))
+    p = dataclasses.replace(p, tangent_block_symmetric=sym,
+                            tangent_matvec_kernel=kind)
+    models = [NonlinearElasticity(p, mg_lam_max=lam, device="cpu",
+                                  cg_loop=loop, cg_chunk=3)
+              for loop in ("host", "graphs")]
+    assert models[0].cg_loop == "host" and models[1].cg_loop == "graphs"
+    stress = torch.as_tensor(_stress(
+        models[0].space.n_nodes, 3,
+        models[0].space.boundary_nodes[models[0].interface_id], 1000.0))
+    states = [m.initial_state() for m in models]
+    for _ in range(2):
+        out = [m.step(st, stress) for m, st in zip(models, states)]
+        (host, host_info), (chunked, chunked_info) = out
+        assert host_info.converged and chunked_info == host_info
+        assert all(torch.equal(a, b) for a, b in zip(chunked, host))
+        states = [host, chunked]
+    assert models[1].host_syncs < models[0].host_syncs
 
 
 @pytest.mark.parametrize("solver", ["production", "direct"])

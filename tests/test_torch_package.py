@@ -195,6 +195,24 @@ def test_launch_counters_name_every_wrapper():
     assert set(counters.launch_counts().values()) == {0}
 
 
+def test_counts_under_replay_are_the_captured_launches():
+    """A CUDA-graph capture hands the launches its wrappers counted to the
+    graph (`captured`: the counts go back, since nothing ran) and every
+    replay adds them again (`add`)."""
+    counters.reset()
+    Q1StructuredOperator.launches = 5
+    before = counters.launch_counts()
+    Q1StructuredOperator.launches += 37  # the wrappers, while capturing
+    at.apply_packed_tangents_T.launches += 4
+    per_replay = counters.captured(before)
+    assert per_replay == {"K3 q1_structured": 37, "K1 tangent_matvec": 4}
+    assert counters.launch_counts() == before
+    counters.add(per_replay, times=3)
+    assert Q1StructuredOperator.launches == 5 + 3 * 37
+    assert at.apply_packed_tangents_T.launches == 3 * 4
+    counters.reset()
+
+
 @pytest.mark.parametrize(
     "override",
     [
@@ -255,14 +273,16 @@ def test_linear_unported_variants_raise(override):
 
 def test_build_binds_every_entry_point():
     """The C entry points of the library: K1, K1b, K1c, K2/K2b, K3, K4, K5,
-    the 2D K4b, K6 and the C1/C2 health-check kernels, each defined in a
-    source under csrc/."""
+    the 2D K4b, K6, the C1/C2 health-check kernels, K4's first design and
+    the empty kernel of the launch floor, each defined in a source under
+    csrc/."""
     names = set(_build._SIGNATURES)
     assert {"dat_tangent_matvec_f32", "dat_tangent_matvec_rows_f32",
             "dat_tangent_matvec_blocks_f32", "dat_tangent_matvec_sym_f32",
             "dat_q1_structured", "dat_q1_plane", "dat_q2_structured",
             "dat_q1_structured_2d", "dat_q1_stencil", "dat_health_scale",
-            "dat_health_add_one"} <= names
+            "dat_health_add_one", "dat_q1_plane_marching",
+            "dat_launch_floor"} <= names
     sources = "".join(p.read_text() for p in _build._sources())
     for name in names:
         assert f'extern "C" cudaError_t {name}(' in sources, name
@@ -349,10 +369,25 @@ def test_k4_k6_match_plain_on_card():
     tests/test_torch_package.py`. K6 (3D and 2D, with lattices of a
     2-node axis) and K4 against their plain versions and against K3 / K4b
     on the same input, bf16 and f32 I/O; f64 I/O and lattices the kernels
-    do not take raise."""
+    do not take raise. K4 launches K3's kernel with K3's tables, so at
+    every 3D level lattice of the main path it equals K3 bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     dev = torch.device("cuda")
+    E = _cell_E(1, (0.7, 0.4, 1.1))
+    for lattice in MAIN3D_Q1_LATTICES:
+        u = torch.randn(int(np.prod(lattice)), 3,
+                        generator=torch.Generator().manual_seed(3))
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            x = u.to(dev, dtype)
+            k4 = Q1PlaneOperator(E, lattice, dtype, dev)
+            before = Q1PlaneOperator.launches
+            out = k4(x)
+            torch.cuda.synchronize()
+            assert Q1PlaneOperator.launches == before + 1
+            assert torch.equal(out, Q1StructuredOperator(E, lattice, dtype,
+                                                         dev)(x)), lattice
+            assert _rel_l2(out, k4.plain(x)) <= tol
     for reps in ((3, 2), (1, 4), (3, 2, 4), (1, 1, 1), (2, 1, 3), (7, 9, 5),
                  (40, 37)):
         space, E = _q1_box(reps)
@@ -389,9 +424,10 @@ def _cell_E(p, h):
 # the main path's five Q1 level lattices, ragged small ones (2-node axes,
 # partial tiles, nx within one tile of 8, 16 or 32) and the Q2 fine lattice
 # with ragged Q2 ones (z beyond one block of 9 cells, partial y/x tiles)
-K3_LATTICES = ((19, 325, 55), (19, 163, 28), (19, 82, 15), (19, 42, 8),
-               (10, 22, 5), (2, 2, 2), (2, 5, 3), (3, 2, 9), (7, 9, 5),
-               (5, 37, 33), (11, 6, 17))
+MAIN3D_Q1_LATTICES = ((19, 325, 55), (19, 163, 28), (19, 82, 15), (19, 42, 8),
+                      (10, 22, 5))
+K3_LATTICES = MAIN3D_Q1_LATTICES + ((2, 2, 2), (2, 5, 3), (3, 2, 9),
+                                    (7, 9, 5), (5, 37, 33), (11, 6, 17))
 K5_LATTICES = ((19, 325, 55), (3, 3, 3), (5, 7, 9), (21, 11, 9), (3, 19, 13),
                (23, 5, 61))
 
@@ -518,3 +554,81 @@ def test_k6_equals_the_level_kernels_on_card():
             torch.cuda.synchronize()
             assert (type(level).launches, StencilQ1Operator.launches) == (
                 before[0] + 1, before[1] + 1)
+
+
+# bench.py's production configuration (the 3D benchmark step)
+PRODUCTION_3D = dict(
+    model="neo-Hookean", type_lin="CG", scenario="PF", dim=3, poly_degree=2,
+    delta_t=0.01, mu=0.5e6, nu=0.4, rho=1000.0, tol_lin=1e-6, tol_u=1e-6,
+    tol_f=1e-9, max_iterations_lin=1.0, dtype="float64",
+    preconditioner="MG", precond_dtype="bfloat16", solve_dtype="float32",
+    newton_forcing="ew", mg_smooth_degree=3, mg_fine_smooth_degree=1,
+    newton_predictor=True, ew_eta0=0.3, max_iterations_NR=10,
+)
+
+
+@pytest.mark.cuda
+def test_cg_graphs_equal_the_eager_chunks_on_card(monkeypatch):
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. The 3D production model at scale 2 on the
+    card (14,235 DoF: K1, and the bf16 V-cycle's K5, K3 on its Q1 level and
+    the coarse triangular pair): two steps with the CG in
+    CUDA graphs (chunks of 3) give the host loop's `NewtonInfo` and state
+    bit for bit; one more solve by graph replay equals the same chunks run
+    eagerly on the card and the host loop bit for bit; and the launch
+    counts after it are the launches each capture recorded times the
+    replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG, cg_solve
+
+    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
+
+    dev = torch.device("cuda")
+    params = AllParameters(**PRODUCTION_3D)
+    mesh, tags = make_scenario_grid("PF", 3, 2, scale=2, solver="neo-Hookean")
+    host = NonlinearElasticity(params, mesh=mesh, tags=tags, device=dev,
+                               cg_loop="host")
+    lam = [lv.lam_max for lv in host._precond.levels]
+    graphs = NonlinearElasticity(params, mesh=mesh, tags=tags, device=dev,
+                                 mg_lam_max=lam, cg_chunk=3)
+    assert graphs.cg_loop == "graphs"
+    stress = torch.zeros((host.space.n_nodes, 3), dtype=torch.float64,
+                         device=dev)
+    stress[host.space.boundary_nodes[host.interface_id], 0] = 1000.0
+    states = [host.initial_state(), graphs.initial_state()]
+    for _ in range(2):
+        (sh, ih), (sg, ig) = (m.step(st, stress)
+                              for m, st in zip((host, graphs), states))
+        assert ih.converged and ig == ih
+        assert all(torch.equal(a, b) for a, b in zip(sg, sh))
+        states = [sh, sg]
+    solve = graphs._tangent[1]
+    assert isinstance(solve, ChunkedCG) and solve._graphs is not None
+    b = graphs.mask_t * torch.randn(
+        graphs.space.n_nodes, 3, generator=torch.Generator().manual_seed(4)
+    ).to(dev)
+    x0 = torch.zeros_like(b)
+    tol = 1e-5 * float(torch.linalg.vector_norm(b))
+    counters.reset()
+    r = solve(b, x0, tol, 1000)
+    torch.cuda.synchronize()
+    assert r.converged and r.iterations > 3
+    (_, per_start), (_, per_chunk) = solve._graphs
+    assert per_start["K1 tangent_matvec"] == 1
+    assert per_chunk["K1 tangent_matvec"] == 3
+    for name in ("K3 q1_structured", "K5 q2_structured"):
+        assert per_chunk[name] == 3 * per_start[name] > 0
+    launched = {k: n for k, n in counters.launch_counts().items()
+                if n and not k.startswith("C")}
+    assert launched == {k: per_start.get(k, 0) + r.host_syncs * per_chunk[k]
+                        for k in per_chunk}
+    eager = ChunkedCG(solve.operator, solve.M, solve.chunk)
+    monkeypatch.setattr(eager, "_capture", lambda: None)
+    e = eager(b, x0, tol, 1000)
+    h = cg_solve(solve.operator, b, x0, tol, 1000, solve.M)
+    for other in (e, h):
+        assert torch.equal(other.x, r.x)
+        assert (other.iterations, other.residual_norm) == (
+            r.iterations, r.residual_norm)
+    assert eager._graphs is None

@@ -2,7 +2,11 @@
 package: CG iteration counts on an f64 SPD structured problem, the
 power-iteration lam_max from the same start vector, one V-cycle of the
 f64 multigrid hierarchy (rtol 1e-10) and of the bf16 one (relative L2
-3e-2), and the bf16 rounding rules of the hierarchy."""
+3e-2), and the bf16 rounding rules of the hierarchy; and the chunked CG
+(`ChunkedCG`, run eagerly on the CPU) against the host loop, bit for
+bit."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +94,89 @@ def test_cg_iterations_match_jax(precond):
     assert tr.iterations == int(jr.iterations)
     np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-8,
                                atol=1e-8 * np.abs(np.asarray(jr.x)).max())
+    # the chunked loop takes the JAX loop's count too (and the host loop's
+    # bits: test_chunked_cg_equals_the_host_loop)
+    cr = tcg.ChunkedCG(P["top"], tM, chunk=4)(
+        torch.as_tensor(b), torch.zeros(b.shape, dtype=torch.float64), tol,
+        5000)
+    assert cr.iterations == int(jr.iterations) and cr.converged
+    assert torch.equal(cr.x, tr.x)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_problem(precond):
+    """An f32 system of the 3D PF flap at scale 1 (the masked K + alpha_1 M
+    in f32) with a preconditioner: none, Jacobi, or the models' bf16
+    V-cycle (K5's and K3's plain versions on the CPU)."""
+    P = _problem(3, 2)
+    top = make_structured_operator(P["ts"], P["E"], torch.float32, "cpu")
+    mk = P["tmask"].float()
+
+    def op(v):
+        return mk * top(mk * v) + (1.0 - mk) * v
+
+    diag = P["tdiag"].float()
+    if precond == "none":
+        M = None
+    elif precond == "jacobi":
+        M = tcg.jacobi_preconditioner(diag)
+    else:
+        proxy = make_q2_operator(P["ts"], P["E"], torch.bfloat16, "cpu")
+        bk = mk.to(torch.bfloat16)
+        M = GeometricMultigrid(
+            P["tm"], P["ttags"], lambda v: bk * proxy(bk * v) + (1.0 - bk) * v,
+            diag.to(torch.bfloat16), bk, lmbda=LAM, mu=MU,
+            mass_coeff=A1 * RHO, smooth_degree=3, smooth_degree_fine=1,
+            coarse_size=300, dtype=torch.bfloat16, device="cpu",
+        )
+    b = torch.from_numpy(
+        (np.random.default_rng(5).standard_normal((P["ts"].n_nodes, 3))
+         * np.asarray(P["tmask"])).astype(np.float32))
+    return op, M, b
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("case", ["converges", "cap", "b_zero", "exact_start"])
+@pytest.mark.parametrize("precond", ["none", "jacobi", "vcycle_bf16"])
+def test_chunked_cg_equals_the_host_loop(precond, case, chunk):
+    """`ChunkedCG` run eagerly on the CPU against the host-loop `cg_solve`:
+    the iterate, iteration count, residual and convergence flag bit for
+    bit, for solves that end inside a chunk, at the `max_iter` cap, with
+    b = 0 and from the exact solution (r = p = 0, where the masked
+    iterations compute 0/0: the state must stay finite)."""
+    op, M, b = _chunk_problem(precond)
+    x0 = torch.zeros_like(b)
+    tol, max_iter = 1e-4 * float(torch.linalg.vector_norm(b)), 500
+    if case == "cap":
+        max_iter = 5
+    elif case == "b_zero":
+        b = torch.zeros_like(b)
+    elif case == "exact_start":
+        # any x0 is the exact solution of b = op(x0), bit for bit
+        x0 = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            tuple(b.shape)).astype(np.float32))
+        b = op(x0)
+    host = tcg.cg_solve(op, b, x0, tol, max_iter, M)
+    solve = tcg.ChunkedCG(op, M, chunk)
+    for _ in range(2):  # a second solve reuses the buffers
+        r = solve(b, x0, tol, max_iter)
+        assert torch.equal(_bits(r.x), _bits(host.x))
+        assert (r.iterations, r.residual_norm, r.converged) == (
+            host.iterations, host.residual_norm, host.converged)
+        assert r.host_syncs == max(1, -(-host.iterations // chunk))
+    assert bool(torch.isfinite(r.x).all())
+    if case == "converges":
+        assert host.converged and host.iterations > chunk
+    elif case == "cap":
+        assert not host.converged and host.iterations == max_iter
+    else:
+        assert host.iterations == 0 and host.converged
+    with pytest.raises(ValueError, match="buffers"):
+        solve(b[:-1], x0[:-1], tol, max_iter)
 
 
 def test_lambda_max_from_jax_start_vector():

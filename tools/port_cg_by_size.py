@@ -58,16 +58,17 @@ def main():
 
     t0 = time.perf_counter()
     if args.model == "linear":
-        model = cs.build_linear_model(dev, scale=scale, **over)
+        model = cs.build_linear_model(dev, scale=scale, cg_loop="host",
+                                      **over)
         inner = cg.cg_solve
 
-        def traced(*a, **kw):
-            r = inner(*a, **kw)
-            print(f"   inner CG {r.iterations} tol {kw['tol']:.3e} "
+        def traced(op, b, x0, tol, max_iter, preconditioner=None):
+            r = inner(op, b, x0, tol, max_iter, preconditioner)
+            print(f"   inner CG {r.iterations} tol {tol:.3e} "
                   f"residual {r.residual_norm:.3e}", flush=True)
             return r
 
-        cg.cg_solve = traced  # ir_cg_solve's inner solves
+        cg.cg_solve = traced  # ir_cg_solve's inner solves (the host loop)
     else:
         model = cs.build_model(dev, dim=args.dim, scale=scale, **over)
     where = (dev.type if dev.type == "cuda"

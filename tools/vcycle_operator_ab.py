@@ -153,7 +153,7 @@ def main():
                   f"CG residuals {history}", flush=True)
         return r
 
-    nl.cg_solve = counted
+    cg.cg_solve = counted  # the models run the host loop (cg_loop="host")
     mesh_tags = make_scenario_grid("PF", 3, 2, scale=args.scale,
                                    solver="neo-Hookean")
     lam = {}
@@ -162,7 +162,7 @@ def main():
         nl.make_q2_operator, mg.make_q1_operator = factories[ops]
         t0 = time.perf_counter()
         model = cs.build_model(dev, scale=args.scale, mesh_tags=mesh_tags,
-                               mg_lam_max=lam.get(lam_from))
+                               mg_lam_max=lam.get(lam_from), cg_loop="host")
         levels = model._precond.levels
         lam.setdefault(name, [lv.lam_max for lv in levels])
         again = [cg.estimate_lambda_max(lv.operator, lv.diag,
@@ -180,7 +180,7 @@ def main():
             from_cpu(model, args.from_cpu, torch.device("cpu"),
                      cs.build_model(torch.device("cpu"), scale=args.scale,
                                     mesh_tags=mesh_tags,
-                                    mg_lam_max=lam[name]))
+                                    mg_lam_max=lam[name], cg_loop="host"))
         stress = cs.interface_traction(model)
         state = model.initial_state()
         for i in range(args.steps):
@@ -257,11 +257,13 @@ def from_cpu(model, piece, cpu, host):
     dev = model.device
 
     def fns():
-        def assemble(u_t):
+        def assemble(u_t, out=None):
             if piece == "matvec":
-                return assemble_d(u_t).to(cpu)
-            Kt = assemble_h(u_t.to(cpu))
-            return Kt.to(dev) if piece == "assembly" else Kt
+                Kt = assemble_d(u_t).to(cpu)
+            else:
+                Kt = assemble_h(u_t.to(cpu))
+                Kt = Kt.to(dev) if piece == "assembly" else Kt
+            return Kt if out is None else out.copy_(Kt)
 
         def make(Kt):
             if piece == "assembly":
