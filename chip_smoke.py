@@ -87,6 +87,28 @@ script exits non-zero without printing a result):
    within rtol 1e-4 of the JAX package's value; prints per-step times, CG
    and Newton counts, peak device memory and the checksum's difference
    from phase 4's (the K1 path).
+   Then the jvp paths (`JVP_PATHS`), each phase 4's configuration on its
+   mesh and lam_max values, 1 warmup and 3 timed steps, every step
+   converged; first a check that forward-mode AD drops a detached
+   operand's tangent on the card (the f64 jvp tangent's external force):
+   - f64jvp3d — `solve_dtype=""` and `use_sumfact=True`: the CG in f64
+     on the f64 jvp tangent (the derivative of the whole residual, sum
+     factorized), bf16 V-cycle; ||u||^2 within rtol 1e-4 of the JAX
+     package's value; K3 and K5 launched, K1 not;
+   - jvp3d — `assembled_tangent_max_gb=0.5` (the f32 tangents need 1.03
+     GB), so `auto` falls back to the f32 jvp tangent; no assembled
+     tangent and K1 not launched, Newton counts equal to phase 4's in
+     every step, ||u||^2 within rtol 1e-6 (`JVP_RTOL`) of phase 4's;
+   - reuse_fine3d — `newton_tangent_reuse` and `mg_fine_tangent`: Newton
+     counts at most phase 4's + 2 a step, ||u||^2 within rtol 1e-4 of the
+     JAX package's value, fewer tangent assemblies than Newton iterations
+     over the timed steps, K1 (CG and fine level) and K3 launched, K5
+     not.
+   Each prints CG and Newton counts per step against phase 4's, tangent
+   assemblies and host syncs per step; f64jvp3d and jvp3d also the device
+   time of one application of their CG operator (one per CG iteration;
+   torch.profiler's and a CUDA graph's) and, at the same iterate, that of
+   the f32 assembled tangent's matvec (K1) and of its assembly.
 8. vcycle_bf16 — the 2D linear model of phase 5 and the 2D Neo-Hookean
    model of phase 6 at scale 24 (250,850 DoF) with the bf16 multigrid
    hierarchy, step 0 with each CG capped at `VCYCLE_BF16_CAP`: each CG
@@ -115,13 +137,20 @@ script exits non-zero without printing a result):
    with f32 CG), 2 windows: exit code 0, a banner naming the card, both
    VTU files written; its closing `kernel launches` line gives the path's
    counts.
+12. cli_nl — `python -m dealii_adapter_tpu_torch` in a subprocess on the
+   reference's own Neo-Hookean configuration (`NL_DEFAULT_PRM`: FSI3, Q4,
+   1,898 DoF, f64 CG with Jacobi on the f64 jvp tangent), 3 steps under
+   `--traction 2000 0`: exit code 0 (every window converged), a VTU file
+   of each step, and the final ||u||^2 the CLI prints within rtol 1e-7
+   of the JAX package's on the CPU (`NL_DEFAULT_REF`); it launches C1/C2
+   and no other kernel.
 
 Every path but `main3d host` runs its CG in CUDA graphs; a graph replay
 adds the launches its capture recorded to the counts (`kernels/
 counters.py`), so the counts are device launches, the masked iterations
 of each solve's last chunk included.
-In phases 4-11 the kernel launch counts are set to 0 after the model is
-built (for `cli`: in its own process) and read after its steps; every
+In phases 4-12 the kernel launch counts are set to 0 after the model is
+built (for `cli` and `cli_nl`: in its own process) and read after its steps; every
 kernel of the path (C1/C2, whose check runs again as the library is
 bound anew at the path's start, and K1, K1b, K1c, K2, K2b, K3, K4b, K5, K6
 as the path uses them) must have launched. K4 (the 3D Q1 operator of
@@ -245,9 +274,40 @@ PATH_KERNELS = {
     "coupled3d": _STENCIL3D,
     "cli": _HEALTH + ("K4b q1_structured_2d",),
 }
-# kernels a path must NOT launch: the stencil paths replace K3 with K6
+# the jvp paths: main3d with an f64 inner solve (the f64 jvp tangent) and
+# sum factorization; with the tangents capped below their 1.03 GB, so that
+# `auto` falls back to the f32 jvp; with Newton tangent reuse and the
+# tangent as the V-cycle's fine operator
+JVP_PATHS = {
+    "f64jvp3d": dict(solve_dtype="", use_sumfact=True),
+    "jvp3d": dict(assembled_tangent_max_gb=0.5),
+    "reuse_fine3d": dict(newton_tangent_reuse=True, mg_fine_tangent=True),
+}
+# jvp3d against main3d's own checksum in the same run: the bound of the
+# JAX package's tests/test_assembled_tangent.py::
+# test_model_step_equivalent_backends (the same linearization)
+JVP_RTOL = 1e-6
+PATH_KERNELS.update({
+    "f64jvp3d": _HEALTH + _MG3D,
+    "jvp3d": _HEALTH + _MG3D,
+    "reuse_fine3d": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
+    "cli_nl": _HEALTH,
+})
+# kernels a path must NOT launch: the stencil paths replace K3 with K6, the
+# jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
+# (K1) on the fine level in place of the proxy (K5), and cli_nl's Jacobi
+# CG on the jvp tangent launches no kernel but C1/C2
 PATH_EXCLUDES = {"stencil3d": ("K3 q1_structured",),
-                 "coupled3d": ("K3 q1_structured",)}
+                 "coupled3d": ("K3 q1_structured",),
+                 "f64jvp3d": ("K1 tangent_matvec",),
+                 "jvp3d": ("K1 tangent_matvec",),
+                 "reuse_fine3d": ("K5 q2_structured",),
+                 "cli_nl": ("K1 tangent_matvec", "K3 q1_structured",
+                            "K5 q2_structured", "K4b q1_structured_2d")}
+# ||u||^2 after cli_nl's 3 steps, the JAX package on the CPU:
+#   JAX_PLATFORMS=cpu python tools/jax_reference_nl_default.py
+NL_DEFAULT_REF = 0.10160554980143784
+NL_DEFAULT_RTOL = 1e-7
 # the coupled3d phase: window, end time, implicit iterations per window
 COUPLED_WINDOW, COUPLED_END, COUPLED_ITERATIONS = 0.01, 0.04, 2
 COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
@@ -285,6 +345,23 @@ subsection TPU
 end
 """
 CLI_REFINE = 4
+# the cli_nl phase: the reference's own Neo-Hookean configuration
+# (examples/nonlinear_elasticity.prm: FSI3, Q4, f64 Jacobi CG on the jvp
+# tangent) for 3 steps under a constant traction
+NL_DEFAULT_PRM = "examples/nonlinear_elasticity.prm"
+NL_DEFAULT_END = 0.03
+NL_DEFAULT_TRACTION = ("2000", "0")
+
+
+def nl_default_prm(text, out):
+    """The text of `NL_DEFAULT_PRM` with End time `NL_DEFAULT_END` and a
+    VTU file of every step written into `out`."""
+    import re
+
+    for key, value in (("End time", NL_DEFAULT_END), ("Output interval", 1),
+                       ("Output folder", out)):
+        text = re.sub(rf"(set {key}\s*=).*", rf"\g<1> {value}", text)
+    return text
 
 
 def log(msg):
@@ -1473,6 +1550,171 @@ def phase_coupled3d(model, stencil_checksum):
     return launches
 
 
+def tangent_operator_ms(tag, model, state):
+    """Device ms of one application of `model`'s CG operator (one per CG
+    iteration) at the iterate `state` leaves it: torch.profiler's and a
+    CUDA graph's. For the f32 jvp model, also the f32 assembled tangent's
+    matvec (K1) and its assembly at the same iterate."""
+    import torch
+
+    dev = model.device
+    g = torch.Generator().manual_seed(8)
+    K = model._tangent[1].operator
+    v = model.mask_t * torch.randn(model.space.n_nodes, model.space.dim,
+                                   generator=g).to(dev, model.solve_dtype)
+    out = dict(operator_ms=device_ms(lambda: K(v), reps=5, warmup_s=0.1),
+               operator_graph_ms=graph_ms(lambda: K(v), reps=5, replays=3))
+    jvp32 = not model._use_assembled and model._mixed_tangent
+    if jvp32:
+        assemble_Kt, make_tangent_matvec = model._make_tangent_fns()
+        u32 = state.displacement.to(torch.float32)
+        Kt = assemble_Kt(u32)
+        K1 = make_tangent_matvec(Kt)
+        v32 = v.to(torch.float32)
+        out.update(
+            assembly_ms=device_ms(lambda: assemble_Kt(u32, out=Kt), reps=3),
+            k1_operator_ms=device_ms(lambda: K1(v32), reps=5),
+        )
+        del Kt, K1
+        torch.cuda.empty_cache()
+    kind = ("assembled " + model.tangent_kernel if model._use_assembled
+            else "jvp")
+    log(f"{tag}: CG operator ({kind}, "
+        f"{str(model.solve_dtype).replace('torch.', '')}) device time per "
+        f"application (= per CG iteration) {out['operator_ms']!r} ms "
+        f"(profiler), {out['operator_graph_ms']!r} ms (CUDA graph of 5)"
+        + ("" if not jvp32 else
+           f"; at the same iterate the f32 assembled tangent's matvec "
+           f"(extract -> K1 -> overlap-add, masked) {out['k1_operator_ms']!r} "
+           f"ms and its assembly {out['assembly_ms']!r} ms once per Newton "
+           f"iteration"))
+
+
+def phase_jvp(main):
+    """The jvp paths (`JVP_PATHS`) on the main path's mesh and lam_max
+    values, 1 warmup and 3 timed steps each, with their checks; returns
+    {path: launches}."""
+    import torch
+
+    from dealii_adapter_tpu_torch.models.nonlinear_elasticity import forward_jvp
+    from dealii_adapter_tpu_torch.ops.assembled_tangent import tangent_bytes
+
+    dev = torch.device("cuda")
+    x = torch.randn(4096, dtype=torch.float64, device=dev)
+    t = torch.randn_like(x)
+    # the f64 jvp tangent drops the external force's derivative by
+    # detaching its F: pin that forward-mode AD drops a detached tangent
+    # on this card's torch
+    got = forward_jvp(lambda y: 3.0 * y.detach() + y * y, x, t)
+    require(torch.equal(got, 2.0 * x * t),
+            "forward_jvp drops the tangent of a detached operand")
+    by_path = {}
+    for path, overrides in JVP_PATHS.items():
+        t0 = time.perf_counter()
+        model = build_model(dev, mesh_tags=main["mesh_tags"],
+                            mg_lam_max=main["lam_max"], **overrides)
+        torch.cuda.synchronize()
+        describe(path, model, time.perf_counter() - t0)
+        log(f"{path}: tangent "
+            f"{'assembled ' + model.tangent_kernel if model._use_assembled else 'jvp'}"
+            f", CG in {str(model.solve_dtype).replace('torch.', '')}, sum "
+            f"factorization {model._sumfact is not None}, tangent on the "
+            f"fine level {model._mg_fine_tangent}; the f32 tangents would "
+            f"need {tangent_bytes(model.space, torch.float32) / 1e9:.3f} GB "
+            f"(cap {model.params.assembled_tangent_max_gb} GB)")
+        torch.cuda.reset_peak_memory_stats()
+        stress = interface_traction(model)
+        start_counts()
+        state, infos, steps, checksum = run_steps(path, model, stress,
+                                                  newton_fmt)
+        by_path[path] = read_counts(path)
+        cg = [i.cg_iterations for i in infos]
+        newton = [i.iterations for i in infos]
+        rel_main = abs(checksum - main["checksum"]) / main["checksum"]
+        log(f"{path}: launches {by_path[path]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"{path}: CG per step {cg}, Newton {newton}, tangent assemblies "
+            f"{[i.tangent_assemblies for i in infos]}, host syncs "
+            f"{steps['syncs']}; main3d: CG {main['cg']}, Newton "
+            f"{main['newton']}; checksum rel. difference to main3d's "
+            f"{rel_main:.3e}")
+        require(all(i.converged for i in infos), f"{path}: every step converged")
+        if path == "jvp3d":
+            require(not model._use_assembled,
+                    "jvp3d: auto falls back to the jvp tangent")
+            require(newton == main["newton"],
+                    "jvp3d: Newton counts equal main3d's in every step")
+            log(f"jvp3d: checksum {checksum!r} against main3d's "
+                f"{main['checksum']!r} (limit {JVP_RTOL})")
+            require(rel_main <= JVP_RTOL, "jvp3d: checksum against main3d's")
+        else:
+            check_checksum(path, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
+        if path == "f64jvp3d":
+            require(model.solve_dtype == torch.float64
+                    and not model._use_assembled and model._sumfact is not None,
+                    "f64jvp3d: the f64 jvp tangent with sum factorization")
+        if path == "reuse_fine3d":
+            require(all(n <= m + 2 for n, m in zip(newton, main["newton"])),
+                    "reuse_fine3d: Newton counts at most main3d's + 2 a step")
+            asm = sum(i.tangent_assemblies for i in infos[1:])
+            log(f"reuse_fine3d: tangent assemblies in the timed steps {asm} "
+                f"against {sum(newton[1:])} Newton iterations")
+            require(asm < sum(newton[1:]),
+                    "reuse_fine3d: fewer assemblies than Newton iterations")
+        else:
+            tangent_operator_ms(path, model, state)
+        del model, state
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_cli_nl():
+    """`python -m dealii_adapter_tpu_torch` on the reference's own
+    Neo-Hookean configuration (`NL_DEFAULT_PRM` cut to 3 steps by
+    `nl_default_prm`) in a subprocess: every window converged (else the
+    CLI exits non-zero), a VTU file of each, and the final ||u||^2 against
+    the JAX package's; returns the launch counts it prints."""
+    import ast
+    import os
+    import pathlib
+    import sys
+    import tempfile
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        prm = os.path.join(tmp, "nonlinear_elasticity.prm")
+        pathlib.Path(prm).write_text(
+            nl_default_prm((root / NL_DEFAULT_PRM).read_text(), out))
+        env = dict(os.environ, PYTHONPATH=str(root))
+        ts = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "dealii_adapter_tpu_torch", prm,
+             "--standalone", "--traction", *NL_DEFAULT_TRACTION],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - ts
+        for line in r.stdout.splitlines():
+            log(f"cli_nl| {line}")
+        require(r.returncode == 0,
+                f"cli_nl: exit code {r.returncode}: {r.stderr[-2000:]}")
+        files = sorted(os.listdir(out))
+        log(f"cli_nl: exit code 0 in {wall:.1f} s (process start included), "
+            f"VTU files {files}")
+    n_steps = round(NL_DEFAULT_END / 0.01)
+    require(files == [f"solution-2d-{i}.vtu" for i in range(1, n_steps + 1)],
+            f"cli_nl: files {files}")
+    lines = r.stdout.splitlines()
+    checksum = float(next(x for x in lines if x.startswith("final ||u||^2: "))
+                     .split(": ")[1])
+    rel = abs(checksum - NL_DEFAULT_REF) / NL_DEFAULT_REF
+    log(f"cli_nl: final ||u||^2 {checksum!r}, rel. difference to the JAX "
+        f"package's {NL_DEFAULT_REF!r}: {rel:.3e} (limit {NL_DEFAULT_RTOL})")
+    require(rel <= NL_DEFAULT_RTOL, "cli_nl: final ||u||^2 against the JAX package's")
+    line = next(x for x in lines if x.startswith("kernel launches: "))
+    return read_counts("cli_nl", ast.literal_eval(line[len("kernel launches: "):]))
+
+
 def phase_cli():
     """`python -m dealii_adapter_tpu_torch` on `CLI_PRM` in a subprocess;
     returns the launch counts it prints."""
@@ -1671,6 +1913,7 @@ def main():
     paths, main_run = timed("main", phase_main, args.profile)
     by_path.update(paths)
     by_path.update(timed("tangent3d", phase_tangent3d, main_run))
+    by_path.update(timed("jvp", phase_jvp, main_run))
     by_path["stencil3d"], model, checksum = timed(
         "stencil3d", phase_stencil3d, main_run)
     del main_run
@@ -1681,6 +1924,7 @@ def main():
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"] = timed("cli", phase_cli)
+    by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
     log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}; "
         f"device times taken from CUDA-graph replays instead: "

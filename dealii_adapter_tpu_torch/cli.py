@@ -14,8 +14,9 @@ on `Model` (linear | neo-Hookean), builds the model on the CUDA card (or on
 The options and the output are the JAX CLI's, with `--device` added (the
 port's counterpart of `JAX_PLATFORMS=cpu`: without a card and without
 `--device cpu` the run raises, as the models do), a banner that names the
-device, `--profile` through `torch.profiler`, and the kernel launch counts
-of the model build and, in the closing lines, of the coupled run alone.
+device, `--profile` through `torch.profiler`, the kernel launch counts of
+the model build and, in the closing lines, the final ||u||^2 and the
+kernel launch counts of the coupled run alone.
 A configuration whose code path is not ported raises the model's
 NotImplementedError, which names its ROADMAP item.
 
@@ -199,9 +200,11 @@ def main(argv=None) -> int:
                           extra_point_data=extra)
                 n_out[0] += 1
 
+    final = []
+
     def run():
         with timer.section("Coupled run"):
-            coupled_run(model, adapter, output_cb=output_cb)
+            final.append(coupled_run(model, adapter, output_cb=output_cb))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
 
@@ -237,6 +240,8 @@ def main(argv=None) -> int:
     print(f"done: {n_steps} steps, {model.space.n_dofs} DoF, "
           f"{elapsed:.2f}s wall ({elapsed / max(n_steps,1):.4f} s/step), "
           f"{n_out[0]} VTU files in '{out_dir}'")
+    u = final[0].displacement.reshape(-1)
+    print(f"final ||u||^2: {torch.dot(u, u).item()!r}")
     print(f"kernel launches: {_launched()}")
     timer.print_summary()
     return 0

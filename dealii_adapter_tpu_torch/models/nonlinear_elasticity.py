@@ -7,41 +7,63 @@ step Newton solves
     R(delta) = F_ext(u) + F_body - F_int(u) - M a(delta) = 0,   u = u_n + delta
 
 with the Newmark acceleration a = alpha_1 delta - alpha_2 v_n - alpha_3 a_n
-and the dual relative/absolute convergence rule of the reference. Each
-Newton iteration assembles the per-cell tangents in the solve dtype (f32
-on the production path), lays them out for the selected matvec kernel,
-and runs a CG whose matvec is extract -> tangent kernel -> overlap-add,
-preconditioned by the geometric-multigrid V-cycle (kernels K5 and K3 in
-3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
-`mg_level_backend`) or Jacobi/Chebyshev. The tangent kernel follows
-`tangent_block_symmetric` and `tangent_matvec_kernel` as the JAX package
-picks its Pallas kernel (`tangent_kernel_id`): full storage runs K1 (the
-column-major pack; `auto`, `packedt`, `xla`), K1b (`packed`) or K1c
-(`blocks`); block-symmetric storage, the upper component blocks only,
-runs K2 (`auto`, `packed`, `packedt` with a warning, `xla`) or K2b
-(`blocks`). `xla` names a library-form matvec that the port does not
-have, so it takes the `auto` kernel.
+and the dual relative/absolute convergence rule of the reference. The
+Newton tangent is chosen as the JAX package chooses it:
+
+* assembled, for a mixed CG solve (solve_dtype narrower than dtype) whose
+  per-cell tangents fit `assembled_tangent_max_gb` and whose
+  `tangent_backend` is `auto` or `assembled`: each Newton iteration
+  assembles the per-cell tangents in the solve dtype (f32), lays them out
+  for the selected matvec kernel, and the CG's matvec is extract ->
+  tangent kernel -> overlap-add. The kernel follows
+  `tangent_block_symmetric` and `tangent_matvec_kernel` as the JAX
+  package picks its Pallas kernel (`tangent_kernel_id`): full storage
+  runs K1 (the column-major pack; `auto`, `packedt`, `xla`), K1b
+  (`packed`) or K1c (`blocks`); block-symmetric storage, the upper
+  component blocks only, runs K2 (`auto`, `packed`, `packedt` with a
+  warning, `xla`) or K2b (`blocks`). `xla` names a library-form matvec
+  that the port does not have, so it takes the `auto` kernel.
+  `newton_tangent_reuse` freezes it after `tangent_reuse_after`
+  iterations (refreshed when stale); `mg_fine_tangent` smooths it on the
+  V-cycle's fine level in place of the small-strain proxy;
+* jvp otherwise (`_make_jvp_tangent`): the forward-mode derivative
+  (`forward_jvp`) of the f32 internal force for a mixed solve
+  (`tangent_backend="jvp"`, or tangents above the cap), of the whole f64
+  residual for an f64 inner solve (the reference's default
+  configuration);
+* the dense masked tangent for `type_lin="Direct"`.
+
+The CG is preconditioned by the geometric-multigrid V-cycle (kernels K5
+and K3 in 3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
+`mg_level_backend`), Jacobi, Chebyshev or nothing. In 3D `use_sumfact`
+computes the f64 internal force and mass by sum factorization
+(`ops/sumfact.py`).
 
 The CG runs as `cg_loop` says: "graphs" (the default) runs
 `solvers/cg.py:ChunkedCG`, fixed-length chunks of guarded CG iterations
-captured once per model in CUDA graphs on the card (tangent kernel, the
+captured once per model in CUDA graphs on the card (tangent operator, the
 whole V-cycle, dots; run eagerly on the CPU) with one read-back per
 chunk; "host" the host-loop `cg_solve`, one read-back per iteration.
-Both give the same bits. The assembly writes the tangent into one
-persistent buffer per model (the layouts' `out=`), so the captured matvec
-reads each Newton iteration's tangent at the same address.
+Both give the same bits. The tangent's state lives in persistent buffers
+per model: the assembly writes into one (the layouts' `out=`), the jvp
+tangent's linearization point is copied into others, so the captured
+operator reads each Newton iteration's tangent at the same address.
 
 Differences from the JAX package, all in the host orchestration:
 * Newton is a host loop (`lax.while_loop` in JAX): every Newton
   decision reads its scalars back from the device, one sync each, counted
-  in `host_syncs` with the CG's read-backs;
+  in `host_syncs` with the CG's read-backs; the tangent-reuse decision
+  reads nothing more;
 * a NaN f32 residual never becomes the noise floor: a non-finite
   calibration leaves the floor uncalibrated (f64 continues), and the
   stall-redo re-calibration keeps the last finite floor (the JAX package
   lets the floor become NaN);
-* the f64 inner solve (solve_dtype == dtype) and the Direct solver use the
-  assembled tangent too (JAX linearizes the residual with jvp); both are
-  the same linearization up to roundoff.
+* the Direct solver assembles the dense tangent from the per-cell
+  tangents (JAX stacks jvp columns): the same linearization up to
+  roundoff;
+* under `newton_tangent_reuse` with `tangent_reuse_after` < 1, the
+  model's first Newton iteration assembles (the JAX package applies a
+  zero tangent there).
 
 Unported variants raise NotImplementedError naming their ROADMAP item.
 """
@@ -51,10 +73,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+import weakref
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..config import AllParameters
 from ..device import resolve_device
@@ -82,6 +106,11 @@ from ..ops.structured import (
     extract_cell_patches_T,
     make_structured_operator,
     overlap_add_T,
+)
+from ..ops.sumfact import (
+    internal_force_cellwise_sumfact,
+    make_sumfact_basis,
+    make_sumfact_mass_operator,
 )
 from ..solvers.cg import (
     CG_CHUNK,
@@ -115,6 +144,20 @@ def internal_force_cellwise_T(ut, G, w, material):
         [sum(GwT[k] @ P[d][k] for k in range(dim)) for d in range(dim)], dim=0
     )
     return rt, J.min()
+
+
+def forward_jvp(fn, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The derivative of `fn` at `x` in the direction `t` by forward-mode
+    AD: one evaluation of `fn` on dual numbers (`torch.autograd.
+    forward_ad`, which `torch.func.jvp` wraps: the same operations with
+    less host time a call, which the eager CPU tests feel). A
+    `.detach()` inside `fn` drops its operand's tangent, as JAX's
+    `stop_gradient` does. Launches on the current stream and reads nothing
+    back, so a CUDA graph can capture it."""
+    with fwAD.dual_level():
+        out = fn(fwAD.make_dual(x, t))
+        tangent = fwAD.unpack_dual(out).tangent
+    return torch.zeros_like(out) if tangent is None else tangent
 
 
 class NonlinearState(NamedTuple):
@@ -251,7 +294,15 @@ class NonlinearElasticity:
         self.G = self._tensor(tab.dN / h[None, None, :])  # (q, npc, dim)
         self.w = self._tensor(tab.q_weights * detJ)  # (q,)
         elem = ElementMatrices(space, 0.0, 0.0, params.rho)
-        self.M = make_structured_operator(space, elem.M_e, dt, self.device)
+        # sum-factorized f64 internal force and mass (3D, `use_sumfact`):
+        # per-axis 1D stages in place of the dense (q, npc) tabulation
+        # products, as in the JAX package
+        self._sumfact = None
+        if dim == 3 and params.use_sumfact:
+            self._sumfact = make_sumfact_basis(tab, h, dt, self.device)
+            self.M = make_sumfact_mass_operator(space, params.rho, dt, self.device)
+        else:
+            self.M = make_structured_operator(space, elem.M_e, dt, self.device)
 
         bf = body_force_vector(space, elem, params.rho, params.body_force)
         self.body_force_enabled = bool(np.linalg.norm(params.body_force) > 1e-15)
@@ -298,28 +349,32 @@ class NonlinearElasticity:
         self.mask_t = self.mask.to(tdt)
         self.M_t = (make_structured_operator(space, elem.M_e, tdt, self.device)
                     if self._mixed_tangent else None)
-        if self.device.type == "cuda" and tdt != torch.float32:
-            raise NotImplementedError(
-                "an f64 inner solve (solve_dtype == dtype, the reference's "
-                "default) runs the jvp tangent in the JAX package, which is "
-                "not ported (ROADMAP Queue 1 item 12); the tangent matvec "
-                "kernels (K1, K1b, K1c, K2, K2b) are f32: set "
-                "solve_dtype='float32' on CUDA"
-            )
 
-        # assembled per-cell tangent in the solve dtype, in the layout of
-        # the selected matvec kernel
-        self._use_assembled = params.type_lin == "CG"
+        # the Newton tangent, as the JAX package selects it: the assembled
+        # per-cell tangent in the solve dtype, in the layout of the selected
+        # matvec kernel, for a mixed CG solve whose tangents fit
+        # `assembled_tangent_max_gb`; else the jvp tangent (f32 for a mixed
+        # solve, the whole f64 residual's otherwise)
         self.tangent_kernel = tangent_kernel_id(params)
-        if self._use_assembled:
+        self._use_assembled = False
+        if (params.tangent_backend in ("auto", "assembled")
+                and params.type_lin == "CG" and self._mixed_tangent):
             kb = tangent_bytes(space, tdt, sym=params.tangent_block_symmetric)
-            if kb > params.assembled_tangent_max_gb * 1e9:
-                raise NotImplementedError(
-                    f"the per-cell tangents need {kb / 1e9:.1f} GB (> "
-                    f"assembled_tangent_max_gb={params.assembled_tangent_max_gb});"
-                    " the jvp tangent that JAX falls back to is not ported "
-                    "(ROADMAP Queue 1 item 12)"
+            fits = kb <= params.assembled_tangent_max_gb * 1e9
+            if not fits and params.tangent_backend == "assembled":
+                raise ValueError(
+                    f"tangent_backend='assembled' needs {kb / 1e9:.1f} GB for "
+                    f"the per-cell tangents (> assembled_tangent_max_gb="
+                    f"{params.assembled_tangent_max_gb}); use 'jvp' or raise "
+                    "the cap"
                 )
+            self._use_assembled = fits
+        elif params.tangent_backend == "assembled":
+            raise ValueError(
+                "tangent_backend='assembled' requires type_lin='CG', "
+                "solve_dtype narrower than dtype (the mixed-precision inner "
+                "solve) and the structured element backend"
+            )
         npc = tab.n_nodes
         a1 = 0.0 if self.quasi_static else self.alpha_1
         self._m_scalar = np.asarray(elem.M_e).reshape(npc, dim, npc, dim)[:, 0, :, 0]
@@ -378,6 +433,12 @@ class NonlinearElasticity:
         else:
             self._precond = jacobi_preconditioner(diag.to(sdt))
         self._max_cg_iter = int(space.n_dofs * params.max_iterations_lin)
+        # smooth the assembled tangent on the V-cycle's fine level in place
+        # of the small-strain proxy (`_solve`, `with_fine_operator`)
+        self._mg_fine_tangent = bool(
+            params.mg_fine_tangent and params.preconditioner == "MG"
+            and not params.mg_skip_fine_smoothing and self._use_assembled
+        )
 
     # ------------------------------------------------------------------
     # tangent (assembled; kernels K1, K1b, K1c, K2, K2b)
@@ -465,6 +526,61 @@ class NonlinearElasticity:
         return m[:, None] * A * m[None, :] + torch.diag(1.0 - m)
 
     # ------------------------------------------------------------------
+    # tangent (jvp)
+    # ------------------------------------------------------------------
+
+    def _make_jvp_tangent(self, delta, state, stress):
+        """`(refill, K)`: the jvp tangent operator K at a linearization
+        point held in persistent buffers, which `refill(delta, state,
+        stress)` overwrites (`copy_`), so a CG captured once over K stays
+        valid across Newton iterations. Mixed solve (the JAX package's
+        jvp branch of `do_solve`): K32(v) = mask_t * (J_int(mask_t v) +
+        a1 M_t(mask_t v)) + (1 - mask_t) v, J_int the derivative of the
+        solve-dtype internal force at u_t. Otherwise (its
+        `jax.linearize(rhs_fn, delta)`): K(v) = mask * (-J_rhs(mask v)) +
+        (1 - mask) v, J_rhs the derivative of `residual` with respect to
+        delta, whose detached pull-back F drops the external force's.
+        `forward_jvp` recomputes the primal in every application. K holds
+        the model through a weak proxy: it lives in the model's CG graphs,
+        and a strong reference would make a cycle."""
+        model = weakref.proxy(self)
+        if self._mixed_tangent:
+            u_t = (state.displacement + delta).to(self.solve_dtype)
+            mask_t = self.mask_t
+            a1 = 0.0 if self.quasi_static else self.alpha_1
+
+            def force(u):
+                return model._int_force_t_J(u)[0]
+
+            def K(v):
+                mv = mask_t * v
+                Kv = forward_jvp(force, u_t, mv)
+                if a1 != 0.0:
+                    Kv = Kv + a1 * model.M_t(mv)
+                return mask_t * Kv + (1.0 - mask_t) * v
+
+            def refill(delta, state, stress):
+                u_t.copy_(state.displacement + delta)
+
+            return refill, K
+
+        point = [t.clone() for t in (delta, *state, stress)]
+        mask = self.mask
+
+        def rhs(d):
+            return model.residual(d, NonlinearState(*point[1:4]), point[4])[0]
+
+        def K(v):
+            Jv = forward_jvp(rhs, point[0], mask * v)
+            return mask * (-Jv) + (1.0 - mask) * v
+
+        def refill(delta, state, stress):
+            for buf, t in zip(point, (delta, *state, stress)):
+                buf.copy_(t)
+
+        return refill, K
+
+    # ------------------------------------------------------------------
     # physics
     # ------------------------------------------------------------------
 
@@ -480,7 +596,12 @@ class NonlinearElasticity:
         dim, p = u.shape[-1], self.mesh.degree
         gs, rr = self._grid_shape, self._reps_rev
         ut = extract_cell_patches_T(u.reshape(gs + (dim,)), p, rr)
-        rt, min_J = internal_force_cellwise_T(ut, self.G, self.w, self.material)
+        if self._sumfact is not None:
+            rt, min_J = internal_force_cellwise_sumfact(ut, self._sumfact,
+                                                        self.material)
+        else:
+            rt, min_J = internal_force_cellwise_T(ut, self.G, self.w,
+                                                  self.material)
         return overlap_add_T(rt, p, rr, gs).reshape(-1, dim), min_J
 
     def external_force(self, u: torch.Tensor, stress: torch.Tensor) -> torch.Tensor:
@@ -594,6 +715,15 @@ class NonlinearElasticity:
             and params.newton_residual == "mixed"
         )
         norm = self._norm
+        # modified Newton: keep the assembled tangent across iterations and
+        # refresh it only for the first `tangent_reuse_after` iterations or
+        # when it goes stale (the JAX package's rule, decided here on the
+        # host from residual norms the loop already read back)
+        reuse = bool(params.newton_tangent_reuse and self._use_assembled
+                     and use_cg and self._mixed_tangent)
+        reuse_after = int(params.tangent_reuse_after)
+        refresh_ratio = float(params.tangent_refresh_ratio)
+        ratio_prev = 1.0
 
         if params.newton_predictor and not self.quasi_static:
             delta = mask * (
@@ -672,7 +802,17 @@ class NonlinearElasticity:
             cg_its = asm_inc = 0
             if not conv:
                 cg_tol = _fmax(eta * res_abs_new, 0.5 * T) if ew else params.tol_lin * res_abs_new
-                du, cg_its, asm_inc = self._solve(delta, state, rhs, cg_tol)
+                refresh = True
+                if reuse:
+                    # a frozen iteration whose contraction fails to halve
+                    # the previous ratio, and is slower than the refresh
+                    # ratio, re-assembles at the current iterate
+                    stale = ratio > 0.5 * ratio_prev and ratio > refresh_ratio
+                    refresh = (it < reuse_after or (it > reuse_after and stale)
+                               or self._tangent is None)
+                du, cg_its, asm_inc = self._solve(delta, state, stress, rhs,
+                                                  cg_tol, refresh)
+                ratio_prev = ratio
                 upd_abs_new = norm(mask * du)
                 if it == 0:
                     upd0 = _fmax(upd_abs_new, 1e-300)
@@ -692,33 +832,55 @@ class NonlinearElasticity:
         )
         return delta, info
 
-    def _solve(self, delta, state, rhs, cg_tol):
+    def _solve(self, delta, state, stress, rhs, cg_tol, refresh=True):
         """One Newton correction: (du, CG iterations, tangent assemblies).
-        The first one assembles the tangent into a new buffer and builds
-        the CG solve over it (`cg_loop`); every later one assembles into
-        that buffer."""
-        if not self._use_assembled:
+        The first one builds the tangent's persistent buffers and the CG
+        solve over them (`cg_loop`); every later one refills the buffers
+        (assembles into the tangent buffer, or copies the jvp tangent's
+        linearization point into its buffers) unless `refresh` is False, a
+        frozen iteration of `newton_tangent_reuse`, which leaves them and
+        so the captured CG graphs' operator as they are."""
+        if self.params.type_lin != "CG":
             A = self._dense_tangent(delta, state)
             du = torch.linalg.solve(A, rhs.reshape(-1)).reshape(rhs.shape)
             return du, 1, 1
         tdt = self.solve_dtype
-        u_t = (state.displacement + delta).to(tdt)
-        # the assembly closure refers to the model and is not kept: kept,
-        # it would make the model, its tangent and its CG graphs a
-        # reference cycle that outlives `del model`
-        assemble_Kt, make_tangent_matvec = self._make_tangent_fns()
-        if self._tangent is None:
-            Kt = assemble_Kt(u_t)
-            solve = make_cg(self.cg_loop, make_tangent_matvec(Kt),
-                            self._precond, self.cg_chunk)
-            self._tangent = (Kt, solve)
+        if self._use_assembled:
+            u_t = (state.displacement + delta).to(tdt)
+            # the assembly closure refers to the model and is not kept:
+            # kept, it would make the model, its tangent and its CG graphs
+            # a reference cycle that outlives `del model`
+            assemble_Kt, make_tangent_matvec = self._make_tangent_fns()
+            if self._tangent is None:
+                Kt = assemble_Kt(u_t)
+                K = make_tangent_matvec(Kt)
+                self._tangent = (Kt, self._make_cg(K))
+            elif refresh:
+                assemble_Kt(u_t, out=self._tangent[0])
+        elif self._tangent is None:
+            refill, K = self._make_jvp_tangent(delta, state, stress)
+            self._tangent = (refill, self._make_cg(K))
         else:
-            Kt, solve = self._tangent
-            assemble_Kt(u_t, out=Kt)
+            self._tangent[0](delta, state, stress)
+        solve = self._tangent[1]
         r = solve(rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt), cg_tol,
                   self._max_cg_iter)
         self.host_syncs += r.host_syncs
-        return r.x.to(self.dtype), r.iterations, 1
+        return r.x.to(self.dtype), r.iterations, int(refresh)
+
+    def _make_cg(self, K):
+        """The CG solve over the tangent operator K, preconditioned as the
+        parameters say; under `mg_fine_tangent` by a V-cycle whose fine
+        level smooths K itself (`with_fine_operator`)."""
+        precond = self._precond
+        if self._mg_fine_tangent:
+            tdt, pdt = self.solve_dtype, precond.dtype
+
+            def fine_tangent_op(v):
+                return K(v.to(tdt)).to(pdt)
+
+            precond = precond.with_fine_operator(fine_tangent_op)
+        return make_cg(self.cg_loop, K, precond, self.cg_chunk)
 
     def step(
         self, state: NonlinearState, interface_stress: torch.Tensor
@@ -765,10 +927,6 @@ class NonlinearElasticity:
 def _check_ported(params: AllParameters) -> None:
     """Raise for configurations whose code path is not ported yet."""
     unported = [
-        (params.tangent_backend == "jvp", "tangent_backend='jvp'", "Queue 1 item 12"),
-        (params.newton_tangent_reuse, "newton_tangent_reuse", "Queue 1 item 13"),
-        (params.mg_fine_tangent, "mg_fine_tangent", "Queue 1 item 13"),
-        (params.use_sumfact, "use_sumfact", "Queue 1 item 13"),
         (params.element_backend == "gather", "element_backend='gather'",
          "Queue 1 item 13"),
         (params.n_devices > 1, "n_devices > 1", "Queue 1 item 14"),

@@ -15,10 +15,13 @@ Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
   diagonals either way;
 * transfers: 1D linear interpolation per axis, applied separably;
   restriction is the exact transpose, so the V-cycle stays SPD;
-* smoother: Chebyshev on the Jacobi-scaled level operator.
+* smoother: Chebyshev on the Jacobi-scaled level operator;
+* `with_fine_operator` clones the hierarchy with level 0's operator
+  replaced (the Neo-Hookean model's `mg_fine_tangent`).
 
 The hierarchy runs in its `dtype` (bf16 on the production path; the
-coarse triangular solves stay f32). Each level's lam_max comes from a
+coarse triangular solves stay f32); on the card only f32 and bf16, the
+level kernels' dtypes. Each level's lam_max comes from a
 12-step power iteration started from a seeded `torch.Generator` vector,
 or from the caller (`lam_max=`, one value per level), which is how tests
 give it the JAX package's values.
@@ -26,6 +29,7 @@ give it the JAX package's values.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -291,6 +295,12 @@ class GeometricMultigrid:
                 f"{LEVEL_BACKENDS}"
             )
         device = resolve_device(device)
+        if device.type == "cuda" and dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"a {dtype} multigrid hierarchy has no kernel on the card (the "
+                "level kernels K3, K4b, K5 and K6 take float32 or bfloat16): "
+                "set precond_dtype='float32' or 'bfloat16'"
+            )
         self.dtype = dtype
         self.smooth_degree = smooth_degree
         self.smooth_degree_fine = smooth_degree_fine or smooth_degree
@@ -425,3 +435,19 @@ class GeometricMultigrid:
         wide = self.dtype == torch.bfloat16 and r.dtype == torch.float32
         z = self._vcycle(0, r.to(self.dtype), out_dtype=r.dtype if wide else None)
         return z.to(r.dtype)
+
+    def with_fine_operator(self, op: Callable, lam_margin: float = 1.1):
+        """A shallow clone sharing every level, with level 0's operator
+        replaced by `op` and its lam_max scaled by `lam_margin`; the fine
+        diagonal stays the proxy's. The Neo-Hookean model smooths its
+        Newton tangent on the fine level this way (`mg_fine_tangent`): the
+        tangent equals the small-strain proxy at F = I, and the margin
+        widens the Chebyshev interval for the tangent's stiffening. `op`
+        must be masked like the proxy and take and return the hierarchy
+        dtype."""
+        clone = copy.copy(self)
+        lv0 = self.levels[0]
+        clone.levels = [
+            dataclasses.replace(lv0, operator=op, lam_max=lv0.lam_max * lam_margin)
+        ] + list(self.levels[1:])
+        return clone

@@ -216,10 +216,6 @@ def test_counts_under_replay_are_the_captured_launches():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(newton_tangent_reuse=True),
-        dict(mg_fine_tangent=True),
-        dict(use_sumfact=True),
-        dict(tangent_backend="jvp"),
         dict(element_backend="gather"),
         dict(n_devices=2),
         dict(type_lin="Direct", dim=3, poly_degree=5),
@@ -632,3 +628,55 @@ def test_cg_graphs_equal_the_eager_chunks_on_card(monkeypatch):
         assert (other.iterations, other.residual_norm) == (
             r.iterations, r.residual_norm)
     assert eager._graphs is None
+
+
+@pytest.mark.cuda
+def test_jvp_tangent_on_card():
+    """Run on the card (see above). The 3D f64 jvp tangent at scale 1
+    (2,331 DoF): forward-mode AD drops a detached operand's tangent on
+    the card's torch; the operator captured in a CUDA graph equals the
+    eager operator bit for bit, and after the linearization point is
+    refilled the replay follows it; an f64 multigrid hierarchy raises,
+    naming `precond_dtype`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
+    from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
+        NonlinearState,
+        forward_jvp,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, generator=g, dtype=torch.float64).to(dev)
+    t = torch.randn(64, generator=g, dtype=torch.float64).to(dev)
+    assert torch.equal(forward_jvp(lambda y: 3.0 * y.detach() + y * y, x, t),
+                       2.0 * x * t)
+    mesh, tags = make_scenario_grid("PF", 3, 2, scale=1, solver="neo-Hookean")
+    params = AllParameters(**dict(PRODUCTION_3D, solve_dtype=""))
+    model = NonlinearElasticity(params, mesh=mesh, tags=tags, device=dev)
+    n = model.space.n_nodes
+
+    def field(scale):
+        return scale * torch.randn(n, 3, generator=g, dtype=torch.float64).to(dev)
+
+    state = NonlinearState(model.mask * field(1e-4), field(1e-2), field(1e-2))
+    stress = field(1e3)
+    refill, K = model._make_jvp_tangent(model.mask * field(1e-4), state, stress)
+    v = field(1.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K(v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K(v)
+    for _ in range(2):
+        graph.replay()
+        assert torch.equal(out, K(v))
+        refill(model.mask * field(1e-4), state, stress)
+    with pytest.raises(ValueError, match="precond_dtype"):
+        NonlinearElasticity(AllParameters(**dict(
+            PRODUCTION_3D, solve_dtype="", precond_dtype="")),
+            mesh=mesh, tags=tags, device=dev)
