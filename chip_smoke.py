@@ -144,6 +144,37 @@ script exits non-zero without printing a result):
    of each step, and the final ||u||^2 the CLI prints within rtol 1e-7
    of the JAX package's on the CPU (`NL_DEFAULT_REF`); it launches C1/C2
    and no other kernel.
+13. the gather backend and several ranks, each on phase 4's configuration
+   and lam_max values (this card is one H100, so the multi-rank phases put
+   their ranks on it; a time of two ranks sharing it is not a scaling
+   result):
+   - gather3d — `element_backend="gather"` (the jvp tangent of the
+     gather-plan internal force, bf16 V-cycle with K5 and K3), 1 warmup
+     and 3 timed steps: Newton counts equal to jvp3d's in every step,
+     ||u||^2 within rtol 1e-6 (`JVP_RTOL`) of jvp3d's;
+   - shard3d — the lattice partition (`parallel/lattice.py`) at full
+     size on `SHARD_RANKS` ranks spawned on the card over gloo (the
+     kernels built once before the spawn), the host CG loop (gloo cannot
+     be captured); each rank first holds K5, K3 (every distributed level)
+     and K1 at its slab's shapes against their plain versions, then runs
+     1 warmup and 3 timed steps: every step converged, Newton counts
+     equal to phase 4's, CG within +-2 (`SHARD_CG_SLACK`) a step, ||u||^2
+     after 4 steps within rtol 1e-7 (`SHARD_RTOL`, tests/test_sharding.py's
+     field tolerance) of phase 4's; each rank's launches, its halo fills,
+     interface sums and all-reduces a step, and its per-step times;
+   - shard3d_nccl1 — the same as a world of one on NCCL with the CG in
+     CUDA graphs (NCCL all-reduces captured): CG, Newton and ||u||^2 bit
+     for bit phase 4's; then, on that world, the cell partition's
+     configuration of shard_cells, its one-rank reference;
+   - shard_cells — the cell partition (`element_backend="gather"`,
+     Chebyshev, the jvp tangent) on `SHARD_RANKS` gloo ranks at scale
+     `SHARD_CELLS_SCALE`, `SHARD_CELLS_STEPS` steps: Chebyshev alone takes
+     some hundreds of CG a step at this scale already and its count grows
+     with the resolution, so the full size would take minutes; Newton
+     counts equal to the one-rank reference's, CG within +-2 a solve,
+     ||u||^2 within `SHARD_RTOL`;
+   - dryrun — `parallel/dryrun.py:dryrun_multichip(SHARD_RANKS, "cuda")`:
+     converged, det F > 0, K1, K3 and K5 launched on every rank.
 
 Every path but `main3d host` runs its CG in CUDA graphs; a graph replay
 adds the launches its capture recorded to the counts (`kernels/
@@ -166,8 +197,10 @@ The line before the last is the JSON kernel record; the last line is
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 CHECKSUM_REF = 49.05486138743322  # JAX package, BENCH_r05.json tail
@@ -288,6 +321,11 @@ JVP_PATHS = {
 # test_model_step_equivalent_backends (the same linearization)
 JVP_RTOL = 1e-6
 PATH_KERNELS.update({
+    "gather3d": _HEALTH + _MG3D,
+    "shard3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "shard3d_nccl1": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "shard_cells": _HEALTH,
+    "dryrun": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "f64jvp3d": _HEALTH + _MG3D,
     "jvp3d": _HEALTH + _MG3D,
     "reuse_fine3d": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
@@ -297,7 +335,10 @@ PATH_KERNELS.update({
 # jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
 # (K1) on the fine level in place of the proxy (K5), and cli_nl's Jacobi
 # CG on the jvp tangent launches no kernel but C1/C2
-PATH_EXCLUDES = {"stencil3d": ("K3 q1_structured",),
+PATH_EXCLUDES = {"gather3d": ("K1 tangent_matvec",),
+                 "shard_cells": ("K1 tangent_matvec", "K3 q1_structured",
+                                 "K5 q2_structured"),
+                 "stencil3d": ("K3 q1_structured",),
                  "coupled3d": ("K3 q1_structured",),
                  "f64jvp3d": ("K1 tangent_matvec",),
                  "jvp3d": ("K1 tangent_matvec",),
@@ -314,6 +355,16 @@ COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
 # main3d's checksum under CUDA graphs against the host loop's: the same
 # kernels on the same inputs, so they should agree bit for bit
 LOOPS_RTOL = 1e-12
+# the multi-rank phases (13): ranks sharing the card; shard3d's CG may
+# differ from phase 4's by this many a step (tests/test_sharding.py:109);
+# ||u||^2 against phase 4's within tests/test_sharding.py's field rtol;
+# shard_cells' reduced scale and steps (phase 13's docstring)
+SHARD_RANKS = 2
+SHARD_CG_SLACK = 2
+SHARD_RTOL = 1e-7
+SHARD_CELLS_SCALE = 2
+SHARD_CELLS_STEPS = 2
+SHARD_CELLS = dict(element_backend="gather", preconditioner="Chebyshev")
 # the cli phase: tests/test_cli.py's case, refined so that the multigrid
 # hierarchy has a Q1 level above its coarse solve (MG in f32, f32 CG)
 CLI_PRM = """
@@ -1046,11 +1097,9 @@ def start_counts():
     """Set every launch count to 0 and bind the library again, which runs
     the C1/C2 check, so that every path counts it (a path that only replays
     CUDA graphs calls no wrapper that would bind it)."""
-    from dealii_adapter_tpu_torch.kernels import _build, counters
+    from dealii_adapter_tpu_torch.kernels import counters
 
-    counters.reset()
-    _build.unload()
-    _build.load_library()
+    counters.restart("cuda")
 
 
 def read_counts(path, launches=None):
@@ -1068,12 +1117,13 @@ def read_counts(path, launches=None):
 
 
 def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
-                cg_loop=None, cg_chunk=None, **overrides):
+                cg_loop=None, cg_chunk=None, device_mesh=None, **overrides):
     """`NonlinearElasticity` on the port: the benchmark configuration of
     bench.py's build_model (its environment defaults) in 3D, `NONLINEAR_2D`
     in 2D, with `overrides`; `mesh_tags` reuses a mesh (and the multigrid
     geometry cached on it), `mg_lam_max` a hierarchy's lam_max values;
-    `cg_loop` and `cg_chunk`, when given, the model's Krylov loop."""
+    `cg_loop` and `cg_chunk`, when given, the model's Krylov loop;
+    `device_mesh` this rank's `RankGroup` (several ranks)."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
@@ -1089,7 +1139,8 @@ def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
             if v is not None}
     return NonlinearElasticity(AllParameters(**dict(params, **overrides)),
                                mesh=mesh, tags=tags, device=device,
-                               mg_lam_max=mg_lam_max, **loop)
+                               mg_lam_max=mg_lam_max, device_mesh=device_mesh,
+                               **loop)
 
 
 def build_linear_model(device, scale=None, cg_loop=None, **overrides):
@@ -1647,6 +1698,7 @@ def phase_jvp(main):
             log(f"jvp3d: checksum {checksum!r} against main3d's "
                 f"{main['checksum']!r} (limit {JVP_RTOL})")
             require(rel_main <= JVP_RTOL, "jvp3d: checksum against main3d's")
+            main["jvp3d"] = dict(newton=newton, cg=cg, checksum=checksum)
         else:
             check_checksum(path, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
         if path == "f64jvp3d":
@@ -1888,6 +1940,317 @@ def phase_nonlinear2d(profile):
     return launches
 
 
+def phase_gather3d(main):
+    """Phase 4's configuration with `element_backend="gather"` on its mesh
+    and lam_max values (phase 13); returns its launches."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_model(dev, mesh_tags=main["mesh_tags"],
+                        mg_lam_max=main["lam_max"], element_backend="gather")
+    torch.cuda.synchronize()
+    describe("gather3d", model, time.perf_counter() - t0)
+    require(not model._use_assembled and model.plan is not None,
+            "gather3d: the gather plan with the jvp tangent")
+    stress = interface_traction(model)
+    start_counts()
+    _, infos, steps, checksum = run_steps("gather3d", model, stress, newton_fmt)
+    launches = read_counts("gather3d")
+    ref = main["jvp3d"]
+    newton = [i.iterations for i in infos]
+    rel = abs(checksum - ref["checksum"]) / ref["checksum"]
+    log(f"gather3d: launches {launches}; CG per step "
+        f"{[i.cg_iterations for i in infos]}, Newton {newton}; jvp3d: CG "
+        f"{ref['cg']}, Newton {ref['newton']}; checksum {checksum!r} against "
+        f"jvp3d's {ref['checksum']!r}: rel. difference {rel:.3e} (limit "
+        f"{JVP_RTOL})")
+    require(all(i.converged for i in infos), "gather3d: every step converged")
+    require(newton == ref["newton"], "gather3d: Newton counts equal jvp3d's")
+    require(rel <= JVP_RTOL, "gather3d: checksum against jvp3d's")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slab_kernel_checks(model, seed):
+    """K5 (the fine proxy), K3 (each distributed Q1 level) and K1 at this
+    rank's slab shapes against their plain versions, on seeded random
+    inputs: bf16 in and f32 out, the variant the lattice partition runs
+    for the bf16 V-cycle (its partial sums stay f32), limit 1e-5 (the f32
+    accumulation; K5's split E is ~2.3e-6 relative); and f32 and bf16 I/O
+    at phase 3's limits. Not counted."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops import assembled_tangent as at
+    from dealii_adapter_tpu_torch.parallel.lattice import SlabOperator
+
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ops = [("K5 q2_structured", model._fine_proxy.op, K5_BF16_RTOL)]
+    ops += [("K3 q1_structured", lv.raw.op, 1e-2)
+            for lv in model._precond.levels[1:] if isinstance(lv.raw, SlabOperator)]
+    rows = []
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, op, bf16_tol in ops:
+        for dtype, out, tol in ((bf16, f32, 1e-5), (f32, f32, 1e-5),
+                                (bf16, bf16, bf16_tol)):
+            x = torch.randn(op._u_shape, generator=g, device=dev).to(dtype)
+            max_abs, rel = compare(op(x, out_dtype=out), op.plain(x, out))
+            io = "->".join(str(t).replace("torch.", "") for t in (dtype, out))
+            rows.append(dict(name=name, shape=list(op.grid_shape), dtype=io,
+                             max_abs_err=max_abs, rel_l2_err=rel, limit=tol,
+                             ms=cuda_ms(lambda: op(x, out_dtype=out))))
+            require(rel <= tol, f"{name} at the slab {op.grid_shape} {io}: "
+                    f"rel. L2 error {rel:.3e} > {tol}")
+    edofs = 3 * model.space.tab.n_nodes
+    n_cells = math.prod(model._lat.slab_reps)
+    KT = torch.randn((edofs, edofs, n_cells), generator=g, device=dev)
+    u2 = torch.randn((edofs, n_cells), generator=g, device=dev)
+    max_abs, rel = compare(at.apply_packed_tangents_T(KT, u2),
+                           at.apply_packed_tangents_T_plain(KT, u2))
+    rows.append(dict(name="K1 tangent_matvec", shape=[edofs, edofs, n_cells],
+                     dtype="float32", max_abs_err=max_abs, rel_l2_err=rel,
+                     limit=1e-5,
+                     ms=cuda_ms(lambda: at.apply_packed_tangents_T(KT, u2))))
+    require(rel <= 1e-5, f"K1 at {n_cells} cells: rel. L2 error {rel:.3e}")
+    return rows
+
+
+def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
+    """One rank of shard3d (a spawned process): the slab checks, then
+    `n_steps` steps of phase 4's configuration (at `scale`, by default
+    phase 4's) on the lattice partition with the host CG loop; returns
+    what the parent checks and logs (also `tools/port_shard_steps.py`'s,
+    which runs it on the CPU too)."""
+    import torch
+
+    import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
+    from dealii_adapter_tpu_torch.kernels import counters
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    model = build_model(dev, scale=scale, mg_lam_max=lam_max, cg_loop="host",
+                        device_mesh=mesh)
+    lat = model._lat
+    out = dict(rank=mesh.rank, build_s=time.perf_counter() - t0,
+               axis=lat.axis, slab=lat.slab_shape, owned=(lat.lo, lat.hi),
+               levels=[(lv.grid_shape, lv.layout.slab_shape if lv.layout else None)
+                       for lv in model._precond.levels],
+               checks=slab_kernel_checks(model, 11 + mesh.rank))
+    stress = model.local_rows(interface_traction(model))
+    if cuda:
+        start_counts()
+    else:  # the CPU rehearsal: no library to bind
+        counters.reset()
+    state = model.initial_state()
+    for k in ("newton", "cg", "converged", "min_det_F", "times", "checksums",
+              "calls"):
+        out[k] = []
+    for _ in range(n_steps):
+        sync()
+        calls0 = dict(mesh.calls)
+        ts = time.perf_counter()
+        state, info = model.step(state, stress)
+        sync()
+        out["times"].append(time.perf_counter() - ts)
+        out["calls"].append({k: mesh.calls[k] - calls0[k] for k in calls0})
+        u = state.displacement.reshape(-1)
+        out["checksums"].append(float(mesh.all_reduce(torch.dot(u, u))))
+        out["newton"].append(info.iterations)
+        out["cg"].append(info.cg_iterations)
+        out["converged"].append(info.converged)
+        out["min_det_F"].append(info.min_det_F)
+    out["launches"] = counters.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    return out
+
+
+def phase_shard3d(main, records):
+    """shard3d (phase 13): the lattice partition at full size on
+    `SHARD_RANKS` gloo ranks sharing the card; the slab checks go into the
+    kernel records (`slab_checks`); returns the launches of all ranks."""
+    from dealii_adapter_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    out = spawn(_shard3d_rank, SHARD_RANKS, "cuda", main["lam_max"], 4,
+                backend="gloo")
+    log(f"shard3d: {SHARD_RANKS} ranks on the card over gloo, host CG loop, "
+        f"ran in {time.perf_counter() - t0:.1f} s (spawn, build and steps)")
+    by_name = {rec["name"]: rec for rec in records}
+    total = {}
+    for r in out:
+        tag = f"shard3d rank {r['rank']}"
+        log(f"{tag}: model built in {r['build_s']:.1f} s; split axis "
+            f"{r['axis']}, owned planes {r['owned']}, slab {r['slab']}; levels "
+            f"(lattice, slab or None = replicated) {r['levels']}")
+        for c in r["checks"]:
+            log(f"{tag}: {c['name']} at the slab {c['shape']} {c['dtype']}: "
+                f"max abs err {c['max_abs_err']:.3e}, rel. L2 "
+                f"{c['rel_l2_err']:.3e} (limit {c['limit']}); {c['ms']:.4f} ms "
+                "a call (CUDA events, median of 15; ranks share the card)")
+            by_name[c["name"]].setdefault("slab_checks", []).append(
+                dict(c, rank=r["rank"], ranks=SHARD_RANKS))
+        log(f"{tag}: step times {r['times']} s (ranks sharing one card, not "
+            f"a scaling result); Newton {r['newton']}, CG {r['cg']} (main3d: "
+            f"{main['newton']}, {main['cg']}); min_det_F {r['min_det_F']}; "
+            f"collectives a step {r['calls']}; checksums {r['checksums']}; "
+            f"peak device memory {r['peak_gib']:.2f} GiB")
+        read_counts("shard3d", r["launches"])
+        log(f"{tag}: launches {r['launches']}")
+        rel = abs(r["checksums"][-1] - main["checksum"]) / main["checksum"]
+        log(f"{tag}: checksum {r['checksums'][-1]!r} against main3d's "
+            f"{main['checksum']!r}: rel. difference {rel:.3e} (limit "
+            f"{SHARD_RTOL})")
+        require(all(r["converged"]), f"{tag}: every step converged")
+        require(r["newton"] == main["newton"], f"{tag}: Newton counts equal main3d's")
+        require(all(abs(a - b) <= SHARD_CG_SLACK for a, b in zip(r["cg"], main["cg"])),
+                f"{tag}: CG within {SHARD_CG_SLACK} a step of main3d's")
+        require(rel <= SHARD_RTOL, f"{tag}: checksum against main3d's")
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    require(all(r["checksums"] == out[0]["checksums"]
+                and r["newton"] == out[0]["newton"] for r in out),
+            "shard3d: every rank read the same reduced values")
+    return total
+
+
+def phase_shard3d_nccl1(main):
+    """shard3d_nccl1 (phase 13): a world of one on NCCL in this process,
+    the CG in CUDA graphs, bit for bit phase 4; then shard_cells'
+    configuration on that world, its one-rank reference. Returns
+    (launches, the reference)."""
+    import torch
+    import torch.distributed as dist
+
+    from dealii_adapter_tpu_torch.parallel import make_device_mesh
+
+    dev = torch.device("cuda", 0)
+    init = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl1_"), "init")
+    dist.init_process_group("nccl", init_method="file://" + init,
+                            world_size=1, rank=0)
+    try:
+        mesh = make_device_mesh(1, device=dev)
+        t0 = time.perf_counter()
+        model = build_model(dev, mesh_tags=main["mesh_tags"],
+                            mg_lam_max=main["lam_max"], device_mesh=mesh)
+        torch.cuda.synchronize()
+        describe("shard3d_nccl1", model, time.perf_counter() - t0)
+        require(model.cg_loop == "graphs" and mesh.backend == "nccl",
+                "shard3d_nccl1: NCCL, the CG in CUDA graphs")
+        stress = model.local_rows(interface_traction(model))
+        start_counts()
+        _, infos, _, checksum = run_steps("shard3d_nccl1", model, stress,
+                                          newton_fmt)
+        launches = read_counts("shard3d_nccl1")
+        newton = [i.iterations for i in infos]
+        cg = [i.cg_iterations for i in infos]
+        log(f"shard3d_nccl1: launches {launches}; CG {cg}, Newton {newton}; "
+            f"checksum {checksum!r}, main3d's {main['checksum']!r}; bitwise "
+            f"{checksum == main['checksum']}; collectives {mesh.calls} (Python "
+            f"calls: those in the CG graphs counted once, at capture)")
+        require(newton == main["newton"] and cg == main["cg"]
+                and checksum == main["checksum"],
+                "shard3d_nccl1: CG, Newton and checksum bit for bit main3d's")
+        del model
+        torch.cuda.empty_cache()
+        model = build_model(dev, scale=SHARD_CELLS_SCALE, device_mesh=mesh,
+                            **SHARD_CELLS)
+        stress = model.local_rows(interface_traction(model))
+        state, infos, steps, cells = run_steps(
+            "shard_cells one rank", model, stress, newton_fmt,
+            state=model.initial_state(), n=SHARD_CELLS_STEPS)
+        ref = dict(checksum=cells, newton=[i.iterations for i in infos],
+                   cg=[i.cg_iterations for i in infos], times=steps["times"],
+                   n_dofs=model.space.n_dofs)
+        del model, state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches, ref
+
+
+def _shard_cells_rank(mesh):
+    import torch
+
+    import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
+    from dealii_adapter_tpu_torch.kernels import counters
+
+    model = build_model(mesh.device, scale=SHARD_CELLS_SCALE, cg_loop="host",
+                        device_mesh=mesh, **SHARD_CELLS)
+    stress = model.local_rows(interface_traction(model))
+    start_counts()
+    state = model.initial_state()
+    out = dict(rank=mesh.rank, newton=[], cg=[], times=[], converged=[])
+    for _ in range(SHARD_CELLS_STEPS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, info = model.step(state, stress)
+        torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - ts)
+        out["newton"].append(info.iterations)
+        out["cg"].append(info.cg_iterations)
+        out["converged"].append(info.converged)
+    u = state.displacement.reshape(-1)
+    out["checksum"] = float(torch.dot(u, u))  # replicated
+    out["launches"] = counters.launch_counts()
+    out["calls"] = dict(mesh.calls)
+    return out
+
+
+def phase_shard_cells(ref):
+    """shard_cells (phase 13): the cell partition on `SHARD_RANKS` gloo
+    ranks sharing the card against its one-rank reference; returns the
+    launches of all ranks."""
+    from dealii_adapter_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    out = spawn(_shard_cells_rank, SHARD_RANKS, "cuda", backend="gloo")
+    log(f"shard_cells: {SHARD_RANKS} ranks over gloo at scale "
+        f"{SHARD_CELLS_SCALE} ({ref['n_dofs']} DoF), host CG loop, ran in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, build and steps)")
+    total = {}
+    for r in out:
+        tag = f"shard_cells rank {r['rank']}"
+        rel = abs(r["checksum"] - ref["checksum"]) / ref["checksum"]
+        log(f"{tag}: step times {r['times']} s; Newton {r['newton']}, CG "
+            f"{r['cg']} (one rank: {ref['newton']}, {ref['cg']}, "
+            f"{ref['times']} s); collectives {r['calls']}; checksum "
+            f"{r['checksum']!r} against one rank's {ref['checksum']!r}: rel. "
+            f"difference {rel:.3e} (limit {SHARD_RTOL})")
+        read_counts("shard_cells", r["launches"])
+        require(all(r["converged"]), f"{tag}: every step converged")
+        require(r["newton"] == ref["newton"], f"{tag}: Newton counts equal")
+        require(all(abs(a - b) <= SHARD_CG_SLACK * n
+                    for a, b, n in zip(r["cg"], ref["cg"], r["newton"])),
+                f"{tag}: CG within {SHARD_CG_SLACK} a solve")
+        require(rel <= SHARD_RTOL, f"{tag}: checksum against one rank's")
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def phase_dryrun():
+    """dryrun (phase 13): `dryrun_multichip(SHARD_RANKS, "cuda")`; returns
+    the launches of all ranks."""
+    from dealii_adapter_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    info = dryrun_multichip(SHARD_RANKS, "cuda")
+    log(f"dryrun: {info}")
+    total = {}
+    for launches in info["launches"]:
+        read_counts("dryrun", launches)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1916,6 +2279,8 @@ def main():
     by_path.update(timed("jvp", phase_jvp, main_run))
     by_path["stencil3d"], model, checksum = timed(
         "stencil3d", phase_stencil3d, main_run)
+    parallel = {k: main_run[k] for k in ("mesh_tags", "lam_max", "checksum",
+                                         "cg", "newton", "jvp3d")}
     del main_run
     by_path["coupled3d"] = timed("coupled3d", phase_coupled3d, model, checksum)
     del model
@@ -1925,6 +2290,12 @@ def main():
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"] = timed("cli", phase_cli)
     by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
+    by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
+    by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
+    by_path["shard3d_nccl1"], cells_ref = timed(
+        "shard3d_nccl1", phase_shard3d_nccl1, parallel)
+    by_path["shard_cells"] = timed("shard_cells", phase_shard_cells, cells_ref)
+    by_path["dryrun"] = timed("dryrun", phase_dryrun)
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
     log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}; "
         f"device times taken from CUDA-graph replays instead: "

@@ -1,8 +1,10 @@
 """dealii_adapter_tpu_torch — the PyTorch/CUDA port of dealii_adapter_tpu.
 
 The JAX package `dealii_adapter_tpu` stays the reference; this package
-re-implements its single-device structured path in PyTorch for one
-NVIDIA H100, in 2D and 3D:
+re-implements it in PyTorch for NVIDIA H100 cards, in 2D and 3D: the
+structured and the gather element backends on one device, and on several
+ranks the cell and the lattice partitions of `parallel/` (the JAX
+package's two SPMD modes):
 
 * `NonlinearElasticity`: the compressible Neo-Hookean flap with
   Newmark-beta dynamics, Newton with the mixed f64/f32 residual schedule

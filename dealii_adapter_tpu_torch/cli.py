@@ -17,8 +17,9 @@ port's counterpart of `JAX_PLATFORMS=cpu`: without a card and without
 device, `--profile` through `torch.profiler`, the kernel launch counts of
 the model build and, in the closing lines, the final ||u||^2 and the
 kernel launch counts of the coupled run alone.
-A configuration whose code path is not ported raises the model's
-NotImplementedError, which names its ROADMAP item.
+A configuration whose code path is not ported raises NotImplementedError
+naming its ROADMAP item: `--devices` above 1 (the coupled run on several
+ranks, `runner.MULTI_RANK_COUPLING`) here, the rest in the model.
 
 Usage: python -m dealii_adapter_tpu_torch <case.prm> [options]
 """
@@ -72,7 +73,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--refine", type=int, default=0,
                    help="global refinements (cells x 2^n per axis)")
     p.add_argument("--devices", type=int, default=None,
-                   help="shard over this many devices (not ported: > 1 raises)")
+                   help="ranks (> 1 raises: the coupled run on several ranks is "
+                        "ROADMAP Queue 1 item 16)")
     p.add_argument("--dtype", choices=("float32", "float64"), default=None)
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the CUDA card; "
@@ -104,8 +106,8 @@ def main(argv=None) -> int:
     import dealii_adapter_tpu_torch as dat
     from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
     from dealii_adapter_tpu_torch.device import resolve_device
-    from dealii_adapter_tpu_torch.kernels import _build, counters
-    from dealii_adapter_tpu_torch.runner import coupled_run
+    from dealii_adapter_tpu_torch.kernels import counters
+    from dealii_adapter_tpu_torch.runner import MULTI_RANK_COUPLING, coupled_run
     from dealii_adapter_tpu_torch.utils import TimerOutput, write_vtu
 
     overrides = {}
@@ -116,6 +118,8 @@ def main(argv=None) -> int:
     if args.dtype is not None:
         overrides["dtype"] = args.dtype
     params = dat.parse_prm(args.prm, strict=not args.lenient, **overrides)
+    if params.n_devices > 1:
+        raise NotImplementedError(MULTI_RANK_COUPLING)
     device = resolve_device(args.device)
 
     # banner (the reference prints thread count + git revisions,
@@ -213,10 +217,7 @@ def main(argv=None) -> int:
     # here, then every count restarts at 0 and, on the card, the library
     # is bound again, so its check runs anew and counts in the run
     print(f"kernel launches (model build): {_launched()}")
-    counters.reset()
-    _build.unload()
-    if device.type == "cuda":
-        _build.load_library()
+    counters.restart(device)
 
     t0 = _time.perf_counter()
     if args.profile:

@@ -124,7 +124,8 @@ cudaError_t launch_q1_stencil(const void* u, void* y, const void* tables,
                               int nz, int ny, int nx, int io_bf16,
                               void* stream) {
   const bool z_ok = NDIM == 3 ? nz >= 2 : nz == 1;
-  if (!z_ok || ny < 2 || nx < 2) return cudaErrorInvalidValue;
+  if (!z_ok || ny < 2 || nx < 2 || (io_bf16 != 0 && io_bf16 != 1))
+    return cudaErrorInvalidValue;
   const long long n_nodes = static_cast<long long>(nz) * ny * nx;
   const long long want = (n_nodes + kStencilThreads - 1) / kStencilThreads;
   const long long cap = static_cast<long long>(kStencilBlocksPerSM) * sm_count();

@@ -183,11 +183,11 @@ __device__ __forceinline__ void level_load_planes(float* dst,
 // B consecutive nodes (z .. z + B - 1) of one thread's column, all of one
 // class: each coefficient row and each neighbour is read once for the B
 // nodes (a z column of B + 2 planes per in-plane offset).
-template <int B, int TX, typename T>
+template <int B, int TX, typename TO>
 __device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
                                             const float4* planes, int p0,
                                             int plast, int col,
-                                            T* __restrict__ y, long long node,
+                                            TO* __restrict__ y, long long node,
                                             long long plane_nodes, int cnt) {
   constexpr int TY = kLevelThreads / TX, HX = TX + 2, HY = TY + 2;
   constexpr int PLANE = HY * HX;
@@ -225,7 +225,7 @@ __device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
 #pragma unroll
   for (int q = 0; q < B; ++q) {
     if (q < cnt) {
-      T* yp = y + (node + q * plane_nodes) * 3;
+      TO* yp = y + (node + q * plane_nodes) * 3;
       dat::store_f32(yp, acc[q][0]);
       dat::store_f32(yp + 1, acc[q][1]);
       dat::store_f32(yp + 2, acc[q][2]);
@@ -233,9 +233,9 @@ __device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
   }
 }
 
-template <int TX, typename T>
+template <int TX, typename T, typename TO>
 __global__ void __launch_bounds__(kLevelThreads)
-    q1_level_kernel(const T* __restrict__ u, T* __restrict__ y,
+    q1_level_kernel(const T* __restrict__ u, TO* __restrict__ y,
                     const float4* __restrict__ coef, int nz, int ny, int nx,
                     int zc) {
   constexpr int TY = kLevelThreads / TX, HX = TX + 2, HY = TY + 2;
@@ -313,20 +313,15 @@ int level_axis_classes(int n, int t) { return n <= t ? 3 : 2; }
 
 constexpr int kLevelMaxSmem = 96 * 1024;
 
-template <int TX>
+template <int TX, typename T, typename TO>
 cudaError_t launch_q1_level_tx(const void* u, void* y, const void* coef,
-                               int nz, int ny, int nx, int io_bf16,
-                               cudaStream_t s) {
+                               int nz, int ny, int nx, cudaStream_t s) {
   constexpr int TY = kLevelThreads / TX;
   static bool attr_set = false;  // > 48 KB only when a tile spans each axis
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        q1_level_kernel<TX, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t err = cudaFuncSetAttribute(
+        q1_level_kernel<TX, T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kLevelMaxSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(q1_level_kernel<TX, __nv_bfloat16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kLevelMaxSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -340,26 +335,35 @@ cudaError_t launch_q1_level_tx(const void* u, void* y, const void* coef,
   const size_t smem = ((min(zc, nz) + 2) * (TY + 2) * (TX + 2) +
                        ncls * kLevelCoefRows) * sizeof(float4);
   if (smem > static_cast<size_t>(kLevelMaxSmem)) return cudaErrorInvalidValue;
-  const float4* c = static_cast<const float4*>(coef);
-  if (io_bf16) {
-    q1_level_kernel<TX, __nv_bfloat16><<<grid, kLevelThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(y),
-        c, nz, ny, nx, zc);
-  } else {
-    q1_level_kernel<TX, float><<<grid, kLevelThreads, smem, s>>>(
-        static_cast<const float*>(u), static_cast<float*>(y), c, nz, ny, nx,
-        zc);
-  }
+  q1_level_kernel<TX, T, TO><<<grid, kLevelThreads, smem, s>>>(
+      static_cast<const T*>(u), static_cast<TO*>(y),
+      static_cast<const float4*>(coef), nz, ny, nx, zc);
   return cudaGetLastError();
 }
 
+template <int TX>
+cudaError_t launch_q1_level_io(const void* u, void* y, const void* coef,
+                               int nz, int ny, int nx, int io,
+                               cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  switch (io) {
+    case dat::kIoF32:
+      return launch_q1_level_tx<TX, float, float>(u, y, coef, nz, ny, nx, s);
+    case dat::kIoBf16:
+      return launch_q1_level_tx<TX, bf16, bf16>(u, y, coef, nz, ny, nx, s);
+    case dat::kIoBf16InF32Out:
+      return launch_q1_level_tx<TX, bf16, float>(u, y, coef, nz, ny, nx, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t launch_q1_level(const void* u, void* y, const void* coef, int nz,
-                            int ny, int nx, int io_bf16, void* stream) {
+                            int ny, int nx, int io, void* stream) {
   if (nz < 2 || ny < 2 || nx < 2) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nx <= 8) return launch_q1_level_tx<8>(u, y, coef, nz, ny, nx, io_bf16, s);
-  if (nx <= 16) return launch_q1_level_tx<16>(u, y, coef, nz, ny, nx, io_bf16, s);
-  return launch_q1_level_tx<32>(u, y, coef, nz, ny, nx, io_bf16, s);
+  if (nx <= 8) return launch_q1_level_io<8>(u, y, coef, nz, ny, nx, io, s);
+  if (nx <= 16) return launch_q1_level_io<16>(u, y, coef, nz, ny, nx, io, s);
+  return launch_q1_level_io<32>(u, y, coef, nz, ny, nx, io, s);
 }
 
 // ------------------------------------------------- 2D level operator ----
@@ -403,10 +407,10 @@ __device__ __forceinline__ void level2d_load_rows(float2* dst,
 // B consecutive nodes (y .. y + B - 1) of one thread's column, all of one
 // class, whose first node sits in halo row r0 + 1: each coefficient row and
 // each neighbour column (B + 2 halo rows) is read once for the B nodes.
-template <int B, int TX, typename T>
+template <int B, int TX, typename TO>
 __device__ __forceinline__ void level2d_nodes(const float4* __restrict__ tc,
                                               const float2* rows, int r0,
-                                              int col, T* __restrict__ y,
+                                              int col, TO* __restrict__ y,
                                               int node, int nx) {
   constexpr int HX = TX + 2;
   float acc[B][2];
@@ -432,15 +436,15 @@ __device__ __forceinline__ void level2d_nodes(const float4* __restrict__ tc,
   }
 #pragma unroll
   for (int q = 0; q < B; ++q) {
-    T* yp = y + (node + q * nx) * 2;
+    TO* yp = y + (node + q * nx) * 2;
     dat::store_f32(yp, acc[q][0]);
     dat::store_f32(yp + 1, acc[q][1]);
   }
 }
 
-template <int TX, typename T>
+template <int TX, typename T, typename TO>
 __global__ void __launch_bounds__(kLevelThreads)
-    q1_level_kernel_2d(const T* __restrict__ u, T* __restrict__ y,
+    q1_level_kernel_2d(const T* __restrict__ u, TO* __restrict__ y,
                        const float4* __restrict__ coef, int ny, int nx,
                        int yc) {
   constexpr int TY = kLevelThreads / TX, HX = TX + 2;
@@ -493,10 +497,9 @@ __global__ void __launch_bounds__(kLevelThreads)
   }
 }
 
-template <int TX>
+template <int TX, typename T, typename TO>
 cudaError_t launch_q1_level_2d_tx(const void* u, void* y, const void* coef,
-                                  int ny, int nx, int io_bf16,
-                                  cudaStream_t s) {
+                                  int ny, int nx, cudaStream_t s) {
   constexpr int TY = kLevelThreads / TX;
   const int bx = (nx + TX - 1) / TX;
   int yc = kLevel2dMaxRun;  // shrink the run until the grid has ~2 blocks per SM
@@ -504,27 +507,36 @@ cudaError_t launch_q1_level_2d_tx(const void* u, void* y, const void* coef,
                            ((ny + TY * yc - 1) / (TY * yc)) < 264)
     yc /= 2;
   const dim3 grid(bx, (ny + TY * yc - 1) / (TY * yc));
-  const float4* c = static_cast<const float4*>(coef);
-  if (io_bf16) {
-    q1_level_kernel_2d<TX, __nv_bfloat16><<<grid, kLevelThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(y),
-        c, ny, nx, yc);
-  } else {
-    q1_level_kernel_2d<TX, float><<<grid, kLevelThreads, 0, s>>>(
-        static_cast<const float*>(u), static_cast<float*>(y), c, ny, nx, yc);
-  }
+  q1_level_kernel_2d<TX, T, TO><<<grid, kLevelThreads, 0, s>>>(
+      static_cast<const T*>(u), static_cast<TO*>(y),
+      static_cast<const float4*>(coef), ny, nx, yc);
   return cudaGetLastError();
 }
 
+template <int TX>
+cudaError_t launch_q1_level_2d_io(const void* u, void* y, const void* coef,
+                                  int ny, int nx, int io, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  switch (io) {
+    case dat::kIoF32:
+      return launch_q1_level_2d_tx<TX, float, float>(u, y, coef, ny, nx, s);
+    case dat::kIoBf16:
+      return launch_q1_level_2d_tx<TX, bf16, bf16>(u, y, coef, ny, nx, s);
+    case dat::kIoBf16InF32Out:
+      return launch_q1_level_2d_tx<TX, bf16, float>(u, y, coef, ny, nx, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t launch_q1_level_2d(const void* u, void* y, const void* coef,
-                               int ny, int nx, int io_bf16, void* stream) {
+                               int ny, int nx, int io, void* stream) {
   // 32-bit node indices inside the kernel
   if (ny < 2 || nx < 2 || static_cast<long long>(ny) * nx >= (1LL << 30))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nx <= 8) return launch_q1_level_2d_tx<8>(u, y, coef, ny, nx, io_bf16, s);
-  if (nx <= 16) return launch_q1_level_2d_tx<16>(u, y, coef, ny, nx, io_bf16, s);
-  return launch_q1_level_2d_tx<32>(u, y, coef, ny, nx, io_bf16, s);
+  if (nx <= 8) return launch_q1_level_2d_io<8>(u, y, coef, ny, nx, io, s);
+  if (nx <= 16) return launch_q1_level_2d_io<16>(u, y, coef, ny, nx, io, s);
+  return launch_q1_level_2d_io<32>(u, y, coef, ny, nx, io, s);
 }
 
 // ---------------------------------------------------------------- K4 ----
@@ -621,6 +633,8 @@ __global__ void __launch_bounds__(kPlaneTX * kPlaneTY)
 cudaError_t launch_q1_plane(const void* u, void* y, const void* E, int nz,
                             int ny, int nx, int io_bf16, void* stream) {
   if (nz < 2 || ny < 2 || nx < 2) return cudaErrorInvalidValue;
+  if (io_bf16 != dat::kIoF32 && io_bf16 != dat::kIoBf16)
+    return cudaErrorInvalidValue;
   const dim3 grid((nx + kPlaneTX - 1) / kPlaneTX,
                   (ny + kPlaneTY - 1) / kPlaneTY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -641,9 +655,9 @@ cudaError_t launch_q1_plane(const void* u, void* y, const void* E, int nz,
 // K4 (Q1PlaneOperator): K3's function, so K3's q1_level_kernel with K3's
 // tables (`coef` as in dat_q1_structured), under K4's own entry point
 extern "C" cudaError_t dat_q1_plane(const void* u, void* y, const void* coef,
-                                    int nz, int ny, int nx, int io_bf16,
+                                    int nz, int ny, int nx, int io,
                                     void* stream) {
-  return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
+  return launch_q1_level(u, y, coef, nz, ny, nx, io, stream);
 }
 
 // K4's first (plane-marching) design, E the 24 x 24 element matrix: only
@@ -656,29 +670,30 @@ extern "C" cudaError_t dat_q1_plane_marching(const void* u, void* y,
 }
 
 // K3: `coef` is the (27 classes, 27 offsets, 3, 4) f32 table of
-// ops/stencil.py:kernel_table (Q1StructuredOperator._coefficients)
+// ops/stencil.py:kernel_table (Q1StructuredOperator._coefficients); `io`,
+// here and in K4, K4b and K6, a dat::IoMode
 extern "C" cudaError_t dat_q1_structured(const void* u, void* y,
                                          const void* coef, int nz, int ny,
-                                         int nx, int io_bf16, void* stream) {
-  return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
+                                         int nx, int io, void* stream) {
+  return launch_q1_level(u, y, coef, nz, ny, nx, io, stream);
 }
 
 // K4b: `coef` is the (9 classes, 9 offsets, 4) f32 table of
 // ops/stencil.py:kernel_table (Q1StructuredOperator2D._coefficients)
 extern "C" cudaError_t dat_q1_structured_2d(const void* u, void* y,
                                             const void* coef, int ny, int nx,
-                                            int io_bf16, void* stream) {
-  return launch_q1_level_2d(u, y, coef, ny, nx, io_bf16, stream);
+                                            int io, void* stream) {
+  return launch_q1_level_2d(u, y, coef, ny, nx, io, stream);
 }
 
 // K6 (StencilQ1Operator): the same kernels and tables as K3 (ndim 3) and
 // K4b (ndim 2, nz 1), under K6's own entry point
 extern "C" cudaError_t dat_q1_stencil(const void* u, void* y, const void* coef,
                                       int nz, int ny, int nx, int ndim,
-                                      int io_bf16, void* stream) {
-  if (ndim == 3) return launch_q1_level(u, y, coef, nz, ny, nx, io_bf16, stream);
+                                      int io, void* stream) {
+  if (ndim == 3) return launch_q1_level(u, y, coef, nz, ny, nx, io, stream);
   if (ndim == 2 && nz == 1)
-    return launch_q1_level_2d(u, y, coef, ny, nx, io_bf16, stream);
+    return launch_q1_level_2d(u, y, coef, ny, nx, io, stream);
   return cudaErrorInvalidValue;
 }
 

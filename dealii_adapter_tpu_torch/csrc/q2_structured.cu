@@ -109,9 +109,9 @@ __device__ __forceinline__ int axis_cells(int i, int lo, int nc, int (&c)[2],
   return below && above ? 2 : 1;
 }
 
-template <typename T, bool kMMA>
+template <typename T, typename TO, bool kMMA>
 __global__ void __launch_bounds__(kQ2Threads)
-    q2_tile_kernel(const T* __restrict__ u, T* __restrict__ y,
+    q2_tile_kernel(const T* __restrict__ u, TO* __restrict__ y,
                    const uint2* __restrict__ frag, const float* __restrict__ E,
                    int nz, int ny, int nx) {
   extern __shared__ __align__(16) unsigned char q2_smem[];
@@ -295,14 +295,14 @@ __global__ void __launch_bounds__(kQ2Threads)
         }
       }
     }
-    T* yp = y + ((static_cast<long long>(gz) * ny + gy) * nx + gx) * 3;
+    TO* yp = y + ((static_cast<long long>(gz) * ny + gy) * nx + gx) * 3;
     dat::store_f32(yp, a0);
     dat::store_f32(yp + 1, a1);
     dat::store_f32(yp + 2, a2);
   }
 }
 
-template <typename T, bool kMMA>
+template <typename T, typename TO, bool kMMA>
 cudaError_t launch_q2_tile(const void* u, void* y, const void* frag,
                            const void* E, int nz, int ny, int nx,
                            cudaStream_t s) {
@@ -310,7 +310,7 @@ cudaError_t launch_q2_tile(const void* u, void* y, const void* frag,
   constexpr int kMaxSmem = 200 * 1024;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        q2_tile_kernel<T, kMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        q2_tile_kernel<T, TO, kMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
@@ -327,8 +327,8 @@ cudaError_t launch_q2_tile(const void* u, void* y, const void* frag,
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const dim3 grid((ncx + kQ2TX - 1) / kQ2TX, (ncy + kQ2TY - 1) / kQ2TY,
                   (ncz + kQ2TZ - 1) / kQ2TZ);
-  q2_tile_kernel<T, kMMA><<<grid, kQ2Threads, smem, s>>>(
-      static_cast<const T*>(u), static_cast<T*>(y),
+  q2_tile_kernel<T, TO, kMMA><<<grid, kQ2Threads, smem, s>>>(
+      static_cast<const T*>(u), static_cast<TO*>(y),
       static_cast<const uint2*>(frag), static_cast<const float*>(E), nz, ny, nx);
   return cudaGetLastError();
 }
@@ -336,18 +336,26 @@ cudaError_t launch_q2_tile(const void* u, void* y, const void* frag,
 }  // namespace
 
 // K5: `frag` is the (2, 11, 6, 32, 4) bf16 array of the split E's mma B
-// fragments (ops/q2_structured.py:q2_mma_fragments), read by the bf16 path;
-// `E` the 81 x 81 f32 element matrix (row = output dof), read by the f32 path
+// fragments (ops/q2_structured.py:q2_mma_fragments), read by the bf16-input
+// paths; `E` the 81 x 81 f32 element matrix (row = output dof), read by the
+// f32 path; `io` a dat::IoMode
 extern "C" cudaError_t dat_q2_structured(const void* u, void* y,
                                          const void* frag, const void* E,
-                                         int nz, int ny, int nx, int io_bf16,
+                                         int nz, int ny, int nx, int io,
                                          void* stream) {
   if (nz < 3 || ny < 3 || nx < 3 || !(nz & 1) || !(ny & 1) || !(nx & 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (io_bf16)
-    return launch_q2_tile<__nv_bfloat16, true>(u, y, frag, E, nz, ny, nx, s);
-  return launch_q2_tile<float, false>(u, y, frag, E, nz, ny, nx, s);
+  using bf16 = __nv_bfloat16;
+  switch (io) {
+    case dat::kIoF32:
+      return launch_q2_tile<float, float, false>(u, y, frag, E, nz, ny, nx, s);
+    case dat::kIoBf16:
+      return launch_q2_tile<bf16, bf16, true>(u, y, frag, E, nz, ny, nx, s);
+    case dat::kIoBf16InF32Out:
+      return launch_q2_tile<bf16, float, true>(u, y, frag, E, nz, ny, nx, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // K5's first design (structured_gather.cuh): only chip_smoke.py's kernel

@@ -40,6 +40,13 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The I/O of the level and fine kernels (K3, K4, K4b, K5, K6): f32 in and
+// out, bf16 in and out, or bf16 in with the f32 accumulation written out
+// unrounded (the lattice partition's slabs: their partial sums are added in
+// f32 across the ranks and rounded to bf16 once). The first designs kept
+// for timing take the first two only.
+enum IoMode : int { kIoF32 = 0, kIoBf16 = 1, kIoBf16InF32Out = 2 };
+
 constexpr int kGatherThreads = 128;
 
 template <int DIM, int P, typename T>
@@ -112,6 +119,7 @@ template <int DIM, int P>
 cudaError_t launch_structured_gather(const void* u, void* y, const void* E,
                                      int nz, int ny, int nx, int io_bf16,
                                      void* stream) {
+  if (io_bf16 != kIoF32 && io_bf16 != kIoBf16) return cudaErrorInvalidValue;
   const bool z_ok = DIM == 3 ? (nz >= P + 1 && (nz - 1) % P == 0) : nz == 1;
   if (!z_ok || ny < P + 1 || nx < P + 1 || (ny - 1) % P || (nx - 1) % P)
     return cudaErrorInvalidValue;

@@ -201,6 +201,24 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+def io_mode(in_dtype, out_dtype) -> int:
+    """The `dat::IoMode` (csrc/structured_gather.cuh) of the level and fine
+    kernels K3, K4, K4b, K5 and K6 for an input and output dtype: f32 in
+    and out (0), bf16 in and out (1), or bf16 in and the f32 accumulation
+    out (2)."""
+    import torch
+
+    modes = {(torch.float32, torch.float32): 0,
+             (torch.bfloat16, torch.bfloat16): 1,
+             (torch.bfloat16, torch.float32): 2}
+    try:
+        return modes[(in_dtype, out_dtype)]
+    except KeyError:
+        raise TypeError(
+            f"the level kernels take float32 or bfloat16 input and output "
+            f"float32 or the input dtype, got {in_dtype} -> {out_dtype}") from None
+
+
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on `t`'s device."""
     import torch

@@ -57,6 +57,21 @@ def reset() -> None:
         obj.launches = 0
 
 
+def restart(device) -> None:
+    """Start a path's counts: set every count to 0 and, on the card, bind
+    the library again, which runs the C1/C2 check, so that every path
+    counts it (a path that only replays CUDA graphs calls no wrapper that
+    would bind it)."""
+    import torch
+
+    from . import _build
+
+    reset()
+    _build.unload()
+    if torch.device(device).type == "cuda":
+        _build.load_library()
+
+
 def captured(before: dict) -> dict:
     """The launches counted since the `launch_counts()` snapshot `before`,
     taken just before a CUDA-graph capture: what one replay of the graph

@@ -1,9 +1,8 @@
 """Dynamic linear elasticity with one-step theta time integration.
 
 Counterpart of `dealii_adapter_tpu/models/linear_elasticity.py` (the
-reference's `Linear_Elasticity::ElastoDynamics`), restricted to its
-single-device structured path. The unknown of each step is the velocity
-V_{n+1}, solved from
+reference's `Linear_Elasticity::ElastoDynamics`). The unknown of each step
+is the velocity V_{n+1}, solved from
 
     (M + theta^2 dt^2 K) V_{n+1} =  dt theta F_{n+1} + dt (1-theta) F_n
                                   + (M - theta(1-theta) dt^2 K) V_n
@@ -14,8 +13,17 @@ coupling load (the consistent face-traction integration of the nodal
 interface stress, or the raw nodal forces for 'Force' data) plus constant
 body forces.
 
-K, M and the stepping matrix A = M + (theta dt)^2 K are f64 structured
-operators. The solve is the reference's absolute 1e-10 CG contract: f32
+K, M and the stepping matrix A = M + (theta dt)^2 K are f64 operators:
+structured (`element_backend` `auto`/`structured`) or through the gather
+plan (`gather`, `ops/element_ops.py:AssembledOperator`). With a
+`device_mesh` (`parallel/partition.py:RankGroup`; `n_devices > 1` builds
+one from the initialized process group) they are partitioned as the JAX
+package's two SPMD modes partition them: `gather` takes the cell
+partition (`parallel/sharded_ops.py`, vectors replicated, MG raises as in
+the JAX package), `auto`/`structured` the lattice partition
+(`parallel/lattice.py`: vectors distributed by rows, every operator and
+the V-cycle on per-rank slabs, inner products all-reduced; the interface
+load is integrated on the gathered interface data). The solve is the reference's absolute 1e-10 CG contract: f32
 preconditioned CG inside f64 defect correction (`ir_cg_solve`) when
 `solve_dtype` is float32, plain CG otherwise, or a prefactored dense
 Cholesky (`type_lin="Direct"`, up to 16,384 unknowns). The MG
@@ -54,13 +62,21 @@ from ..ops.element_ops import (
     body_force_vector,
     make_face_loading,
 )
-from ..ops.q2_structured import make_q2_operator
-from ..ops.structured import make_structured_operator
+from ..ops.q2_structured import make_q2_operator, q2_lattice_operator
+from ..parallel.lattice import SlabOperator
+from ..parallel.partition import make_device_mesh
+from ..parallel.spmd import (
+    MG_CELL_PARTITION,
+    check_collective_loop,
+    element_operators,
+)
 from ..solvers.cg import (
+    CG_CHUNK,
+    _dot,
     chebyshev_preconditioner,
-    estimate_lambda_max,
     ir_cg_solve,
     jacobi_preconditioner,
+    lambda_max,
     make_cg,
 )
 from ..solvers.direct import DenseCholesky
@@ -90,7 +106,8 @@ class LinearElastodynamics:
     StepInfo)`. `cg_loop` ("graphs", the default, or "host") chooses the
     Krylov loop (module docstring); it exists so that both loops can be
     measured side by side, and the model never switches between them
-    itself."""
+    itself. With a `device_mesh`, states and interface data are this
+    rank's rows (`local_rows`, `global_rows`)."""
 
     def __init__(
         self,
@@ -101,13 +118,19 @@ class LinearElastodynamics:
         device=None,
         mg_lam_max: Optional[Sequence[float]] = None,
         cg_loop: str = "graphs",
+        device_mesh=None,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
         hierarchy's power-iteration estimates."""
-        _check_ported(params)
         self.params = params
-        self.device = resolve_device(device)
+        if device_mesh is None and params.n_devices > 1:
+            device_mesh = make_device_mesh(params.n_devices, device=device)
+        self.device_mesh = device_mesh
+        self.device = resolve_device(
+            device if device is not None or device_mesh is None
+            else device_mesh.device)
         self.cg_loop = cg_loop
+        check_collective_loop(device_mesh, self.device, cg_loop)
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -131,27 +154,34 @@ class LinearElastodynamics:
         sdt = torch.float32 if params.solve_dtype == "float32" else dt_
         self.solve_dtype = sdt
         self._mixed = sdt != dt_
-        self.K = make_structured_operator(space, elem.K_e, dt_, dev)
-        self.M = make_structured_operator(space, elem.M_e, dt_, dev)
-        self.A = make_structured_operator(space, A_e, dt_, dev)
-        self.A_lo = make_structured_operator(space, A_e, sdt, dev) if self._mixed else self.A
+        mkop, self._lat, cells_mode = element_operators(
+            params, space, device_mesh, dev)
+        self.K = mkop(elem.K_e, dt_)
+        self.M = mkop(elem.M_e, dt_)
+        self.A = mkop(A_e, dt_)
+        self.A_lo = mkop(A_e, sdt) if self._mixed else self.A
+        lat = self._lat
+        self._dot = lat.mesh.dot(_dot) if lat is not None else _dot
+        self.n_rows = lat.n_owned if lat is not None else space.n_nodes
 
         mask_np = space.dirichlet_mask(tags["clamped"], tags.get("out_of_plane"))
-        self.mask = torch.as_tensor(mask_np, dtype=dt_, device=dev)
+        self.mask = self.local_rows(torch.as_tensor(mask_np, dtype=dt_, device=dev))
         self.mask_lo = self.mask.to(sdt)
         # Jacobi diagonal of the BC-masked stepping matrix (1 on constrained)
-        diag = self.mask * torch.as_tensor(
+        diag = self.mask * self.local_rows(torch.as_tensor(
             assemble_diagonal(space, A_e), dtype=dt_, device=dev
-        ) + (1.0 - self.mask)
+        )) + (1.0 - self.mask)
         if params.preconditioner == "Chebyshev":
             A_lo_bc = self._masked(self.A_lo, self.mask_lo)
             diag_s = diag.to(sdt)
-            lam = estimate_lambda_max(A_lo_bc, diag_s, (space.n_nodes, dim))
+            lam = lambda_max(A_lo_bc, diag_s, (space.n_nodes, dim), lat)
             self._precond = chebyshev_preconditioner(
                 A_lo_bc, diag_s, lam,
                 degree=params.cheb_degree, eig_ratio=params.cheb_eig_ratio,
             )
         elif params.preconditioner == "MG":
+            if cells_mode:
+                raise NotImplementedError(MG_CELL_PARTITION)
             from ..solvers.multigrid import GeometricMultigrid
 
             c = (theta * dt) ** 2
@@ -159,9 +189,12 @@ class LinearElastodynamics:
                 params.precond_dtype, sdt
             )
             fmask = self.mask.to(pdt)
+            fine = (make_q2_operator(space, A_e, pdt, dev) if lat is None else
+                    SlabOperator(q2_lattice_operator(
+                        A_e, lat.slab_shape, mesh.degree, pdt, dev), lat))
             self._precond = GeometricMultigrid(
                 mesh, tags,
-                self._masked(make_q2_operator(space, A_e, pdt, dev), fmask),
+                self._masked(fine, fmask),
                 diag.to(pdt), fmask,
                 lmbda=c * params.lmbda, mu=c * params.mu,
                 mass_coeff=params.rho, dtype=pdt,
@@ -170,7 +203,7 @@ class LinearElastodynamics:
                 coarse_size=params.mg_coarse_size, fem_sem=params.mg_fem_sem,
                 skip_fine_smoothing=params.mg_skip_fine_smoothing,
                 level_backend=params.mg_level_backend, lam_max=mg_lam_max,
-                device=dev,
+                device=dev, lattice=lat,
             )
         elif params.preconditioner == "None":
             self._precond = None
@@ -182,10 +215,14 @@ class LinearElastodynamics:
         )
         bf = body_force_vector(space, elem, params.rho, params.body_force)
         self.body_force_enabled = bool(np.linalg.norm(params.body_force) > 1e-15)
-        self._body_vec = torch.as_tensor(bf, dtype=dt_, device=dev)
+        self._body_vec = self.local_rows(torch.as_tensor(bf, dtype=dt_, device=dev))
 
         self._direct = None
         if params.type_lin == "Direct":
+            if lat is not None:
+                raise NotImplementedError(
+                    "type_lin='Direct' on the lattice partition is not ported "
+                    "(ROADMAP Queue 1 item 17)")
             if space.n_dofs > DIRECT_MAX_UNKNOWNS:
                 raise ValueError(
                     f"type_lin='Direct' assembles the dense ({space.n_dofs}, "
@@ -204,7 +241,8 @@ class LinearElastodynamics:
         self._A_bc = self._masked(self.A, self.mask)
         cg_op = (self._masked(self.A_lo, self.mask_lo) if self._mixed
                  else self._A_bc)
-        self._cg = make_cg(self.cg_loop, cg_op, self._precond)
+        self._cg = make_cg(self.cg_loop, cg_op, self._precond, CG_CHUNK,
+                           self._dot)
         self._cg_op = cg_op
 
     # ------------------------------------------------------------------
@@ -218,16 +256,27 @@ class LinearElastodynamics:
 
         return apply
 
+    def local_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (n_nodes, dim) vector (all of them
+        on one device and under the cell partition)."""
+        return self._lat.local(v) if self._lat is not None else v
+
+    def global_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The global vector of this rank's rows, on every rank."""
+        return self._lat.gather(v) if self._lat is not None else v
+
     def initial_state(self) -> LinearState:
         z = torch.zeros(
-            (self.space.n_nodes, self.space.dim), dtype=self.dtype, device=self.device
+            (self.n_rows, self.space.dim), dtype=self.dtype, device=self.device
         )
         return LinearState(displacement=z, velocity=z, old_load=z)
 
     def assemble_load(self, interface_data: torch.Tensor) -> torch.Tensor:
         """F_{n+1}: coupling load + body force (`linear_elasticity.cc:384-395`)."""
         if self.params.data_consistent:
-            F = self.face_load(interface_data)
+            # the surface integral on the whole interface data (gathered
+            # under the lattice partition: a once-per-step surface term)
+            F = self.local_rows(self.face_load(self.global_rows(interface_data)))
         else:
             F = interface_data
         if self.body_force_enabled:
@@ -261,6 +310,7 @@ class LinearElastodynamics:
                     mask * state.velocity, tol=CG_TOL,
                     max_iter=self._max_cg_iter, lo_dtype=self.solve_dtype,
                     preconditioner=self._precond, inner_solve=self._cg,
+                    dot=self._dot,
                 )
             else:
                 res = self._cg(rhs, mask * state.velocity, CG_TOL,
@@ -273,10 +323,11 @@ class LinearElastodynamics:
             + dt * (1.0 - theta) * state.velocity
         )
         self.host_syncs += 1
-        info = StepInfo(
-            iterations=iters, residual=resn,
-            linf_velocity=float(v_new.abs().max()),
-        )
+        vmax = v_new.abs().max()
+        if self._lat is not None:
+            vmax = self._lat.mesh.all_reduce(vmax, "max")
+        info = StepInfo(iterations=iters, residual=resn,
+                        linf_velocity=float(vmax))
         return LinearState(d_new, v_new, F_new), info
 
     def with_delta_t(self, delta_t: float) -> "LinearElastodynamics":
@@ -294,20 +345,6 @@ class LinearElastodynamics:
             cache[key] = type(self)(
                 dataclasses.replace(self.params, delta_t=key),
                 mesh=self.mesh, tags=self.tags, device=self.device,
-                cg_loop=self.cg_loop,
+                cg_loop=self.cg_loop, device_mesh=self.device_mesh,
             )
         return cache[key]
-
-
-def _check_ported(params: AllParameters) -> None:
-    """Raise for configurations whose code path is not ported yet."""
-    if params.element_backend == "gather":
-        raise NotImplementedError(
-            "element_backend='gather' is not ported to the PyTorch package "
-            "(ROADMAP Queue 1 item 13)"
-        )
-    if params.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1 is not ported to the PyTorch package (ROADMAP "
-            "Queue 1 item 14)"
-        )

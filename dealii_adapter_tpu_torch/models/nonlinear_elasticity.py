@@ -1,8 +1,7 @@
 """Finite-strain compressible Neo-Hookean dynamics: Newmark-beta + Newton.
 
-Counterpart of `dealii_adapter_tpu/models/nonlinear_elasticity.py`,
-restricted to its single-device structured production path. Per time
-step Newton solves
+Counterpart of `dealii_adapter_tpu/models/nonlinear_elasticity.py`. Per
+time step Newton solves
 
     R(delta) = F_ext(u) + F_body - F_int(u) - M a(delta) = 0,   u = u_n + delta
 
@@ -32,6 +31,28 @@ Newton tangent is chosen as the JAX package chooses it:
   residual for an f64 inner solve (the reference's default
   configuration);
 * the dense masked tangent for `type_lin="Direct"`.
+
+The element backend (`element_backend`): `auto`/`structured` runs the
+gather-free strided patches (`ops/structured.py`), `gather` the cells'
+node gathers and the transpose-gather plan (`ops/element_ops.py`), whose
+Newton tangent is the jvp one (the assembled tangent needs the lattice),
+and whose Neumann pull-back is the per-face gather formulation
+(`_external_force_gather`). The gather pull-back also runs on every
+backend when an interface side does not cover a whole lattice side.
+
+With a `device_mesh` (`parallel/partition.py:RankGroup`; `n_devices > 1`
+builds one from the initialized process group) the model runs the JAX
+package's two SPMD modes: `gather` the cell partition (the internal
+force with min det F, M and the preconditioner proxies cell-partitioned,
+`parallel/sharded_ops.py`; vectors replicated; the mixed residual
+schedule evaluates in f64 only, and MG raises, as in the JAX package),
+`auto`/`structured` the lattice partition (`parallel/lattice.py`: states,
+residuals and the CG's vectors distributed by rows, every structured
+operator and kernel, the assembled tangent's K1 and the V-cycle on
+per-rank slabs, norms and inner products all-reduced; a Neumann side
+along the split axis is evaluated by the rank that holds it). Every
+rank reads the same reduced scalars, so every rank takes the same Newton
+branch.
 
 The CG is preconditioned by the geometric-multigrid V-cycle (kernels K5
 and K3 in 3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
@@ -98,26 +119,40 @@ from ..ops.assembled_tangent import (
     pack_cell_tangents_T,
     tangent_bytes,
 )
-from ..ops.element_ops import ElementMatrices, assemble_diagonal, body_force_vector
-from ..ops.q2_structured import make_q2_operator
+from ..fem.dofspace import build_transpose_gather_plan
+from ..ops.element_ops import (
+    ElementMatrices,
+    apply_plan,
+    assemble_diagonal,
+    body_force_vector,
+)
+from ..ops.q2_structured import make_q2_operator, q2_lattice_operator
 from ..ops.structured import (
     _cells_shape,
     _grid_shape,
     extract_cell_patches_T,
-    make_structured_operator,
     overlap_add_T,
 )
 from ..ops.sumfact import (
+    SumfactMassOperator,
     internal_force_cellwise_sumfact,
     make_sumfact_basis,
-    make_sumfact_mass_operator,
+)
+from ..parallel.lattice import SlabOperator
+from ..parallel.partition import make_device_mesh
+from ..parallel.sharded_ops import sharded_cellwise_reduction
+from ..parallel.spmd import (
+    MG_CELL_PARTITION,
+    check_collective_loop,
+    element_operators,
 )
 from ..solvers.cg import (
     CG_CHUNK,
     CG_LOOPS,
+    _dot,
     chebyshev_preconditioner,
-    estimate_lambda_max,
     jacobi_preconditioner,
+    lambda_max,
     make_cg,
 )
 from .material import NeoHookean, det_and_inv_c, kinematics_c
@@ -209,7 +244,9 @@ class NonlinearElasticity:
     (module docstring); it exists so that both loops can be measured side
     by side, and the model never switches between them itself. `cg_chunk`
     (default `CG_CHUNK`) sets the graphs' chunk length; it exists for
-    `tools/cg_chunk_sweep.py`, which measures the lengths on this model."""
+    `tools/cg_chunk_sweep.py`, which measures the lengths on this model.
+    With a `device_mesh`, states and interface stresses are this rank's
+    rows (`local_rows`, `global_rows`)."""
 
     def __init__(
         self,
@@ -222,6 +259,7 @@ class NonlinearElasticity:
         mg_lam_max: Optional[Sequence[float]] = None,
         cg_loop: str = "graphs",
         cg_chunk: int = CG_CHUNK,
+        device_mesh=None,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
         hierarchy's power-iteration estimates."""
@@ -230,14 +268,19 @@ class NonlinearElasticity:
                 "The neo-Hookean solid doesn't support 'Force' data reading. "
                 "Please switch to 'Stress' data or use the linear model."
             )
-        _check_ported(params)
         self.params = params
         self.quasi_static = quasi_static
-        self.device = resolve_device(device)
+        if device_mesh is None and params.n_devices > 1:
+            device_mesh = make_device_mesh(params.n_devices, device=device)
+        self.device_mesh = device_mesh
+        self.device = resolve_device(
+            device if device is not None or device_mesh is None
+            else device_mesh.device)
         self.cg_loop = cg_loop
         if cg_loop not in CG_LOOPS:
             raise ValueError(
                 f"unknown cg_loop {cg_loop!r}; expected one of {CG_LOOPS}")
+        check_collective_loop(device_mesh, self.device, cg_loop)
         self.cg_chunk = int(cg_chunk)
         dim = params.dim
         if mesh is None:
@@ -259,6 +302,11 @@ class NonlinearElasticity:
                 f"{DIRECT_MAX_UNKNOWNS} unknowns (a sparse direct solver is "
                 "not ported, ROADMAP Queue 1 item 13)"
             )
+        if params.type_lin == "Direct" and device_mesh is not None and (
+                params.element_backend != "gather"):
+            raise NotImplementedError(
+                "type_lin='Direct' on the lattice partition is not ported "
+                "(ROADMAP Queue 1 item 17)")
         self.dtype = torch.float64 if params.dtype == "float64" else torch.float32
         self.material = NeoHookean(params.mu, params.nu, params.rho)
 
@@ -288,42 +336,64 @@ class NonlinearElasticity:
         h = np.asarray(self.mesh.cell_h)
         detJ = float(np.prod(h))
         dt = self.dtype
+        dev = self.device
         self._grid_shape = _grid_shape(space)
         self._reps_rev = _cells_shape(space)
+        # the element backend and SPMD mode (module docstring): `mkop(E,
+        # dtype)` builds its constant-element-matrix operators
+        mkop, lat, self._cells = element_operators(
+            params, space, self.device_mesh, dev)
+        self._lat = lat
+        self._structured = params.element_backend in ("auto", "structured")
+        # this rank's lattice (its slab under the lattice partition)
+        self._gs_loc = lat.slab_shape if lat is not None else self._grid_shape
+        self._rr_loc = lat.slab_reps if lat is not None else self._reps_rev
+        self.n_rows = lat.n_owned if lat is not None else space.n_nodes
+        self._dot = lat.mesh.dot(_dot) if lat is not None else _dot
+        self.cells = self.plan = None
+        if not self._structured and not self._cells:
+            self.cells = torch.as_tensor(space.cells, dtype=torch.long, device=dev)
+            self.plan = torch.as_tensor(space.plan, dtype=torch.long, device=dev)
 
         self.G = self._tensor(tab.dN / h[None, None, :])  # (q, npc, dim)
         self.w = self._tensor(tab.q_weights * detJ)  # (q,)
         elem = ElementMatrices(space, 0.0, 0.0, params.rho)
         # sum-factorized f64 internal force and mass (3D, `use_sumfact`):
         # per-axis 1D stages in place of the dense (q, npc) tabulation
-        # products, as in the JAX package
+        # products, as in the JAX package (structured backend only)
         self._sumfact = None
-        if dim == 3 and params.use_sumfact:
-            self._sumfact = make_sumfact_basis(tab, h, dt, self.device)
-            self.M = make_sumfact_mass_operator(space, params.rho, dt, self.device)
+        if dim == 3 and params.use_sumfact and self._structured:
+            self._sumfact = make_sumfact_basis(tab, h, dt, dev)
+            mass = SumfactMassOperator(
+                sf=self._sumfact, rho=float(params.rho), p=space.mesh.degree,
+                reps_rev=self._rr_loc, grid_shape=self._gs_loc, dim=dim)
+            self.M = SlabOperator(mass, lat) if lat is not None else mass
         else:
-            self.M = make_structured_operator(space, elem.M_e, dt, self.device)
+            self.M = mkop(elem.M_e, dt)
+        if self._cells:
+            self._sharded_internal = sharded_cellwise_reduction(
+                self.M.part, self.device_mesh,
+                _cell_kernel(self.G, self.w, self.material), has_min=True)
 
         bf = body_force_vector(space, elem, params.rho, params.body_force)
         self.body_force_enabled = bool(np.linalg.norm(params.body_force) > 1e-15)
-        self._body_vec = self._tensor(bf)
+        self._body_vec = self.local_rows(self._tensor(bf))
 
-        # structured Neumann pull-back: every interface side must cover a
-        # complete lattice side (true for the scenario meshes)
-        faces, _ = space.interface_faces(self.interface_id)
+        # the Neumann pull-back: per complete lattice side through strided
+        # boundary slabs (structured backends); the per-face gather
+        # formulation for the gather backend, or where a side is partial
+        faces, fnodes = space.interface_faces(self.interface_id)
         lf_np = np.asarray(faces[:, 1])
         sides = []
-        for f in sorted(set(lf_np.tolist())):
+        complete = self._structured and len(lf_np) > 0
+        for f in sorted(set(lf_np.tolist())) if complete else ():
             axis, side01 = f // 2, f % 2
             n_side = int(
                 np.prod([r for a2, r in enumerate(self.mesh.reps) if a2 != axis])
             )
             if int((lf_np == f).sum()) != n_side:
-                raise NotImplementedError(
-                    "interface faces that do not cover complete lattice sides "
-                    "need the gather Neumann path, which is not ported "
-                    "(ROADMAP Queue 1 item 13)"
-                )
+                complete = False
+                break
             sides.append(
                 dict(
                     ga=dim - 1 - axis,  # lattice axes are reversed
@@ -334,11 +404,18 @@ class NonlinearElasticity:
                     normal=tuple(float(x) for x in tab.face_normal_ref[f]),
                 )
             )
-        self._neumann_sides = sides
+        self._neumann_sides = sides if complete else None
+        if not complete:
+            if lat is not None:
+                raise NotImplementedError(
+                    "an interface that does not cover whole lattice sides "
+                    "needs the gather Neumann pull-back, which the lattice "
+                    "partition does not run (ROADMAP Queue 1 item 17)")
+            self._setup_gather_neumann(faces, fnodes, h, detJ)
 
-        self.mask = self._tensor(
+        self.mask = self.local_rows(self._tensor(
             space.dirichlet_mask(self.tags["clamped"], self.tags.get("out_of_plane"))
-        )
+        ))
 
         # inner-solve dtype: f32 copies of the operator constants (inexact
         # Newton; residual, norms and state stay in `dtype`)
@@ -347,8 +424,11 @@ class NonlinearElasticity:
         self._mixed_tangent = tdt != dt
         self._G_t, self._w_t = self.G.to(tdt), self.w.to(tdt)
         self.mask_t = self.mask.to(tdt)
-        self.M_t = (make_structured_operator(space, elem.M_e, tdt, self.device)
-                    if self._mixed_tangent else None)
+        self.M_t = mkop(elem.M_e, tdt) if self._mixed_tangent else None
+        if self._cells and self._mixed_tangent:
+            self._sharded_internal32 = sharded_cellwise_reduction(
+                self.M.part, self.device_mesh,
+                _cell_kernel(self._G_t, self._w_t, self.material, with_min=False))
 
         # the Newton tangent, as the JAX package selects it: the assembled
         # per-cell tangent in the solve dtype, in the layout of the selected
@@ -358,7 +438,8 @@ class NonlinearElasticity:
         self.tangent_kernel = tangent_kernel_id(params)
         self._use_assembled = False
         if (params.tangent_backend in ("auto", "assembled")
-                and params.type_lin == "CG" and self._mixed_tangent):
+                and params.type_lin == "CG" and self._mixed_tangent
+                and self._structured):
             kb = tangent_bytes(space, tdt, sym=params.tangent_block_symmetric)
             fits = kb <= params.assembled_tangent_max_gb * 1e9
             if not fits and params.tangent_backend == "assembled":
@@ -388,32 +469,38 @@ class NonlinearElasticity:
         lam_eff = self.material.kappa - 2.0 * params.mu / dim
         elemK = ElementMatrices(space, lam_eff, params.mu, params.rho)
         Ke_precond = elemK.K_e + a1 * elem.M_e
-        diag = self.mask * self._tensor(assemble_diagonal(space, Ke_precond)) + (
-            1.0 - self.mask
-        )
+        diag = self.mask * self.local_rows(
+            self._tensor(assemble_diagonal(space, Ke_precond))) + (1.0 - self.mask)
         sdt = tdt
         if params.preconditioner == "Chebyshev":
-            proxy = make_structured_operator(space, Ke_precond, sdt, self.device)
+            proxy = mkop(Ke_precond, sdt)
             mask_s = self.mask.to(sdt)
             diag_s = diag.to(sdt)
 
             def proxy_bc(v):
                 return mask_s * proxy(mask_s * v) + (1.0 - mask_s) * v
 
-            lam = estimate_lambda_max(proxy_bc, diag_s, (space.n_nodes, dim))
+            lam = lambda_max(proxy_bc, diag_s, (space.n_nodes, dim), lat)
             self._precond = chebyshev_preconditioner(
                 proxy_bc, diag_s, lam,
                 degree=params.cheb_degree, eig_ratio=params.cheb_eig_ratio,
             )
         elif params.preconditioner == "MG":
+            if self._cells:
+                raise NotImplementedError(MG_CELL_PARTITION)
             from ..solvers.multigrid import GeometricMultigrid
 
             pdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
                 params.precond_dtype, sdt
             )
-            # the MG fine proxy: kernel K5 for 3D Q2
-            proxy = make_q2_operator(space, Ke_precond, pdt, self.device)
+            # the MG fine proxy: kernel K5 for 3D Q2 (on this rank's slab
+            # under the lattice partition), whatever the element backend
+            proxy = (make_q2_operator(space, Ke_precond, pdt, dev) if lat is None
+                     else SlabOperator(q2_lattice_operator(
+                         Ke_precond, lat.slab_shape, space.mesh.degree, pdt,
+                         dev), lat))
             fmask = self.mask.to(pdt)
+            self._fine_proxy = proxy
 
             def proxy_bc(v):
                 return fmask * proxy(fmask * v) + (1.0 - fmask) * v
@@ -426,7 +513,7 @@ class NonlinearElasticity:
                 coarse_size=params.mg_coarse_size, fem_sem=params.mg_fem_sem,
                 skip_fine_smoothing=params.mg_skip_fine_smoothing,
                 level_backend=params.mg_level_backend, lam_max=mg_lam_max,
-                device=self.device,
+                device=dev, lattice=lat,
             )
         elif params.preconditioner == "None":
             self._precond = None
@@ -454,10 +541,11 @@ class NonlinearElasticity:
         that kernel -> overlap-add."""
         dim = self.space.dim
         deg = self.mesh.degree
-        gs, rr = self._grid_shape, self._reps_rev
+        gs, rr = self._gs_loc, self._rr_loc  # this rank's lattice
         npc = self.space.tab.n_nodes
         mask_t = self.mask_t
         kern = self.tangent_kernel
+        slab, own = self._slab, self._own
         sym = kern in ("K2", "K2b")
         assemble = assemble_cell_tangents_sym if sym else assemble_cell_tangents
         # K1c and K2b read the blocks as the assembly returns them
@@ -473,7 +561,7 @@ class NonlinearElasticity:
         }[kern]
 
         def assemble_Kt(u_t, out=None):
-            ut_p = extract_cell_patches_T(u_t.reshape(gs + (dim,)), deg, rr)
+            ut_p = extract_cell_patches_T(slab(u_t), deg, rr)
             if layout is None:
                 return assemble(
                     ut_p, self._G_t, self._w_t, self.material,
@@ -487,11 +575,11 @@ class NonlinearElasticity:
         def make_tangent_matvec(Kt):
             def K32(v):
                 mv = mask_t * v
-                pv = extract_cell_patches_T(mv.reshape(gs + (dim,)), deg, rr)
+                pv = extract_cell_patches_T(slab(mv), deg, rr)
                 c = pv.shape[-1]
                 o = apply(Kt, pv.reshape(dim * npc, c))
-                Kv = overlap_add_T(o.reshape(dim, npc, c), deg, rr, gs)
-                return mask_t * Kv.reshape(-1, dim) + (1.0 - mask_t) * v
+                Kv = own(overlap_add_T(o.reshape(dim, npc, c), deg, rr, gs))
+                return mask_t * Kv + (1.0 - mask_t) * v
 
             return K32
 
@@ -550,7 +638,7 @@ class NonlinearElasticity:
             a1 = 0.0 if self.quasi_static else self.alpha_1
 
             def force(u):
-                return model._int_force_t_J(u)[0]
+                return model._int_force_t(u)
 
             def K(v):
                 mv = mask_t * v
@@ -584,40 +672,92 @@ class NonlinearElasticity:
     # physics
     # ------------------------------------------------------------------
 
+    # the element backend and the partition: this rank's lattice (`_slab`
+    # fills its halo, `_own` sums the shared plane back), the global MIN
+
+    def _slab(self, u):
+        """This rank's lattice grid of a vector (the slab with its halo
+        under the lattice partition)."""
+        if self._lat is None:
+            return u.reshape(self._grid_shape + (u.shape[-1],))
+        return self._lat.fill(u)
+
+    def _own(self, y):
+        """This rank's rows of an output computed on its lattice."""
+        if self._lat is None:
+            return y.reshape(-1, y.shape[-1])
+        return self._lat.interface_sum(y)
+
+    def _gmin(self, m):
+        return self._lat.mesh.all_reduce(m, "min") if self._lat is not None else m
+
+    def local_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (n_nodes, dim) vector (all of them
+        on one device and under the cell partition)."""
+        return self._lat.local(v) if self._lat is not None else v
+
+    def global_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """The global vector of this rank's rows, on every rank."""
+        return self._lat.gather(v) if self._lat is not None else v
+
+    def _cell_force(self, u, G, w, sumfact=None):
+        """(internal force, min det F) with the tabulation (G, w) or the
+        sum-factorized basis, on the element backend (the cell partition
+        has its own sharded reductions)."""
+        dim, p = u.shape[-1], self.mesh.degree
+        if self.plan is not None:  # gather backend
+            n_cells, npc = self.cells.shape
+            ut = u[self.cells].permute(2, 1, 0)  # (dim, npc, n_cells)
+            rt, mJ = internal_force_cellwise_T(ut, G, w, self.material)
+            r = apply_plan(rt.permute(2, 1, 0).reshape(n_cells * npc, dim),
+                           self.plan)
+            return r, mJ
+        gs, rr = self._gs_loc, self._rr_loc
+        ut = extract_cell_patches_T(self._slab(u), p, rr)
+        if sumfact is not None:
+            rt, mJ = internal_force_cellwise_sumfact(ut, sumfact, self.material)
+        else:
+            rt, mJ = internal_force_cellwise_T(ut, G, w, self.material)
+        return self._own(overlap_add_T(rt, p, rr, gs)), self._gmin(mJ)
+
     def _int_force_t_J(self, u):
         """Internal force and min det F in the solve dtype."""
-        dim, p = u.shape[-1], self.mesh.degree
-        gs, rr = self._grid_shape, self._reps_rev
-        ut = extract_cell_patches_T(u.reshape(gs + (dim,)), p, rr)
-        rt, mJ = internal_force_cellwise_T(ut, self._G_t, self._w_t, self.material)
-        return overlap_add_T(rt, p, rr, gs).reshape(-1, dim), mJ
+        return self._cell_force(u, self._G_t, self._w_t)
+
+    def _int_force_t(self, u):
+        """The solve-dtype internal force (the mixed jvp tangent's)."""
+        if self._cells:
+            return self._sharded_internal32(u)
+        return self._int_force_t_J(u)[0]
 
     def _internal_force_and_J(self, u: torch.Tensor):
-        dim, p = u.shape[-1], self.mesh.degree
-        gs, rr = self._grid_shape, self._reps_rev
-        ut = extract_cell_patches_T(u.reshape(gs + (dim,)), p, rr)
-        if self._sumfact is not None:
-            rt, min_J = internal_force_cellwise_sumfact(ut, self._sumfact,
-                                                        self.material)
-        else:
-            rt, min_J = internal_force_cellwise_T(ut, self.G, self.w,
-                                                  self.material)
-        return overlap_add_T(rt, p, rr, gs).reshape(-1, dim), min_J
+        if self._cells:
+            return self._sharded_internal(u)
+        return self._cell_force(u, self.G, self.w, self._sumfact)
 
     def external_force(self, u: torch.Tensor, stress: torch.Tensor) -> torch.Tensor:
         """Nanson pull-back surface loading: the spatial interface traction
         scaled by ||J F^{-T} N|| and integrated in the reference
         configuration, per complete lattice side through strided boundary
-        slabs. F is detached: the tangent omits the Neumann linearization,
-        as the reference does."""
+        slabs (on the lattice partition a side along the split axis by the
+        rank that holds it, the others by every rank on its slab), or per
+        face through gathers (`_external_force_gather`). F is detached:
+        the tangent omits the Neumann linearization, as the reference
+        does."""
+        if self._neumann_sides is None:
+            return self._external_force_gather(u, stress)
         dim = u.shape[-1]
         p = self.mesh.degree
-        gs, rr = self._grid_shape, self._reps_rev
-        u_grid = u.reshape(gs + (dim,))
-        s_grid = stress.reshape(gs + (dim,))
+        gs, rr = self._gs_loc, self._rr_loc
+        lat = self._lat
+        u_grid = self._slab(u)
+        s_grid = self._slab(stress)
         out = torch.zeros(gs + (dim,), dtype=u.dtype, device=u.device)
         for side in self._neumann_sides:
             ga, sd = side["ga"], side["side"]
+            if lat is not None and ga == lat.axis and (
+                    (sd == 0 and lat.rank > 0) or (sd == 1 and lat.top)):
+                continue  # another rank holds this side
             Gf, Nf, wf, normal = side["Gf"], side["Nf"], side["wf"], side["normal"]
             vol_sl = [slice(None)] * dim
             vol_sl[ga] = slice(0, p + 1) if sd == 0 else slice(-(p + 1), None)
@@ -647,7 +787,55 @@ class NonlinearElasticity:
                 [Nf.T @ (wscale * (Nf @ tn[d])) for d in range(dim)], dim=0
             )  # (dim, npf, cs)
             out[tuple(pl_sl)] += overlap_add_T(rf, p, plane_reps, plane_shape)
-        return out.reshape(-1, dim)
+        return self._own(out)
+
+    def _setup_gather_neumann(self, faces, fnodes, h, detJ):
+        """The constants of the per-face Neumann pull-back (the JAX
+        package's `_setup_device_constants`), component-separated with the
+        faces trailing."""
+        tab, dt = self.space.tab, self.dtype
+        lf = faces[:, 1]
+        self.face_nodes = torch.as_tensor(fnodes, device=self.device)
+        self.face_cell_conn = torch.as_tensor(
+            self.space.cells[faces[:, 0]], dtype=torch.long, device=self.device)
+        face_G = tab.face_dN / h[None, None, None, :]  # (2dim, nqf, npc, dim)
+        # (dim, nqf, npc, n_if)
+        self.face_G_T = self._tensor(np.transpose(face_G[lf], (3, 1, 2, 0)))
+        self.face_normal_T = self._tensor(np.transpose(tab.face_normal_ref[lf]))
+        self.face_Nf = self._tensor(tab.face_N[0][:, tab.face_nodes[0]])
+        areaJ = detJ / h[lf // 2]
+        self.face_wJ_T = self._tensor(
+            (tab.face_q_weights[None, :] * areaJ[:, None]).T)  # (nqf, n_if)
+        fplan, _ = build_transpose_gather_plan(fnodes, self.space.n_nodes)
+        self.face_plan = torch.as_tensor(fplan, device=self.device)
+
+    def _external_force_gather(self, u: torch.Tensor,
+                               stress: torch.Tensor) -> torch.Tensor:
+        """The Nanson pull-back per interface face: the face cells' node
+        values gathered, gradients, J F^{-T} N and the traction at the
+        face quadrature points in the (nqf, n_if) component layout, and the
+        face contributions reduced into the nodes by the faces' transpose-
+        gather plan (the JAX package's `_external_force_gather`)."""
+        dim = u.shape[-1]
+        conn = self.face_cell_conn  # (n_if, npc)
+        uc = [u[:, d][conn].T.detach() for d in range(dim)]  # (npc, n_if)
+        npc = conn.shape[1]
+        grad = [[sum(self.face_G_T[e, :, n, :] * uc[d][n][None, :]
+                     for n in range(npc)) for e in range(dim)]
+                for d in range(dim)]
+        F = [[grad[i][j] + (1.0 if i == j else 0.0) for j in range(dim)]
+             for i in range(dim)]
+        Jf, F_inv = det_and_inv_c(F)
+        n_star = [Jf * sum(F_inv[k][d] * self.face_normal_T[k][None, :]
+                           for k in range(dim)) for d in range(dim)]
+        scale = torch.sqrt(sum(n_star[d] ** 2 for d in range(dim)))
+        tn = [stress[:, d][self.face_nodes].T for d in range(dim)]  # (npf, n_if)
+        wscale = self.face_wJ_T * scale
+        Nf = self.face_Nf
+        rf = [Nf.T @ (wscale * (Nf @ tn[d])) for d in range(dim)]
+        n_if, npf = self.face_nodes.shape
+        rcell = torch.stack(rf, dim=-1).permute(1, 0, 2)  # (n_if, npf, dim)
+        return apply_plan(rcell.reshape(n_if * npf, dim), self.face_plan)
 
     def _acc(self, delta, state):
         return (
@@ -685,7 +873,7 @@ class NonlinearElasticity:
 
     def initial_state(self) -> NonlinearState:
         z = torch.zeros(
-            (self.space.n_nodes, self.space.dim), dtype=self.dtype, device=self.device
+            (self.n_rows, self.space.dim), dtype=self.dtype, device=self.device
         )
         return NonlinearState(z, z, z)
 
@@ -695,7 +883,7 @@ class NonlinearElasticity:
         choice, kept for decision parity)."""
         v32 = v.to(torch.float32).reshape(-1)
         self.host_syncs += 1
-        return float(torch.sqrt(torch.dot(v32, v32)).to(torch.float64))
+        return float(torch.sqrt(self._dot(v32, v32)).to(torch.float64))
 
     def _scalar(self, x: torch.Tensor) -> float:
         self.host_syncs += 1
@@ -709,9 +897,12 @@ class NonlinearElasticity:
         use_cg = params.type_lin == "CG"
         ew = params.newton_forcing == "ew"
         f64_window = float(params.newton_residual_f64_window)
+        # the cell partition evaluates in f64 only, as the JAX package's
+        # shard_map mode does (it has no f32 residual)
         mixed_resid = (
             use_cg
             and self._mixed_tangent
+            and not self._cells
             and params.newton_residual == "mixed"
         )
         norm = self._norm
@@ -880,7 +1071,7 @@ class NonlinearElasticity:
                 return K(v.to(tdt)).to(pdt)
 
             precond = precond.with_fine_operator(fine_tangent_op)
-        return make_cg(self.cg_loop, K, precond, self.cg_chunk)
+        return make_cg(self.cg_loop, K, precond, self.cg_chunk, self._dot)
 
     def step(
         self, state: NonlinearState, interface_stress: torch.Tensor
@@ -920,22 +1111,24 @@ class NonlinearElasticity:
                 mesh=self.mesh, tags=self.tags,
                 quasi_static=self.quasi_static, device=self.device,
                 cg_loop=self.cg_loop, cg_chunk=self.cg_chunk,
+                device_mesh=self.device_mesh,
             )
         return cache[key]
 
 
-def _check_ported(params: AllParameters) -> None:
-    """Raise for configurations whose code path is not ported yet."""
-    unported = [
-        (params.element_backend == "gather", "element_backend='gather'",
-         "Queue 1 item 13"),
-        (params.n_devices > 1, "n_devices > 1", "Queue 1 item 14"),
-    ]
-    for flag, name, item in unported:
-        if flag:
-            raise NotImplementedError(
-                f"{name} is not ported to the PyTorch package (ROADMAP {item})"
-            )
+def _cell_kernel(G, w, material, with_min=True):
+    """The internal force on a cell block of the cell partition (`cells`,
+    (cpd, npc)): (cpd * npc, dim) per-cell values, and min det F
+    `with_min`."""
+
+    def kernel(u, cells):
+        cpd, npc = cells.shape
+        ut = u[cells].permute(2, 1, 0)  # (dim, npc, cpd)
+        rt, mJ = internal_force_cellwise_T(ut, G, w, material)
+        r = rt.permute(2, 1, 0).reshape(cpd * npc, u.shape[-1])
+        return (r, mJ) if with_min else r
+
+    return kernel
 
 
 def tangent_kernel_id(params: AllParameters) -> str:

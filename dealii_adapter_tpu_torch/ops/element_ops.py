@@ -1,11 +1,15 @@
-"""Host-side (numpy, float64) element matrices and assembly helpers.
+"""Element matrices, assembly helpers and the gather element backend.
 
-The numpy parts of `dealii_adapter_tpu/ops/element_ops.py` that the
-structured production path needs, copied unchanged: the exact constant
-element matrices of a uniform axis-aligned cell, the assembled diagonal,
-the dense assembly (multigrid coarse solve, tests) and the body-force
-load — and, on the device, the consistent interface-traction load of the
-linear model (`FaceLoading`). The other device-side operators live in
+Counterpart of `dealii_adapter_tpu/ops/element_ops.py`. Host-side (numpy,
+float64), copied unchanged: the exact constant element matrices of a
+uniform axis-aligned cell, the assembled diagonal, the dense assembly
+(multigrid coarse solve, tests) and the body-force load. On the device:
+the consistent interface-traction load of the linear model
+(`FaceLoading`) and the operators of `element_backend="gather"`
+(`apply_plan`, `AssembledOperator`, `make_operator`): a gather of the
+cells' node values, one product with the element matrix, and the
+transpose-gather reduction `flat[plan].sum(1)` into the nodes, which is
+deterministic and scatter-free. The structured operators live in
 ops/structured.py.
 
 Element DoF ordering: (local node, component), component fastest — i.e.
@@ -120,6 +124,53 @@ def body_force_vector(
     nodal_w = flat[space.plan].sum(axis=1)  # (n_nodes, 1)
     bf = np.asarray(body_force[: space.dim], dtype=np.float64)
     return rho * nodal_w * bf[None, :]
+
+
+def apply_plan(cell_values: torch.Tensor, plan: torch.Tensor) -> torch.Tensor:
+    """Transpose-gather reduction: (n_flat, dim) cell-local values ->
+    (n_nodes, dim) global nodal sums. `plan` indexes into cell_values with
+    one extra zero sentinel row appended here."""
+    dim = cell_values.shape[-1]
+    flat = torch.cat([cell_values, cell_values.new_zeros((1, dim))])
+    return flat[plan].sum(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AssembledOperator:
+    """Matrix-free action of a constant element matrix over all cells
+    through the gather plan: K, M and the stepping matrix of the linear
+    model, the mass and preconditioner proxies of the Neo-Hookean model
+    under `element_backend="gather"`. The per-cell product `ucell @ E` is
+    a plain matmul (in f32 a true f32 one: the package turns TF32 off)."""
+
+    cells: torch.Tensor  # (n_cells, npc) int64
+    plan: torch.Tensor  # (n_nodes, max_valence)
+    E: torch.Tensor  # (edofs, edofs) element matrix (symmetric)
+    dim: int
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        n_cells, npc = self.cells.shape
+        ucell = u[self.cells].reshape(n_cells, npc * self.dim)
+        rcell = ucell @ self.E
+        return apply_plan(rcell.reshape(n_cells * npc, self.dim), self.plan)
+
+    def diagonal(self) -> torch.Tensor:
+        """(n_nodes, dim) diagonal of the assembled global matrix."""
+        n_cells, npc = self.cells.shape
+        d = torch.diagonal(self.E).reshape(npc, self.dim)
+        dcell = d.expand(n_cells, npc, self.dim)
+        return apply_plan(dcell.reshape(n_cells * npc, self.dim), self.plan)
+
+
+def make_operator(space: DofSpace, E: np.ndarray, dtype=torch.float64,
+                  device=None) -> AssembledOperator:
+    device = resolve_device(device)
+    return AssembledOperator(
+        cells=torch.as_tensor(space.cells, dtype=torch.long, device=device),
+        plan=torch.as_tensor(space.plan, dtype=torch.long, device=device),
+        E=torch.as_tensor(np.asarray(E), dtype=dtype, device=device),
+        dim=space.dim,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,8 +7,8 @@ Counterpart of `dealii_adapter_tpu/ops/pallas_structured.py`
 y = A u for a constant element matrix (24 x 24 in 3D, 8 x 8 in 2D) over a
 Q1 node lattice:
 
-* on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O, f32
-  accumulation; the level's coefficients are a runtime argument, so one
+* on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O, or
+  bf16 in and f32 out, f32 accumulation; the level's coefficients are a runtime argument, so one
   kernel serves every level): K3 in 3D and K4b in 2D, the folded 27- and
   9-point stencils with the per-node-class tables K6 reads
   (`ops/stencil.py:class_tables`, laid out by `kernel_table`); K4, the 3D
@@ -42,11 +42,13 @@ class StructuredKernelOperator:
     """y = A u over a `dim`-dimensional lattice of degree-`p` cells, through
     a hand-written kernel on the card and `StructuredOperator` on the CPU.
     Subclasses name the kernel entry point, whose arguments are (u, y,
-    *coefficient pointers, *lattice, io_bf16, stream), say what it reads
+    *coefficient pointers, *lattice, io mode, stream), say what it reads
     (`_coefficients`) and keep its launch count. Everything but u, y and
-    the stream is bound once, in `__init__`; a call checks u, allocates y
-    with `torch.empty_like`, launches on PyTorch's current stream and never
-    synchronises, so that whole V-cycles can be captured in a CUDA graph."""
+    the stream is bound once, in `__init__`; a call checks u, allocates y,
+    launches on PyTorch's current stream and never synchronises, so that
+    whole V-cycles can be captured in a CUDA graph. `out_dtype` float32
+    with a bf16 u returns the kernel's f32 accumulation unrounded (the
+    lattice partition adds its slabs' partial sums in f32)."""
 
     p: int
     dim: int
@@ -80,14 +82,15 @@ class StructuredKernelOperator:
         """The device arrays the kernel reads, in argument order."""
         return (self.E_dev,)
 
-    def plain(self, u: torch.Tensor) -> torch.Tensor:
+    def plain(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
         """The plain PyTorch version: f32 (f64) compute, output rounded to
-        the input dtype."""
-        return self._plain(u.to(self._plain.EpT.dtype)).to(u.dtype)
+        `out_dtype` (default: the input dtype)."""
+        out_dtype = u.dtype if out_dtype is None else out_dtype
+        return self._plain(u.to(self._plain.EpT.dtype)).to(out_dtype)
 
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+    def __call__(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
         if u.device.type == "cpu":
-            return self.plain(u)
+            return self.plain(u, out_dtype)
         if not u.is_cuda:
             raise ValueError(f"{type(self).__name__}: unsupported device {u.device}")
         if u.dtype not in _KERNEL_DTYPES:
@@ -105,13 +108,14 @@ class StructuredKernelOperator:
                 f"{type(self).__name__}: operator on {self.E_dev.device}, "
                 f"u on {u.device}"
             )
+        out_dtype = u.dtype if out_dtype is None else out_dtype
+        io = _build.io_mode(u.dtype, out_dtype)
         lib = _build.load_library()
         if lib is not self._lib:  # (re)bound library: look the entry up once
             self._lib, self._fn = lib, getattr(lib, self.entry)
-        y = torch.empty_like(u)
+        y = torch.empty_like(u, dtype=out_dtype)
         err = self._fn(
-            u.data_ptr(), y.data_ptr(), *self._args,
-            u.dtype == torch.bfloat16,
+            u.data_ptr(), y.data_ptr(), *self._args, io,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
         _build.check(err, self.entry)
@@ -181,14 +185,22 @@ class Q1PlaneOperator(StructuredKernelOperator):
         return _folded_table(E, 3, self.device)
 
 
+def q1_lattice_operator(
+    E: np.ndarray, grid_shape, dtype=torch.float32, device=None
+) -> StructuredKernelOperator:
+    """The Q1 level operator of a 2D (K4b) or 3D (K3) Q1 node lattice
+    (a whole level, or one rank's slab of it)."""
+    cls = Q1StructuredOperator2D if len(grid_shape) == 2 else Q1StructuredOperator
+    return cls(E, grid_shape, dtype, device)
+
+
 def make_q1_operator(
     space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
 ) -> StructuredKernelOperator:
     """The Q1 level operator of a 2D (K4b) or 3D (K3) Q1 space."""
     if space.mesh.degree != 1:
         raise ValueError(f"Q1 operator on a degree-{space.mesh.degree} space")
-    cls = Q1StructuredOperator2D if space.dim == 2 else Q1StructuredOperator
-    return cls(E, _grid_shape(space), dtype, device)
+    return q1_lattice_operator(E, _grid_shape(space), dtype, device)
 
 
 def make_q1_plane_operator(

@@ -6,9 +6,11 @@ Counterpart of `dealii_adapter_tpu/ops/pallas_phase.py`
 matrix over a 3D Q2 node lattice:
 
 * on a CUDA tensor it launches csrc/q2_structured.cu, which works on the
-  nodal lattice directly (no phase split): with bf16 I/O on the tensor
+  nodal lattice directly (no phase split): with bf16 input on the tensor
   cores, the element matrix split into two bf16 terms
-  (`q2_mma_fragments`), with f32 I/O in f32 FMA; f32 accumulation both;
+  (`q2_mma_fragments`), its output bf16 or (the lattice partition's
+  slabs) the f32 accumulation; with f32 I/O in f32 FMA; f32 accumulation
+  all;
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, in f32 (f64 for f64 I/O), rounded to the I/O
   dtype.
@@ -93,20 +95,27 @@ class _PlainDegreeOperator:
         )
         self.dtype = dtype
 
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
-        return self._op(u.to(self.dtype)).to(u.dtype)
+    def __call__(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        out_dtype = u.dtype if out_dtype is None else out_dtype
+        return self._op(u.to(self.dtype), out_dtype).to(out_dtype)
 
     def diagonal(self) -> torch.Tensor:
         return self._op.diagonal()
 
 
+def q2_lattice_operator(E: np.ndarray, grid_shape, p: int,
+                        dtype=torch.float32, device=None):
+    """MG fine-level operator of a degree-p node lattice (a whole level, or
+    one rank's slab of it): `Q2StructuredOperator` for 3D Q2, the plain
+    structured operator otherwise."""
+    if p == 2 and len(grid_shape) == 3:
+        return Q2StructuredOperator(E, grid_shape, dtype, device)
+    return _PlainDegreeOperator(E, grid_shape, p, dtype, device)
+
+
 def make_q2_operator(
     space: DofSpace, E: np.ndarray, dtype=torch.float32, device=None
 ):
-    """MG fine-level operator of a space: `Q2StructuredOperator` for 3D Q2,
-    the plain structured operator otherwise."""
-    if space.mesh.degree == 2 and space.dim == 3:
-        return Q2StructuredOperator(E, _grid_shape(space), dtype, device)
-    return _PlainDegreeOperator(
-        E, _grid_shape(space), space.mesh.degree, dtype, device
-    )
+    """MG fine-level operator of a space (`q2_lattice_operator`)."""
+    return q2_lattice_operator(E, _grid_shape(space), space.mesh.degree,
+                               dtype, device)

@@ -241,8 +241,9 @@ class StencilQ1Operator:
             kernel_table(self.class_tables), device=self.device
         )
 
-    def plain(self, u: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version (see the module docstring)."""
+    def plain(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        """The plain PyTorch version (see the module docstring), output in
+        `out_dtype` (default: the input dtype)."""
         S3, faces, edges, corners = self.tables
         nd, dim, shape, cdt = self.ndim, self.dim, self.grid_shape, self.cdt
         g = u.reshape(shape + (dim,))
@@ -263,11 +264,13 @@ class StencilQ1Operator:
             idx = tuple(_sel(s, n) for s, n in zip(sides, shape))
             corr = torch.as_tensor(C, dtype=cdt, device=u.device) @ g[idx].to(cdt)
             out[idx] += sign * corr
-        return out.reshape(-1, dim).to(u.dtype)
+        return out.reshape(-1, dim).to(u.dtype if out_dtype is None else out_dtype)
 
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+    def __call__(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        """y = A u; `out_dtype` float32 with a bf16 u returns the f32
+        accumulation unrounded (the lattice partition's slabs)."""
         if u.device.type == "cpu":
-            return self.plain(u)
+            return self.plain(u, out_dtype)
         if not u.is_cuda:
             raise ValueError(f"StencilQ1Operator: unsupported device {u.device}")
         if u.dtype not in _KERNEL_DTYPES:
@@ -286,14 +289,16 @@ class StencilQ1Operator:
                 f"StencilQ1Operator: operator on {self._tables_dev.device}, "
                 f"u on {u.device}"
             )
-        from ..kernels._build import check, load_library, stream_of
+        from ..kernels._build import check, io_mode, load_library, stream_of
 
+        out_dtype = u.dtype if out_dtype is None else out_dtype
+        io = io_mode(u.dtype, out_dtype)
         nz = self.grid_shape[0] if self.ndim == 3 else 1
         ny, nx = self.grid_shape[-2:]
-        y = torch.empty_like(u)
+        y = torch.empty_like(u, dtype=out_dtype)
         err = load_library().dat_q1_stencil(
             u.data_ptr(), y.data_ptr(), self._tables_dev.data_ptr(), nz, ny,
-            nx, self.ndim, int(u.dtype == torch.bfloat16), stream_of(u),
+            nx, self.ndim, io, stream_of(u),
         )
         check(err, "dat_q1_stencil")
         StencilQ1Operator.launches += 1

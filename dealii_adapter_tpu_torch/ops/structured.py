@@ -94,7 +94,10 @@ class StructuredOperator:
     reps_rev: Tuple[int, ...]
     grid_shape: Tuple[int, ...]
 
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+    def __call__(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        """y = A u in u's dtype; `out_dtype` float32 with a bf16 u keeps the
+        products' f32 sums and overlap-adds them in f32 (the lattice
+        partition's slabs)."""
         dim = self.dim
         edofs = self.EpT.shape[0]
         ut = extract_cell_patches_T(
@@ -109,7 +112,9 @@ class StructuredOperator:
             # order, and a sum near a rounding boundary then lands on the
             # next bf16 value (4 to 585 of 28,322 entries of one 2D bf16
             # V-cycle at scale 8 on the CPU differed)
-            r = (self.EpT.float() @ flat.float()).to(torch.bfloat16)
+            r = self.EpT.float() @ flat.float()
+            if out_dtype != torch.float32:
+                r = r.to(torch.bfloat16)
         else:
             r = self.EpT @ flat
         r = r.reshape(dim, npc, n_cells)

@@ -26,6 +26,13 @@ class NewtonDivergedError(RuntimeError):
     the AssertThrow at `nonlinear_elasticity.cc:497-498`."""
 
 
+# the coupled run (and with it the CLI and the preCICE adapter) exchanges
+# interface data of one process; on several ranks it is not ported
+MULTI_RANK_COUPLING = (
+    "the coupled run, the CLI and the preCICE adapter on several ranks are "
+    "not ported (ROADMAP Queue 1 item 16)")
+
+
 def coupled_run(
     model,
     adapter: Adapter,
@@ -45,6 +52,8 @@ def coupled_run(
     own dt until the window closes (the design headroom noted at
     `adapter.h:104-107`).
     """
+    if getattr(model, "device_mesh", None) is not None:
+        raise NotImplementedError(MULTI_RANK_COUPLING)
     params = model.params
     time = Time(params.end_time, params.delta_t)
     if state is None:

@@ -25,6 +25,10 @@ whole solve inside one `lax.while_loop`. Here:
   solve and replayed for every later one; a capture or replay that fails
   raises. On the CPU the same code runs eagerly.
 
+Every solve and `estimate_lambda_max` take the inner product as `dot`
+(default `_dot`): on row-distributed vectors (the lattice partition) the
+local sum plus one all-reduce (`parallel/partition.py:RankGroup.dot`).
+
 Convergence follows deal.II's SolverControl: iterate until the l2 norm of
 the residual drops below an absolute tolerance or the cap is hit.
 `ir_cg_solve` wraps a low-precision CG in high-precision defect
@@ -103,6 +107,7 @@ def random_start(shape: Tuple[int, ...], dtype, device, seed: int = 0):
 def estimate_lambda_max(
     operator: Callable, diag: torch.Tensor, shape: Tuple[int, ...],
     iters: int = 12, seed: int = 0, v0: Optional[torch.Tensor] = None,
+    dot: Callable = _dot,
 ) -> float:
     """Power-iteration estimate of lambda_max(diag^{-1} A), computed in
     `diag.dtype`. `v0` is the start vector; by default it is drawn from a
@@ -113,17 +118,32 @@ def estimate_lambda_max(
     if v0 is None:
         v0 = random_start(shape, diag.dtype, diag.device, seed)
     v = v0.to(diag.device, diag.dtype)
-    v = v / torch.sqrt(_dot(v, v))
+    v = v / torch.sqrt(dot(v, v))
     for _ in range(iters):
         w = inv * operator(v)
-        v = w / torch.sqrt(_dot(w, w))
+        v = w / torch.sqrt(dot(w, w))
     w = inv * operator(v)
-    return float(_dot(v, w) / _dot(v, v))
+    return float(dot(v, w) / dot(v, v))
+
+
+def lambda_max(operator: Callable, diag: torch.Tensor,
+               shape: Tuple[int, ...], lattice=None) -> float:
+    """`estimate_lambda_max` of a global (n_nodes, dim) operator; on the
+    lattice partition (`lattice`, a `parallel/lattice.py:SlabLayout`) from
+    this rank's rows of the global start vector, with the global inner
+    product, so every rank gets the one-device estimate up to summation
+    order."""
+    if lattice is None:
+        return estimate_lambda_max(operator, diag, shape)
+    v0 = lattice.local(random_start(shape, diag.dtype, diag.device))
+    return estimate_lambda_max(operator, diag, shape, v0=v0,
+                               dot=lattice.mesh.dot(_dot))
 
 
 def cg_solve(
     operator: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     max_iter: int, preconditioner: Optional[Callable] = None,
+    dot: Callable = _dot,
 ) -> CGResult:
     """Preconditioned CG solving operator(x) = b to ||r||_2 <= tol
     (absolute, rounded to b's dtype)."""
@@ -133,20 +153,20 @@ def cg_solve(
     r = b - operator(x0)
     z = M(r)
     p = z
-    rz = _dot(r, z)
-    resn = torch.sqrt(_dot(r, r)).item()
+    rz = dot(r, z)
+    resn = torch.sqrt(dot(r, r)).item()
     k = 0
     while resn > tol and k < max_iter:
         Ap = operator(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
-        resn = torch.sqrt(_dot(r, r)).item()
+        resn = torch.sqrt(dot(r, r)).item()
         k += 1
     return CGResult(x=x, iterations=k, residual_norm=resn, converged=resn <= tol,
                     host_syncs=k + 1)
@@ -157,6 +177,7 @@ def ir_cg_solve(
     x0: torch.Tensor, tol: float, max_iter: int, lo_dtype=torch.float32,
     preconditioner: Optional[Callable] = None, inner_rtol: float = 1e-6,
     max_refinements: int = 6, inner_solve: Optional[Callable] = None,
+    dot: Callable = _dot,
 ) -> CGResult:
     """Mixed-precision iterative refinement (defect correction): each round
     solves the defect equation with a preconditioned CG in `lo_dtype` to
@@ -172,11 +193,11 @@ def ir_cg_solve(
     if inner_solve is None:
         def inner_solve(b_lo, x0_lo, tol, max_iter):
             return cg_solve(operator_lo, b_lo, x0_lo, tol, max_iter,
-                            preconditioner)
+                            preconditioner, dot)
     tol = torch.tensor(float(tol), dtype=b.dtype).item()
     x = x0
     r = b - operator_hi(x0)
-    resn = torch.sqrt(_dot(r, r)).item()
+    resn = torch.sqrt(dot(r, r)).item()
     k = refinements = 0
     syncs = 1
     while resn > tol and refinements < max_refinements:
@@ -186,7 +207,7 @@ def ir_cg_solve(
         )
         x = x + inner.x.to(b.dtype)
         r = b - operator_hi(x)
-        resn = torch.sqrt(_dot(r, r)).item()
+        resn = torch.sqrt(dot(r, r)).item()
         k += inner.iterations
         refinements += 1
         syncs += inner.host_syncs + 1
@@ -226,10 +247,11 @@ class ChunkedCG:
 
     def __init__(self, operator: Callable,
                  preconditioner: Optional[Callable] = None,
-                 chunk: int = CG_CHUNK):
+                 chunk: int = CG_CHUNK, dot: Callable = _dot):
         if int(chunk) < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.operator = operator
+        self.dot = dot
         self.M = preconditioner if preconditioner is not None else (lambda r: r)
         self.chunk = int(chunk)
         self._like = None  # (shape, dtype, device) of b, fixed at the first call
@@ -252,8 +274,8 @@ class ChunkedCG:
         self._x.copy_(self._x0)
         self._r.copy_(r)
         self._p.copy_(z)
-        self._rz.copy_(_dot(r, z))
-        self._resn.copy_(torch.sqrt(_dot(r, r)))
+        self._rz.copy_(self.dot(r, z))
+        self._resn.copy_(torch.sqrt(self.dot(r, r)))
         self._k.zero_()
         self._publish()
 
@@ -263,14 +285,14 @@ class ChunkedCG:
         for _ in range(self.chunk if iterations is None else iterations):
             active = (self._resn > self._tol) & (self._k < self._max_iter)
             Ap = self.operator(p)
-            alpha = rz / _dot(p, Ap)
+            alpha = rz / self.dot(p, Ap)
             x_new = x + alpha * p
             r_new = r - alpha * Ap
             z = self.M(r_new)
-            rz_new = _dot(r_new, z)
+            rz_new = self.dot(r_new, z)
             beta = rz_new / rz
             p_new = z + beta * p
-            resn = torch.sqrt(_dot(r_new, r_new))
+            resn = torch.sqrt(self.dot(r_new, r_new))
             for old, new in ((x, x_new), (r, r_new), (p, p_new),
                              (rz, rz_new), (self._resn, resn)):
                 torch.where(active, new, old, out=old)
@@ -345,15 +367,15 @@ class ChunkedCG:
 
 def make_cg(loop: str, operator: Callable,
             preconditioner: Optional[Callable] = None,
-            chunk: int = CG_CHUNK) -> Callable:
+            chunk: int = CG_CHUNK, dot: Callable = _dot) -> Callable:
     """The models' Krylov solve `solve(b, x0, tol, max_iter) -> CGResult`:
     `ChunkedCG` for `loop="graphs"` (CUDA graphs on a card, the same chunks
     eagerly on the CPU), the host-loop `cg_solve` for `loop="host"`."""
     if loop == "graphs":
-        return ChunkedCG(operator, preconditioner, chunk)
+        return ChunkedCG(operator, preconditioner, chunk, dot)
     if loop == "host":
         def solve(b, x0, tol, max_iter):
-            return cg_solve(operator, b, x0, tol, max_iter, preconditioner)
+            return cg_solve(operator, b, x0, tol, max_iter, preconditioner, dot)
 
         return solve
     raise ValueError(f"unknown cg_loop {loop!r}; expected one of {CG_LOOPS}")

@@ -17,7 +17,19 @@ Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
   restriction is the exact transpose, so the V-cycle stays SPD;
 * smoother: Chebyshev on the Jacobi-scaled level operator;
 * `with_fine_operator` clones the hierarchy with level 0's operator
-  replaced (the Neo-Hookean model's `mg_fine_tangent`).
+  replaced (the Neo-Hookean model's `mg_fine_tangent`);
+* `lattice` (a `parallel/lattice.py:SlabLayout` of the fine lattice) runs
+  the V-cycle on row-distributed vectors, each level split along the same
+  lattice axis as the fine one, as the JAX package's GSPMD-sharded V-cycle
+  constrains each level: a level keeps the split of the finer level when
+  it has as many nodes on that axis (the transfers then act across the
+  split without a halo) and is split evenly otherwise; a level with
+  fewer cells on the axis than ranks or fewer than 4 x world size rows,
+  and the dense coarse level, stay replicated on every rank (an
+  all-reduce of the partial restrictions before, the owned rows of the
+  prolongation after). Each level's operator is its kernel on the rank's
+  slab (`SlabOperator`), its lam_max estimate uses the global inner
+  product.
 
 The hierarchy runs in its `dtype` (bf16 on the production path; the
 coarse triangular solves stay f32); on the card only f32 and bf16, the
@@ -40,9 +52,10 @@ from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..mesh.generator import StructuredMesh, subdivided_hyper_rectangle
 from ..ops.element_ops import ElementMatrices, assemble_dense, assemble_diagonal
-from ..ops.q1_structured import make_q1_operator
-from ..ops.stencil import STRATEGIES, make_q1_stencil_operator
-from .cg import estimate_lambda_max
+from ..ops.q1_structured import make_q1_operator, q1_lattice_operator
+from ..ops.stencil import STRATEGIES, StencilQ1Operator, make_q1_stencil_operator
+from ..parallel.lattice import SlabLayout, SlabOperator, axis_transfer
+from .cg import lambda_max
 
 # `auto`, `xla` and `pallas` build the Q1 levels on K3 (3D) / K4b (2D);
 # every `stencil*` backend on the assembled stencil, K6
@@ -214,6 +227,13 @@ class MGLevel:
     P_1d: Optional[Tuple[torch.Tensor, ...]] = None  # fine <- coarse per axis
     R_1d: Optional[Tuple[torch.Tensor, ...]] = None  # transposes
     coarse_solve: Optional[Callable] = None  # coarsest level only
+    # the lattice partition: this level's split (None: replicated), and the
+    # transfers to the next coarser level on distributed vectors, each
+    # (k_lo, k_hi, K, per-axis matrices, all-reduce after)
+    layout: Optional[SlabLayout] = None
+    raw: Optional[Callable] = None  # the unmasked level operator
+    restrict: Optional[tuple] = None
+    prolong: Optional[tuple] = None
 
 
 def _coef(c: float, dtype) -> float:
@@ -284,11 +304,13 @@ class GeometricMultigrid:
         level_backend: str = "auto",
         lam_max: Optional[Sequence[float]] = None,
         device=None,
+        lattice: Optional[SlabLayout] = None,
     ):
         """`fine_operator` must already be BC-masked; `mass_coeff` is the
         rho-scaled mass coefficient of the operator (alpha_1 rho for
         Newmark). `lam_max`, when given, holds one value per level (fine
-        first) and replaces the power iterations."""
+        first) and replaces the power iterations. With `lattice`, the fine
+        operator, diagonal and mask are distributed by it."""
         if level_backend not in LEVEL_BACKENDS:
             raise ValueError(
                 f"unknown mg_level_backend {level_backend!r}; expected one of "
@@ -311,10 +333,10 @@ class GeometricMultigrid:
         self.dim = dim
         lam_given = list(lam_max) if lam_max is not None else None
 
-        def lam_est(li, op, diag, shape):
+        def lam_est(li, op, diag, shape, layout=None):
             if lam_given is not None:
                 return float(lam_given[li])
-            return estimate_lambda_max(op, diag, shape)
+            return lambda_max(op, diag, shape, layout)
 
         fine_shape = tuple(
             reversed([mesh.reps[d] * mesh.degree + 1 for d in range(dim)])
@@ -326,32 +348,44 @@ class GeometricMultigrid:
                 mask=fine_mask,
                 grid_shape=fine_shape,
                 lam_max=lam_est(
-                    0, fine_operator, fine_diag, (int(np.prod(fine_shape)), dim)
+                    0, fine_operator, fine_diag, (int(np.prod(fine_shape)), dim),
+                    lattice,
                 ),
+                layout=lattice,
             )
         ]
         geoms = _geometry_skeleton(mesh, tags, coarse_size, fem_sem, lmbda, mu)
         for li, gm in enumerate(geoms):
             space_c = gm.space_c
             E_c = mu * gm.K_e_unit + mass_coeff * gm.M_e_unit
-            mask_c = torch.as_tensor(gm.mask_c, dtype=dtype, device=device)
-            if level_backend.startswith("stencil"):
+            layout = self._level_layout(levels[-1].layout, gm.shape_c,
+                                        li == len(geoms) - 1)
+            strategy = level_backend[len("stencil_"):] or "shift"
+            if layout is not None:  # the level's kernel on this rank's slab
+                op_raw = SlabOperator(
+                    StencilQ1Operator(E_c, layout.slab_shape, dtype, strategy,
+                                      device)
+                    if level_backend.startswith("stencil") else
+                    q1_lattice_operator(E_c, layout.slab_shape, dtype, device),
+                    layout)
+            elif level_backend.startswith("stencil"):
                 op_raw = make_q1_stencil_operator(
-                    space_c, E_c, dtype,
-                    strategy=level_backend[len("stencil_"):] or "shift",
-                    device=device,
-                )
+                    space_c, E_c, dtype, strategy=strategy, device=device)
             else:
                 op_raw = make_q1_operator(space_c, E_c, dtype, device)
+            local = layout.local if layout else (lambda v: v)
+            mask_c = local(torch.as_tensor(gm.mask_c, dtype=dtype, device=device))
             op_c = _masked(op_raw, mask_c)
-            diag_c = mask_c * torch.as_tensor(
+            diag_c = mask_c * local(torch.as_tensor(
                 mu * gm.diag_K + mass_coeff * gm.diag_M, dtype=dtype, device=device
-            ) + (1.0 - mask_c)
+            )) + (1.0 - mask_c)
             P_1d = tuple(
                 torch.as_tensor(P, dtype=dtype, device=device) for P in gm.P_1d
             )
             levels[-1].P_1d = P_1d
             levels[-1].R_1d = tuple(P.T.contiguous() for P in P_1d)
+            if levels[-1].layout is not None:
+                self._transfer_plans(levels[-1], layout, gm.P_1d, dtype, device)
 
             coarse_solve = None
             if li == len(geoms) - 1:
@@ -385,22 +419,107 @@ class GeometricMultigrid:
                     diag=diag_c,
                     mask=mask_c,
                     grid_shape=gm.shape_c,
-                    lam_max=lam_est(li + 1, op_c, diag_c, (space_c.n_nodes, dim)),
+                    lam_max=lam_est(li + 1, op_c, diag_c, (space_c.n_nodes, dim),
+                                    layout),
                     coarse_solve=coarse_solve,
+                    layout=layout,
+                    raw=op_raw,
                 )
             )
         self.levels = levels
 
+    @staticmethod
+    def _level_layout(finer: Optional[SlabLayout], shape, coarse: bool):
+        """The split of a coarse level (None: replicated) under the fine
+        level's; see the module docstring. A world of one splits every
+        level trivially, so that it runs the single-device code."""
+        if finer is None:
+            return None
+        ax, mesh = finer.axis, finer.mesh
+        n = shape[ax]
+        if mesh.world > 1 and (coarse or n - 1 < mesh.world
+                               or int(np.prod(shape)) < 4 * mesh.world):
+            return None
+        bounds = finer.node_bounds if finer.grid_shape[ax] == n else None
+        return SlabLayout(shape, 1, ax, mesh, bounds)
+
+    def _transfer_plans(self, lv: MGLevel, coarse: Optional[SlabLayout],
+                        P_np, dtype, device):
+        """The restriction and prolongation of a distributed level `lv` to
+        and from the next coarser level on distributed vectors: the split
+        axis' 1D matrix cut to the rows this rank computes and the columns
+        its (halo-extended) input covers; to a replicated level, the
+        restriction of the owned rows (partial sums, all-reduced) and the
+        prolongation's owned rows."""
+        fine = lv.layout
+        ax = fine.axis
+
+        def mats(base, M):
+            out = list(base)
+            out[ax] = torch.as_tensor(np.ascontiguousarray(M), dtype=dtype,
+                                      device=device)
+            return tuple(out)
+
+        P = np.asarray(P_np[ax])
+        R = P.T
+        if coarse is None:
+            lv.restrict = (0, 0, (0, 0), mats(lv.R_1d, R[:, fine.lo:fine.hi]),
+                           True)
+            lv.prolong = (0, 0, (0, 0), mats(lv.P_1d, P[fine.lo:fine.hi]), False)
+            return
+        k_lo, k_hi, K, (c0, c1) = axis_transfer(
+            R, lambda q: coarse.owned[q], fine)
+        lv.restrict = (k_lo, k_hi, K, mats(lv.R_1d, R[coarse.lo:coarse.hi, c0:c1]),
+                       False)
+        k_lo, k_hi, K, (c0, c1) = axis_transfer(
+            P, lambda q: fine.owned[q], coarse)
+        lv.prolong = (k_lo, k_hi, K, mats(lv.P_1d, P[fine.lo:fine.hi, c0:c1]),
+                      False)
+
     def _restrict(self, li: int, r):
         lv = self.levels[li]
-        rc = _apply_sep(r.reshape(lv.grid_shape + (self.dim,)), lv.R_1d,
-                        minor_first=True)
+        if lv.layout is None:
+            rc = _apply_sep(r.reshape(lv.grid_shape + (self.dim,)), lv.R_1d,
+                            minor_first=True)
+        else:
+            k_lo, k_hi, K, mats, reduce = lv.restrict
+            lay = lv.layout
+            g = lay.extend(r.reshape(lay.owned_shape + (self.dim,)),
+                           k_lo, k_hi, K)
+            if reduce and lay.world > 1:
+                rc = self._restrict_partial(g, mats, lay)
+            else:
+                rc = _apply_sep(g, mats, minor_first=True)
         return self.levels[li + 1].mask * rc.reshape(-1, self.dim)
 
+    def _restrict_partial(self, g, mats, lay: SlabLayout):
+        """The restriction of this rank's owned rows `g` to a replicated
+        level, all-reduced. The contraction runs minor axes first as on
+        one device; from the split axis' on, the partial sums stay f32
+        (for a bf16 hierarchy) through the all-reduce and are rounded to
+        the level dtype once, as one device's bf16 contraction rounds its
+        f32 accumulation once."""
+        dt = g.dtype
+        wide = torch.float32 if dt == torch.bfloat16 else dt
+        for ax in reversed(range(len(mats))):
+            if ax == lay.axis:
+                g = g.to(wide)
+            g = torch.tensordot(mats[ax].to(g.dtype), g,
+                                dims=([1], [ax])).movedim(0, ax)
+        return lay.mesh.all_reduce(g).to(dt)
+
     def _prolong(self, li: int, ec):
-        lv = self.levels[li]
-        ec_grid = ec.reshape(self.levels[li + 1].grid_shape + (self.dim,))
-        ef = _apply_sep(ec_grid, lv.P_1d)
+        lv, nx = self.levels[li], self.levels[li + 1]
+        if lv.layout is None:
+            ec_grid = ec.reshape(nx.grid_shape + (self.dim,))
+            ef = _apply_sep(ec_grid, lv.P_1d)
+        else:
+            k_lo, k_hi, K, mats, _ = lv.prolong
+            shape = nx.layout.owned_shape if nx.layout else nx.grid_shape
+            g = ec.reshape(shape + (self.dim,))
+            if nx.layout is not None:
+                g = nx.layout.extend(g, k_lo, k_hi, K)
+            ef = _apply_sep(g, mats)
         return lv.mask * ef.reshape(-1, self.dim)
 
     def _vcycle(self, li: int, b, out_dtype=None):

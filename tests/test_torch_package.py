@@ -79,7 +79,8 @@ def test_package_never_imports_jax():
     assert {pkg + m for m in (
         "ops.stencil", "adapter.adapter", "adapter.participant", "runner",
         "cli", "__main__", "time_handler", "utils.vtk", "utils.timer",
-        "utils.postprocessor", "kernels.counters")} <= names
+        "utils.postprocessor", "kernels.counters", "parallel.partition",
+        "parallel.sharded_ops", "parallel.lattice", "parallel.dryrun")} <= names
 
 
 def test_precision_policy_is_set():
@@ -168,6 +169,41 @@ def test_cpu_tensors_take_the_plain_path():
     assert Q1PlaneOperator.launches == StencilQ1Operator.launches == 0
 
 
+def _level_ops(device):
+    """(wrapper, input) of every level and fine kernel that takes the
+    bf16-in/f32-out mode: K3, K4, K5, K6 in 3D and 2D, K4b."""
+    _, _, lattice, E1, E2, u = _small_inputs()
+    lattice2, E, u2d = _small_inputs_2d()
+    bf16 = torch.bfloat16
+    return [
+        (Q1StructuredOperator(E1, lattice, bf16, device), u),
+        (Q1PlaneOperator(E1, lattice, bf16, device), u),
+        (Q2StructuredOperator(E2, lattice, bf16, device), u),
+        (StencilQ1Operator(E1, lattice, bf16, device=device), u),
+        (Q1StructuredOperator2D(E, lattice2, bf16, device), u2d),
+        (StencilQ1Operator(E, lattice2, bf16, device=device), u2d),
+    ]
+
+
+def test_bf16_in_f32_out_mode_on_the_cpu():
+    """`op(u, out_dtype=torch.float32)` on a bf16 u (the lattice
+    partition's slabs) returns the plain version's f32 sums unrounded,
+    which round to the bf16 output bit for bit; the kernels' I/O modes
+    are f32, bf16 and bf16 -> f32 only."""
+    for op, u in _level_ops("cpu"):
+        x = u.to(torch.bfloat16)
+        y = op(x, out_dtype=torch.float32)
+        assert y.dtype == torch.float32
+        torch.testing.assert_close(y, op.plain(x, torch.float32), rtol=0, atol=0)
+        assert torch.equal(y.to(torch.bfloat16), op(x))
+        assert not torch.equal(y, y.to(torch.bfloat16).float())
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert [_build.io_mode(*io) for io in ((f32, f32), (bf16, bf16), (bf16, f32))] \
+        == [0, 1, 2]
+    with pytest.raises(TypeError):
+        _build.io_mode(f32, bf16)
+
+
 def test_non_cpu_non_cuda_tensors_raise():
     """A tensor that is neither on the CPU nor on a CUDA device never falls
     back to the plain version."""
@@ -213,21 +249,40 @@ def test_counts_under_replay_are_the_captured_launches():
     counters.reset()
 
 
-@pytest.mark.parametrize(
-    "override",
-    [
-        dict(element_backend="gather"),
-        dict(n_devices=2),
-        dict(type_lin="Direct", dim=3, poly_degree=5),
-    ],
-    ids=lambda d: next(iter(d)),
-)
-def test_unported_variants_raise(override):
+def _two_ranks():
+    """This process as rank 0 of 2 (no process group: for checks that
+    raise before any collective runs)."""
+    from dealii_adapter_tpu_torch.parallel import RankGroup
+
+    return RankGroup(group=None, rank=0, world=2, device=torch.device("cpu"),
+                     backend="gloo")
+
+
+@pytest.mark.parametrize("case", ["mg_cell_partition", "coupled_n_devices",
+                                  "type_lin"])
+def test_unported_variants_raise(case):
+    """What still raises on the Neo-Hookean model: MG under the cell
+    partition (the JAX package's own refusal), the coupled run on several
+    ranks (ROADMAP Queue 1 item 16) and a dense Direct tangent above its
+    cap (item 13)."""
     kw = dict(model="neo-Hookean", type_lin="CG", scenario="PF", dim=2,
               poly_degree=2, preconditioner="MG", solve_dtype="float32")
-    kw.update(override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonlinearElasticity(AllParameters(**kw), device="cpu")
+    if case == "mg_cell_partition":
+        params = AllParameters(**dict(kw, element_backend="gather"))
+        with pytest.raises(NotImplementedError,
+                           match="MG with the shard_map cell-partition backend"):
+            NonlinearElasticity(params, device="cpu", device_mesh=_two_ranks())
+    elif case == "coupled_n_devices":
+        from dealii_adapter_tpu_torch.runner import coupled_run
+
+        model = NonlinearElasticity(AllParameters(**kw), device="cpu")
+        model.device_mesh = _two_ranks()
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+            coupled_run(model, adapter=None)
+    else:
+        params = AllParameters(**dict(kw, type_lin="Direct", dim=3, poly_degree=5))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+            NonlinearElasticity(params, device="cpu")
 
 
 _MODELS = {
@@ -256,15 +311,33 @@ def test_models_run_on_the_card_unless_asked_for_the_cpu(model):
     assert state.displacement.device.type == "cpu"
 
 
-@pytest.mark.parametrize(
-    "override", [dict(element_backend="gather"), dict(n_devices=2)],
-    ids=lambda d: next(iter(d)),
-)
-def test_linear_unported_variants_raise(override):
-    params = AllParameters(model="linear", type_lin="CG", scenario="PF",
-                           dim=2, poly_degree=2, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[34]"):
-        LinearElastodynamics(params, device="cpu")
+@pytest.mark.parametrize("case", ["mg_cell_partition", "cli_n_devices",
+                                  "direct_lattice"])
+def test_linear_unported_variants_raise(case, tmp_path):
+    """What still raises on the linear model: MG under the cell partition
+    (the JAX package's message), the CLI with `--devices 2` (the coupled
+    run on several ranks, ROADMAP Queue 1 item 16) and the dense Direct
+    solve on the lattice partition (item 17)."""
+    kw = dict(model="linear", type_lin="CG", scenario="PF", dim=2,
+              poly_degree=2)
+    if case == "mg_cell_partition":
+        params = AllParameters(**kw, preconditioner="MG", element_backend="gather")
+        with pytest.raises(NotImplementedError,
+                           match="MG with the shard_map cell-partition backend"):
+            LinearElastodynamics(params, device="cpu", device_mesh=_two_ranks())
+    elif case == "cli_n_devices":
+        from dealii_adapter_tpu_torch import cli
+
+        prm = tmp_path / "case.prm"
+        prm.write_text("subsection Finite element system\n"
+                       "  set Polynomial degree = 1\nend\n")
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+            cli.main([str(prm), "--standalone", "--devices", "2", "--lenient",
+                      "--device", "cpu"])
+    else:
+        params = AllParameters(**dict(kw, type_lin="Direct"))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+            LinearElastodynamics(params, device="cpu", device_mesh=_two_ranks())
 
 
 def test_build_binds_every_entry_point():
@@ -486,6 +559,70 @@ def test_k3_k5_match_plain_on_card():
                 torch.zeros(7, 3, device=dev))
 
 
+def _slab_shapes(grid, p, world):
+    """Every rank's slab lattice of `grid` (degree p) under the lattice
+    partition over `world` ranks (`parallel/lattice.py`), and the main
+    path's Q2 split as the Q1 levels of 19 planes inherit it."""
+    from dealii_adapter_tpu_torch.parallel import RankGroup
+    from dealii_adapter_tpu_torch.parallel.lattice import SlabLayout, split_axis
+
+    fine = (19, 325, 55)
+    shapes = []
+    for r in range(world):
+        mesh = RankGroup(None, r, world, torch.device("cpu"), "gloo")
+        ax = split_axis(fine, 2, world)
+        q2 = SlabLayout(fine, 2, ax, mesh)
+        bounds = q2.node_bounds if grid[ax] == fine[ax] else None
+        shapes.append(SlabLayout(grid, p, ax, mesh, bounds).slab_shape)
+    return shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_k1_k3_k5_on_slabs_match_plain_on_card(world):
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. K5, K3 and K1 at the slab shapes the
+    lattice partition gives each of `world` ranks on the main path (K5 on
+    the Q2 fine lattice (19, 325, 55), K3 on its Q1 levels, K1 at each
+    rank's cells) against their plain versions: bf16 in and f32 out, the
+    variant the partition runs for the bf16 V-cycle, and f32 I/O,
+    relative L2 1e-5 (f32 accumulation; K5's split E is ~2.3e-6
+    relative); bf16 I/O at phase 3's limits. A slab is a smaller box with
+    fewer, odd plane counts; each launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(world)
+    cases = [(Q2StructuredOperator, 2, K5_BF16_RTOL, s)
+             for s in _slab_shapes((19, 325, 55), 2, world)]
+    cases += [(Q1StructuredOperator, 1, 1e-2, s) for grid in MAIN3D_Q1_LATTICES
+              for s in _slab_shapes(grid, 1, world)]
+    for cls, p, bf16_tol, grid in cases:
+        E = _cell_E(p, (0.004, 0.006, 0.02))
+        u = torch.randn(int(np.prod(grid)), 3, generator=g)
+        f32, bf16 = torch.float32, torch.bfloat16
+        for dtype, out, tol in ((f32, f32, 1e-5), (bf16, f32, 1e-5),
+                                (bf16, bf16, bf16_tol)):
+            op = cls(E, grid, dtype, dev)
+            x = u.to(dev, dtype)
+            before = cls.launches
+            y = op(x, out_dtype=out)
+            assert y.dtype == out and cls.launches == before + 1
+            rel = _rel_l2(y, op.plain(x, out))
+            print(f"{cls.__name__} slab {grid} {dtype}->{out}: rel_l2 {rel:.3e}")
+            assert rel <= tol, (cls.__name__, grid, dtype, out, rel)
+    for grid in _slab_shapes((19, 325, 55), 2, world):
+        n_cells = int(np.prod([(n - 1) // 2 for n in grid]))
+        KT = torch.randn(81, 81, n_cells, generator=g).to(dev)
+        u2 = torch.randn(81, n_cells, generator=g).to(dev)
+        before = at.apply_packed_tangents_T.launches
+        rel = _rel_l2(at.apply_packed_tangents_T(KT, u2),
+                      at.apply_packed_tangents_T_plain(KT, u2))
+        assert at.apply_packed_tangents_T.launches == before + 1
+        print(f"K1 at {n_cells} cells: rel_l2 {rel:.3e}")
+        assert rel <= 1e-5, (n_cells, rel)
+
+
 # the 2D paths' Q1 level lattices (the tutorial flap at scale 48; the bf16
 # paths at scale 24 run the same shapes from the second on) and ragged
 # ones: 2-node axes, partial tiles, nx within one tile of 8, 16 or 32
@@ -523,6 +660,32 @@ def test_k4b_matches_plain_on_card():
             rel = _rel_l2(out, op.plain(x))
             print(f"K4b {grid} {dtype}: rel_l2 {rel:.3e}")
             assert rel <= tol, (grid, dtype, rel)
+
+
+@pytest.mark.cuda
+def test_bf16_in_f32_out_mode_on_card():
+    """Run on the card: `python -m pytest --noconftest -m cuda
+    tests/test_torch_package.py`. The level and fine kernels' bf16-in/f32-out
+    mode (the lattice partition's slabs): the f32 output rounds to the
+    bf16 mode's output bit for bit (the same accumulation, one store
+    apart), is within 1e-5 relative L2 of the plain f32 sums (K5's split E
+    is ~2.3e-6 relative), and counts one launch; an f32 input with a bf16
+    output raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for op, u in _level_ops(dev):
+        x = u.to(dev, torch.bfloat16)
+        before = type(op).launches
+        y = op(x, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.float32 and type(op).launches == before + 1
+        assert torch.equal(y.to(torch.bfloat16), op(x)), type(op).__name__
+        rel = _rel_l2(y, op.plain(x, torch.float32))
+        print(f"{type(op).__name__} {op.grid_shape} bf16->f32: rel_l2 {rel:.3e}")
+        assert rel <= 1e-5, (type(op).__name__, rel)
+        with pytest.raises(TypeError):
+            op(x.float(), out_dtype=torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -62,8 +62,9 @@ def main():
                                       **over)
         inner = cg.cg_solve
 
-        def traced(op, b, x0, tol, max_iter, preconditioner=None):
-            r = inner(op, b, x0, tol, max_iter, preconditioner)
+        def traced(op, b, x0, tol, max_iter, preconditioner=None,
+                   dot=cg._dot):
+            r = inner(op, b, x0, tol, max_iter, preconditioner, dot)
             print(f"   inner CG {r.iterations} tol {tol:.3e} "
                   f"residual {r.residual_norm:.3e}", flush=True)
             return r

@@ -136,7 +136,7 @@ def main():
     solves = []
     cg_solve = cg.cg_solve
 
-    def counted(op, b, x0, tol, max_iter, preconditioner=None):
+    def counted(op, b, x0, tol, max_iter, preconditioner=None, dot=cg._dot):
         history = []
 
         def traced(r):
@@ -144,7 +144,8 @@ def main():
             return preconditioner(r)
 
         r = cg_solve(op, b, x0, tol=tol, max_iter=max_iter,
-                     preconditioner=traced if args.trace else preconditioner)
+                     preconditioner=traced if args.trace else preconditioner,
+                     dot=dot)
         solves.append(r.iterations)
         if args.trace:
             print(f"  correction {len(solves)}: ||rhs|| "
