@@ -30,7 +30,8 @@ script exits non-zero without printing a result):
    stencil's count, 243 FMA per node in 3D and 36 in 2D; beside it the
    launch floor, the device time of an empty kernel (`launch_floor_ms`),
    and `bound_with_floor_ms`, the larger of the two).
-   Limits: relative L2 error <= 1e-5 for f32 output (only the summation
+   K1 is also held at the Q4 bench cell's shape (E = 375, 3,456 cells,
+   `Q4_TANGENT_SHAPE`). Limits: relative L2 error <= 1e-5 for f32 output (only the summation
    order differs), <= 1e-2 for bf16 output (one output rounding, 2^-8,
    plus order), K5's bf16 output <= 5e-4 (`K5_BF16_RTOL`, set on the card
    between the sound kernel's error and a planted fault's); C1/C2 exact.
@@ -43,23 +44,37 @@ script exits non-zero without printing a result):
    kernel); K5's bf16 bound is
    its tensor-core design's (bf16 products at 989 TFLOP/s against the
    bytes), with the f32-FMA bound beside it.
-4. main    — `NonlinearElasticity` with the benchmark configuration of
-   `bench.py` (3D Neo-Hookean perpendicular flap, Q2, scale 9:
-   1,018,875 DoF), traction 1000 in x on the interface, 1 warmup and 3
-   timed Newmark steps, with the CG in CUDA graphs (`cg_loop="graphs"`,
-   the default on the card), then the same with the host loop
-   (`cg_loop="host"`, path `main3d host`), then 3 more timed steps of
-   each in the reverse order (host loop, graphs), both models on the card.
+4. main    — `NonlinearElasticity` with the benchmark configuration
+   (`bench_torch.py:build_model`, bench.py's: 3D Neo-Hookean perpendicular
+   flap, Q2, scale 9: 1,018,875 DoF), traction 1000 in x on the
+   interface, its CG in CUDA graphs, on one model with its Newton loop on
+   the host (`newton_loop="host"`, path `main3d newton host`: the parent's
+   loop) and on the device (`newton_loop="graphs"`, the default: its
+   residuals, tangent assembly, decisions and update replayed from CUDA
+   graphs, one read-back a Newton pass), in turns: 1 warmup and 3 timed
+   Newmark steps from rest with each (host, then graphs), then 3 more
+   timed steps of each in the reverse order.
    Every step must converge and the checksum ||u||^2 after step 3 must
    lie within rtol 1e-4 of the JAX package's 49.05486138743322 (Newton's
-   tol_u of 1e-6 bounds the spread near 1e-5); the two loops must take
-   the same CG and Newton counts in every step and their checksums after
-   steps 3 and 6 agree within 1e-12 relative (`LOOPS_RTOL`). For each
-   loop: every step's time (unrounded), host syncs and kernel launches,
-   the peak device memory of its first 4 steps (the other model's bytes
-   left out), and, after all timed steps, the device busy share of one
-   more step under torch.profiler tracing the card only (`--profile`
-   prints its kernel table).
+   tol_u of 1e-6 bounds the spread near 1e-5); the two loops must give the
+   same `NewtonInfo` in every step and their checksums after steps 3 and
+   6 agree within 1e-12 relative (`LOOPS_RTOL`), and the device loop must
+   read back at most its Newton iterations + 1 a step outside the CG. For
+   each loop: every step's time (unrounded), host syncs (the CG's apart)
+   and kernel launches, the peak device memory of its first 4 steps, and,
+   after all timed steps, the device busy share of one more step under
+   torch.profiler tracing the card only (`--profile` prints its kernel
+   table). Then a model of its own with the host CG loop (`cg_loop=
+   "host"`, and so the host Newton loop: path `main3d host`), on the same
+   mesh and lam_max values, 1 warmup and 1 timed step from rest
+   (`MAIN_HOST_STEPS`): the same `NewtonInfo` as main3d's in both steps
+   and ||u||^2 within `LOOPS_RTOL` of main3d's after step 1.
+   bench — `bench_torch.py`'s other cells (`BENCH_CELLS`: the Neo-Hookean
+   Q4 model at scale 4, 722,211 DoF; the linear model at Q2 scale 4,
+   97,875 DoF, and Q3 scale 3, 136,920 DoF) through its functions, 1
+   warmup and 3 timed steps each, with its checks (converged, residual <=
+   1e-10, ||u||^2 against the JAX package's where `bench_torch.REFERENCES`
+   has it); per-step counts, times and launches.
 5. linear2d — `LinearElastodynamics` with `bench.py:build_linear_model`'s
    parameters in 2D (the perpendicular flap, Q2, scale 48: 999,362 DoF;
    MG, f32 CG inside f64 refinement) but an f32 multigrid hierarchy
@@ -157,11 +172,13 @@ script exits non-zero without printing a result):
      kernels built once before the spawn), the host CG loop (gloo cannot
      be captured); each rank first holds K5, K3 (every distributed level)
      and K1 at its slab's shapes against their plain versions, then runs
-     1 warmup and 3 timed steps: every step converged, Newton counts
-     equal to phase 4's, CG within +-2 (`SHARD_CG_SLACK`) a step, ||u||^2
-     after 4 steps within rtol 1e-7 (`SHARD_RTOL`, tests/test_sharding.py's
-     field tolerance) of phase 4's; each rank's launches, its halo fills,
-     interface sums and all-reduces a step, and its per-step times;
+     `SHARD3D_STEPS` steps (1 warmup and 1 timed: cut from 4 steps, ~6.5 s
+     each, to keep the script within its time): every step converged,
+     Newton counts equal to phase 4's, CG within +-2 (`SHARD_CG_SLACK`) a
+     step, ||u||^2 after the last step within rtol 1e-7 (`SHARD_RTOL`,
+     tests/test_sharding.py's field tolerance) of phase 4's after the same
+     step; each rank's launches, its halo fills, interface sums and
+     all-reduces a step, and its per-step times;
    - shard3d_nccl1 — the same as a world of one on NCCL with the CG in
      CUDA graphs (NCCL all-reduces captured): CG, Newton and ||u||^2 bit
      for bit phase 4's; then, on that world, the cell partition's
@@ -176,10 +193,14 @@ script exits non-zero without printing a result):
    - dryrun — `parallel/dryrun.py:dryrun_multichip(SHARD_RANKS, "cuda")`:
      converged, det F > 0, K1, K3 and K5 launched on every rank.
 
-Every path but `main3d host` runs its CG in CUDA graphs; a graph replay
-adds the launches its capture recorded to the counts (`kernels/
-counters.py`), so the counts are device launches, the masked iterations
-of each solve's last chunk included.
+Every path but `main3d host`, shard3d, shard_cells and dryrun (the host
+CG and Newton loops; the last three on gloo ranks) runs its CG in CUDA
+graphs and its Newton loop on the device (`newton_loop="graphs"`); f64jvp3d, jvp3d, reuse_fine3d and
+gather3d then run their 4 steps again from rest on the host Newton loop
+(`newton_host_twin`): the same `NewtonInfo` in every step, ||u||^2 within
+`LOOPS_RTOL`. A graph replay adds the launches its capture recorded to
+the counts (`kernels/counters.py`), so the counts are device launches,
+the masked iterations of each solve's last chunk included.
 In phases 4-12 the kernel launch counts are set to 0 after the model is
 built (for `cli` and `cli_nl`: in its own process) and read after its steps; every
 kernel of the path (C1/C2, whose check runs again as the library is
@@ -202,6 +223,8 @@ import statistics
 import subprocess
 import tempfile
 import time
+
+import bench_torch  # stdlib-only at import, as this script
 
 CHECKSUM_REF = 49.05486138743322  # JAX package, BENCH_r05.json tail
 CHECKSUM_RTOL = 1e-4
@@ -241,29 +264,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
-# bench.py's build_model with its environment defaults (the 3D benchmark
-# step), without `dim`
-NONLINEAR = dict(
-    model="neo-Hookean", type_lin="CG", scenario="PF",
-    poly_degree=2, delta_t=0.01, mu=0.5e6, nu=0.4, rho=1000.0,
-    tol_lin=1e-6, tol_u=1e-6, tol_f=1e-9, max_iterations_NR=10,
-    max_iterations_lin=1.0, dtype="float64", preconditioner="MG",
-    precond_dtype="bfloat16", solve_dtype="float32",
-    newton_forcing="ew", mg_smooth_degree=3, mg_fine_smooth_degree=1,
-    newton_predictor=True, ew_eta0=0.3, use_pallas=True,
-    mg_fine_tangent=False, tangent_assembly_precision="highest",
-    tangent_block_symmetric=False, tangent_matvec_kernel="auto",
-    newton_tangent_reuse=False, tangent_reuse_after=1,
-    tangent_refresh_ratio=0.02, newton_residual_f64_window=30.0,
-    use_sumfact=False,
-)
-# bench.py's build_linear_model with its environment defaults, without `dim`
-LINEAR = dict(
-    model="linear", type_lin="CG", scenario="PF", poly_degree=2,
-    delta_t=0.005, theta=0.5, mu=0.5e6, nu=0.4, rho=1000.0, dtype="float64",
-    preconditioner="MG", precond_dtype="bfloat16", solve_dtype="float32",
-    mg_smooth_degree=3, mg_fine_smooth_degree=2, use_pallas=True,
-)
+# bench_torch.py's cells: bench.py's build_model and build_linear_model
+# with their environment defaults (`nonlinear_config`, `linear_config`,
+# the one definition of the configuration), without `dim`
+NONLINEAR = {k: v for k, v in bench_torch.nonlinear_config().items()
+             if k != "dim"}
+LINEAR = {k: v for k, v in bench_torch.linear_config().items() if k != "dim"}
 # The 2D paths run the configurations above with an f32 multigrid
 # hierarchy: with the bf16 one the CG takes far more iterations at this
 # size (2D flap, 999,362 DoF: 788 in the linear model's first step, as
@@ -281,6 +287,9 @@ GOLDEN_LINEAR = dict(
 # (cells, nodes per cell, dim) of the tangent kernels' checks: the 3D main
 # path's Q2 cells and the 2D paths'
 TANGENT_SHAPES = ((27 * 162 * 9, 27, 3), (144 * 864, 9, 2))
+# K1's shape on the Q4 bench cell (3D Q4, scale 4: 12 x 72 x 4 cells of
+# 125 nodes, E = 375)
+Q4_TANGENT_SHAPE = (12 * 72 * 4, 125, 3)
 # the tangent3d variants: (tangent_block_symmetric, tangent_matvec_kernel)
 # and the kernel each runs in place of K1
 TANGENT_VARIANTS = (
@@ -295,6 +304,7 @@ _STENCIL3D = _HEALTH + ("K1 tangent_matvec", "K5 q2_structured", "K6 q1_stencil"
 # which kernels each path must launch
 PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "main3d newton host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "main3d host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     **{f"tangent3d {sym} {kind}": _HEALTH + (kern,) + _MG3D
        for sym, kind, kern in TANGENT_VARIANTS},
@@ -320,7 +330,17 @@ JVP_PATHS = {
 # JAX package's tests/test_assembled_tangent.py::
 # test_model_step_equivalent_backends (the same linearization)
 JVP_RTOL = 1e-6
+# bench_torch.py's cells other than main3d (its default cell), each
+# (model, degree, scale) at full size with bench_torch.py's checks
+BENCH_CELLS = {
+    "bench_q4": ("nonlinear", 4, 4),
+    "bench_linear_q2": ("linear", 2, 4),
+    "bench_linear_q3": ("linear", 3, 3),
+}
 PATH_KERNELS.update({
+    "bench_q4": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
+    "bench_linear_q2": _HEALTH + _MG3D,
+    "bench_linear_q3": _HEALTH + ("K3 q1_structured",),
     "gather3d": _HEALTH + _MG3D,
     "shard3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "shard3d_nccl1": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
@@ -335,7 +355,10 @@ PATH_KERNELS.update({
 # jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
 # (K1) on the fine level in place of the proxy (K5), and cli_nl's Jacobi
 # CG on the jvp tangent launches no kernel but C1/C2
-PATH_EXCLUDES = {"gather3d": ("K1 tangent_matvec",),
+PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
+                 "bench_linear_q2": ("K1 tangent_matvec",),
+                 "bench_linear_q3": ("K1 tangent_matvec", "K5 q2_structured"),
+                 "gather3d": ("K1 tangent_matvec",),
                  "shard_cells": ("K1 tangent_matvec", "K3 q1_structured",
                                  "K5 q2_structured"),
                  "stencil3d": ("K3 q1_structured",),
@@ -355,6 +378,9 @@ COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
 # main3d's checksum under CUDA graphs against the host loop's: the same
 # kernels on the same inputs, so they should agree bit for bit
 LOOPS_RTOL = 1e-12
+# the steps of `main3d host` (the host CG loop), 1 warmup included: cut
+# from main3d's 7 to keep the script's time
+MAIN_HOST_STEPS = 2
 # the multi-rank phases (13): ranks sharing the card; shard3d's CG may
 # differ from phase 4's by this many a step (tests/test_sharding.py:109);
 # ||u||^2 against phase 4's within tests/test_sharding.py's field rtol;
@@ -364,6 +390,7 @@ SHARD_CG_SLACK = 2
 SHARD_RTOL = 1e-7
 SHARD_CELLS_SCALE = 2
 SHARD_CELLS_STEPS = 2
+SHARD3D_STEPS = 2  # shard3d's steps (phase 13's docstring)
 SHARD_CELLS = dict(element_backend="gather", preconditioner="Chebyshev")
 # the cli phase: tests/test_cli.py's case, refined so that the multigrid
 # hierarchy has a Q1 level above its coarse solve (MG in f32, f32 CG)
@@ -494,13 +521,15 @@ def graph_ms(fn, reps=20, replays=5):
     so they can be captured)."""
     import torch
 
+    from dealii_adapter_tpu_torch.solvers.graphs import capture
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -618,11 +647,7 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0]
+    card = bench_torch.card_name(torch.device("cuda"))
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
     log(card)
@@ -908,6 +933,19 @@ def tangent_kernel_records(randn, dev):
                 K_rows, u2))
         del u2, Ku, K, K_rows, Kpack
         torch.cuda.empty_cache()
+    # K1 at the Q4 cell's shape (bench_torch.py's BENCH_DEGREE=4
+    # BENCH_SCALE=4: the Q4 Neo-Hookean model's assembled tangent)
+    n_cells, npc, dim = Q4_TANGENT_SHAPE
+    edofs = dim * npc
+    KT = randn(edofs, edofs, n_cells)
+    u2 = randn(edofs, n_cells)
+    checks["K1 tangent_matvec"].append(tangent_check(
+        "K1", f"KT {edofs}x{edofs}x{n_cells} f32 (Q4)",
+        lambda: at.apply_packed_tangents_T(KT, u2),
+        lambda: at.apply_packed_tangents_T_plain(KT, u2),
+        4 * edofs * edofs * n_cells, edofs, n_cells, KT.transpose(0, 1), u2))
+    del KT, u2
+    torch.cuda.empty_cache()
     meta = {
         "K1 tangent_matvec": ("tangent_matvec.cu", 510),
         "K1b tangent_matvec_rows": ("tangent_matvec.cu", 552),
@@ -922,8 +960,8 @@ def tangent_kernel_records(randn, dev):
              library_call="torch.bmm over the full (E, E, C) tangent"
              + ("; no single call consumes the upper-block layout"
                 if name.startswith("K2") else ""),
-             **c3d, other_checks=[c2d])
-        for name, (c3d, c2d) in checks.items()
+             **c3d, other_checks=others)
+        for name, (c3d, *others) in checks.items()
     ]
 
 
@@ -1117,59 +1155,39 @@ def read_counts(path, launches=None):
 
 
 def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
-                cg_loop=None, cg_chunk=None, device_mesh=None, **overrides):
-    """`NonlinearElasticity` on the port: the benchmark configuration of
-    bench.py's build_model (its environment defaults) in 3D, `NONLINEAR_2D`
-    in 2D, with `overrides`; `mesh_tags` reuses a mesh (and the multigrid
-    geometry cached on it), `mg_lam_max` a hierarchy's lam_max values;
-    `cg_loop` and `cg_chunk`, when given, the model's Krylov loop;
-    `device_mesh` this rank's `RankGroup` (several ranks)."""
-    from dealii_adapter_tpu_torch.config import AllParameters
-    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
-    from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
-        NonlinearElasticity,
-    )
-
-    mesh, tags = mesh_tags or make_scenario_grid(
-        "PF", dim, 2, scale=SCALE if scale is None else scale,
-        solver="neo-Hookean",
-    )
-    params = NONLINEAR_2D if dim == 2 else dict(NONLINEAR, dim=dim)
-    loop = {k: v for k, v in (("cg_loop", cg_loop), ("cg_chunk", cg_chunk))
-            if v is not None}
-    return NonlinearElasticity(AllParameters(**dict(params, **overrides)),
-                               mesh=mesh, tags=tags, device=device,
-                               mg_lam_max=mg_lam_max, device_mesh=device_mesh,
-                               **loop)
+                cg_loop=None, cg_chunk=None, device_mesh=None,
+                newton_loop=None, **overrides):
+    """`NonlinearElasticity` on the port: `bench_torch.py:build_model`
+    (the benchmark configuration of bench.py's build_model) in 3D,
+    `NONLINEAR_2D` in 2D, with `overrides`; `mesh_tags` reuses a mesh (and
+    the multigrid geometry cached on it), `mg_lam_max` a hierarchy's
+    lam_max values; `cg_loop`, `cg_chunk` and `newton_loop`, when given,
+    the model's Krylov and Newton loops; `device_mesh` this rank's
+    `RankGroup` (several ranks)."""
+    if dim == 2:
+        overrides = dict(NONLINEAR_2D, **overrides)
+    kw = {k: v for k, v in (("cg_loop", cg_loop), ("cg_chunk", cg_chunk),
+                            ("newton_loop", newton_loop)) if v is not None}
+    return bench_torch.build_model(
+        SCALE if scale is None else scale,
+        NONLINEAR["dtype"], NONLINEAR["poly_degree"], device=device,
+        mesh_tags=mesh_tags, overrides=overrides, mg_lam_max=mg_lam_max,
+        device_mesh=device_mesh, **kw)
 
 
 def build_linear_model(device, scale=None, cg_loop=None, **overrides):
     """`LinearElastodynamics` with `LINEAR_2D` and `overrides` on the 2D
-    flap, on the port (`cg_loop`, when given, its Krylov loop)."""
-    from dealii_adapter_tpu_torch.config import AllParameters
-    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
-    from dealii_adapter_tpu_torch.models.linear_elasticity import (
-        LinearElastodynamics,
-    )
-
-    mesh, tags = make_scenario_grid(
-        "PF", 2, 2, scale=SCALE_2D if scale is None else scale, solver="linear",
-    )
+    flap, on the port (`bench_torch.py:build_linear_model`; `cg_loop`,
+    when given, its Krylov loop)."""
     loop = {} if cg_loop is None else {"cg_loop": cg_loop}
-    return LinearElastodynamics(AllParameters(**dict(LINEAR_2D, **overrides)),
-                                mesh=mesh, tags=tags, device=device, **loop)
+    return bench_torch.build_linear_model(
+        SCALE_2D if scale is None else scale, LINEAR["dtype"],
+        LINEAR["poly_degree"], device=device,
+        overrides=dict(LINEAR_2D, **overrides), **loop)
 
 
-def interface_traction(model, magnitude=1000.0):
-    import torch
-
-    dim = model.space.dim
-    s = torch.zeros((model.space.n_nodes, dim), dtype=torch.float64,
-                    device=model.device)
-    iface = torch.as_tensor(model.space.boundary_nodes[model.interface_id],
-                            device=model.device)
-    s[iface, 0] = magnitude
-    return s
+# traction 1000 in x on the interface, as bench_torch.py loads its cells
+interface_traction = bench_torch.interface_traction
 
 
 def describe(tag, model, t_build):
@@ -1196,23 +1214,27 @@ def run_steps(tag, model, stress, fmt, state=None, first=0, n=4):
     if warmup:
         state = model.initial_state()
     infos = []
-    steps = dict(times=[], syncs=[], launches=[])
+    steps = dict(times=[], syncs=[], cg_syncs=[], launches=[], checksums=[])
     for i in range(first, first + n):
         torch.cuda.synchronize()
         syncs0 = model.host_syncs
+        cg_syncs0 = getattr(model, "cg_host_syncs", 0)
         launches0 = sum(counters.launch_counts().values())
         ts = time.perf_counter()
         state, info = model.step(state, stress)
         u = state.displacement
         checksum = torch.dot(u.reshape(-1), u.reshape(-1)).item()
         steps["times"].append(time.perf_counter() - ts)
+        steps["checksums"].append(checksum)
         steps["syncs"].append(model.host_syncs - syncs0)
+        steps["cg_syncs"].append(getattr(model, "cg_host_syncs", 0) - cg_syncs0)
         steps["launches"].append(
             sum(counters.launch_counts().values()) - launches0)
         infos.append(info)
         log(f"{tag}: step {i} ({'warmup' if warmup and i == 0 else 'timed'}) "
             f"{steps['times'][-1]!r} s: {fmt(info)}; host syncs "
-            f"{steps['syncs'][-1]}, kernel launches {steps['launches'][-1]}")
+            f"{steps['syncs'][-1]} (CG {steps['cg_syncs'][-1]}), kernel "
+            f"launches {steps['launches'][-1]}")
     times = steps["times"]
     u = state.displacement
     require(tuple(u.shape) == (model.space.n_nodes, model.space.dim),
@@ -1270,97 +1292,209 @@ def newton_fmt(info):
             f"{info.tangent_assemblies} converged {info.converged}")
 
 
-def main_run(tag, path, model, other=0):
-    """`run_steps` on a main-configuration model (1 warmup + 3 timed steps
-    from rest); returns (launches, {state, stress, CG and Newton per step,
-    checksum, per-step times, syncs and launches, peak memory}). `other`
-    is the bytes another model holds, idle meanwhile, which the peak
-    leaves out."""
+def main_run(tag, path, model, loop, stress):
+    """`run_steps` of the main-configuration model with its Newton loop
+    `loop` (1 warmup + 3 timed steps from rest); returns (launches, {state,
+    NewtonInfo per step, checksum, per-step times, syncs and launches, peak
+    memory})."""
     import torch
 
+    model.newton_loop = loop
     torch.cuda.reset_peak_memory_stats()
-    stress = interface_traction(model)
     start_counts()
     state, infos, steps, checksum = run_steps(tag, model, stress, newton_fmt)
     launches = read_counts(path)
-    peak = (torch.cuda.max_memory_allocated() - other) / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag}: launches {launches}; peak device memory {peak:.2f} GiB; "
         f"last step min_det_F {infos[-1].min_det_F!r}")
     require(all(i.converged for i in infos), f"{tag}: every step converged")
     check_checksum(tag, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
-    return launches, dict(
-        state=state, stress=stress, cg=[i.cg_iterations for i in infos],
-        newton=[i.iterations for i in infos], checksum=checksum, steps=steps,
-        peak_gib=peak)
+    return launches, dict(state=state, infos=infos, checksum=checksum,
+                          steps=steps, peak_gib=peak)
 
 
 def phase_main(profile):
-    """The main configuration with the CG in CUDA graphs (the default on the
-    card) and with the host loop, on the same mesh and lam_max values, both
-    models on the card: round 1 runs graphs then host loop (1 warmup + 3
-    timed steps from rest each), round 2 host loop then graphs (3 more
-    timed steps each, from each model's state), so that neither loop
-    always runs first; one profiled step of each only after both rounds.
-    Identical CG and Newton counts in every step, checksums within
-    `LOOPS_RTOL` after each round; every step's time, host syncs and
-    launches, the peak memory of each model's round 1 and the busy share
-    of its profiled step."""
+    """The main configuration, its CG in CUDA graphs, with its Newton loop
+    on the device (`newton_loop="graphs"`, the default) and on the host
+    (`"host"`, the parent's loop), both on one model and so on the same CG
+    graphs, in turns: round 1 host then graphs (1 warmup + 3 timed steps
+    from rest each), round 2 graphs then host (3 more timed steps each,
+    from each loop's state); one profiled step of each only after both
+    rounds. The same `NewtonInfo` in every step, checksums within
+    `LOOPS_RTOL` after each round; the device loop's read-backs outside
+    the CG at most its Newton iterations + 1 a step; every step's time,
+    host syncs (the CG's apart) and launches, the peak memory of each
+    loop's round 1 and the busy share of its profiled step."""
     import torch
 
     dev = torch.device("cuda")
-    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = build_model(dev)
     torch.cuda.synchronize()
     describe("main", model, time.perf_counter() - t0)
-    require(model.cg_loop == "graphs", "main: the CG runs in CUDA graphs")
-    launches, graphs = main_run("main", "main3d", model)
-    mesh_tags = (model.mesh, model.tags)
-    lam_max = [lv.lam_max for lv in model._precond.levels]
-    other = torch.cuda.memory_allocated() - base  # the graphs model's bytes
-    t0 = time.perf_counter()
-    host_model = build_model(dev, mesh_tags=mesh_tags, mg_lam_max=lam_max,
-                             cg_loop="host")
-    torch.cuda.synchronize()
-    describe("main host", host_model, time.perf_counter() - t0)
-    host_launches, host = main_run("main host", "main3d host", host_model,
-                                   other)
-    runs = (("graphs", "main", model, graphs),
-            ("host loop", "main host", host_model, host))
-    for _, tag, m, r in runs[::-1]:  # round 2: host loop first
+    require(model.cg_loop == "graphs" and model.newton_loop == "graphs",
+            "main: the CG and the Newton loop run in CUDA graphs")
+    stress = interface_traction(model)
+    tags = {"graphs": ("main", "main3d"),
+            "host": ("main newton host", "main3d newton host")}
+    runs, launches = {}, {}
+    for loop in ("host", "graphs"):  # round 1
+        tag, path = tags[loop]
+        launches[path], runs[loop] = main_run(tag, path, model, loop, stress)
+    for loop in ("graphs", "host"):  # round 2
+        r = runs[loop]
+        model.newton_loop = loop
         r["state"], infos, r["steps2"], r["checksum2"] = run_steps(
-            tag, m, r["stress"], newton_fmt, state=r["state"], first=4, n=3)
-        r["cg"] += [i.cg_iterations for i in infos]
-        r["newton"] += [i.iterations for i in infos]
-        require(all(i.converged for i in infos), f"{tag}: every step converged")
-    for _, tag, m, r in runs:
-        r["busy"] = profile_step(tag, m, r["state"], r["stress"], table=profile)
-    del model, host_model, runs
-    torch.cuda.empty_cache()
-    for tag, r in (("graphs", graphs), ("host loop", host)):
+            tags[loop][0], model, stress, newton_fmt, state=r["state"],
+            first=4, n=3)
+        r["infos"] += infos
+        require(all(i.converged for i in infos),
+                f"{tags[loop][0]}: every step converged")
+    for loop in ("graphs", "host"):
+        model.newton_loop = loop
+        r = runs[loop]
+        r["busy"] = profile_step(tags[loop][0], model, r["state"], stress,
+                                 table=profile)
+    model.newton_loop = "graphs"
+    graphs, host = runs["graphs"], runs["host"]
+    for loop, r in runs.items():
         st, st2 = r["steps"], r["steps2"]
-        log(f"main A/B {tag}: step times round 1 {st['times']} s, round 2 "
-            f"{st2['times']} s (timed means "
+        outside = [a - b for a, b in zip(st["syncs"] + st2["syncs"],
+                                         st["cg_syncs"] + st2["cg_syncs"])]
+        r["outside"] = outside
+        log(f"main A/B newton {loop}: step times round 1 {st['times']} s, "
+            f"round 2 {st2['times']} s (timed means "
             f"{statistics.mean(st['times'][1:])!r} / "
-            f"{statistics.mean(st2['times'])!r} s), CG {r['cg']}, Newton "
-            f"{r['newton']}, host syncs {st['syncs'] + st2['syncs']}, kernel "
-            f"launches {st['launches'] + st2['launches']} per step, peak "
-            f"device memory {r['peak_gib']:.3f} GiB, busy {r['busy']:.1%} of "
-            f"a profiled step")
+            f"{statistics.mean(st2['times'])!r} s), CG "
+            f"{[i.cg_iterations for i in r['infos']]}, Newton "
+            f"{[i.iterations for i in r['infos']]}, host syncs "
+            f"{st['syncs'] + st2['syncs']} of which outside the CG "
+            f"{outside}, kernel launches {st['launches'] + st2['launches']} "
+            f"per step, peak device memory {r['peak_gib']:.3f} GiB, busy "
+            f"{r['busy']:.1%} of a profiled step")
     rels = [abs(graphs[k] - host[k]) / host[k] for k in ("checksum", "checksum2")]
-    log(f"main A/B: checksums graphs {graphs['checksum']!r} / "
-        f"{graphs['checksum2']!r} host loop {host['checksum']!r} / "
+    log(f"main A/B: checksums newton graphs {graphs['checksum']!r} / "
+        f"{graphs['checksum2']!r} host {host['checksum']!r} / "
         f"{host['checksum2']!r} after steps 3 / 6, rel. differences "
         f"{rels[0]:.3e} / {rels[1]:.3e} (limit {LOOPS_RTOL}); bitwise "
         f"{graphs['checksum'] == host['checksum'] and graphs['checksum2'] == host['checksum2']}")
-    require(graphs["cg"] == host["cg"] and graphs["newton"] == host["newton"],
-            "main: the graphs' CG and Newton counts equal the host loop's")
+    require(graphs["infos"] == host["infos"],
+            "main: the device Newton loop's NewtonInfo equals the host loop's")
     require(max(rels) <= LOOPS_RTOL,
-            "main: graphs' checksums against the host loop's")
-    return {"main3d": launches, "main3d host": host_launches}, dict(
-        mesh_tags=mesh_tags, checksum=graphs["checksum"], lam_max=lam_max,
-        cg=graphs["cg"][:4], newton=graphs["newton"][:4],
+            "main: the device Newton loop's checksums against the host loop's")
+    require(all(o <= i.iterations + 1 for o, i in zip(graphs["outside"],
+                                                      graphs["infos"])),
+            "main: the device Newton loop reads back at most its Newton "
+            "iterations + 1 a step outside the CG")
+    infos, checksum = graphs["infos"][:4], graphs["checksum"]
+    checksums = graphs["steps"]["checksums"]
+    mesh_tags = (model.mesh, model.tags)
+    lam_max = [lv.lam_max for lv in model._precond.levels]
+    del model, runs, graphs, host
+    torch.cuda.empty_cache()
+    launches["main3d host"] = main_host_cg(mesh_tags, lam_max, infos,
+                                           checksums)
+    return launches, dict(
+        mesh_tags=mesh_tags, checksum=checksum, checksums=checksums,
+        lam_max=lam_max, cg=[i.cg_iterations for i in infos],
+        newton=[i.iterations for i in infos],
     )
+
+
+def main_host_cg(mesh_tags, lam_max, infos, checksums):
+    """The main configuration with its CG loop on the host (`cg_loop=
+    "host"`, and so the host Newton loop: path `main3d host`), on main3d's
+    mesh and lam_max values, `MAIN_HOST_STEPS` steps from rest (1 warmup):
+    the same `NewtonInfo` as main3d's (`infos`) in every step and ||u||^2
+    within `LOOPS_RTOL` of main3d's after the same step (`checksums`), so
+    that the CG graphs stay held against their plain loop at full size;
+    returns the path's launches."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_model(dev, mesh_tags=mesh_tags, mg_lam_max=lam_max,
+                        cg_loop="host")
+    torch.cuda.synchronize()
+    describe("main host", model, time.perf_counter() - t0)
+    require(model.cg_loop == "host" and model.newton_loop == "host",
+            "main host: the CG and the Newton loop run on the host")
+    stress = interface_traction(model)
+    start_counts()
+    _, host_infos, steps, checksum = run_steps(
+        "main host", model, stress, newton_fmt, n=MAIN_HOST_STEPS)
+    launches = read_counts("main3d host")
+    ref = checksums[MAIN_HOST_STEPS - 1]
+    rel = abs(checksum - ref) / ref
+    log(f"main host: launches {launches}; NewtonInfo equal main3d's "
+        f"{host_infos == infos[:MAIN_HOST_STEPS]}; checksum {checksum!r} "
+        f"against main3d's {ref!r} after step {MAIN_HOST_STEPS - 1}: rel. "
+        f"difference {rel:.3e} (limit {LOOPS_RTOL}), bitwise {checksum == ref}")
+    require(all(i.converged for i in host_infos),
+            "main host: every step converged")
+    require(host_infos == infos[:MAIN_HOST_STEPS],
+            "main host: the host CG loop's NewtonInfo equals main3d's")
+    require(rel <= LOOPS_RTOL,
+            "main host: the host CG loop's checksum against main3d's")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bench():
+    """bench_torch.py's cells other than main3d (`BENCH_CELLS`) at full
+    size through its functions: 1 warmup and 3 timed steps each with its
+    checks (every Neo-Hookean step converged, every linear residual <=
+    1e-10, ||u||^2 against the JAX package's where recorded); returns
+    {path: launches}."""
+    import torch
+
+    dev = torch.device("cuda")
+    by_path = {}
+    for path, (kind, degree, scale) in BENCH_CELLS.items():
+        build = (bench_torch.build_model if kind == "nonlinear"
+                 else bench_torch.build_linear_model)
+        t0 = time.perf_counter()
+        model = build(scale, "float64", degree, device=dev)
+        torch.cuda.synchronize()
+        log(f"{path}: {kind} degree {degree} scale {scale}, "
+            f"{model.space.n_dofs} DoF, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        start_counts()
+        _, _, diags = bench_torch.run_steps(model, 3)
+        by_path[path] = read_counts(path)
+        for d in diags:
+            log(f"{path}: step {d['step']}: " + ", ".join(
+                f"{k} {v!r}" for k, v in d.items() if k != "step"))
+        timed = [d["s"] for d in diags[1:]]
+        log(f"{path}: launches {by_path[path]}; timed steps {timed} s, "
+            f"{model.space.n_dofs / 1e6 * len(timed) / sum(timed)!r} "
+            f"MDoF*steps/s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        fails = bench_torch.check(kind, diags, (kind, degree, scale), True)
+        require(not fails, f"{path}: {fails}")
+        del model
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def newton_host_twin(tag, model, stress, infos, checksum):
+    """The path's 4 steps again from rest with the Newton loop on the host
+    (`newton_loop="host"`, on the same model and CG graphs): the same
+    `NewtonInfo` in every step, ||u||^2 within `LOOPS_RTOL`."""
+    model.newton_loop = "host"
+    _, host_infos, steps, host_checksum = run_steps(
+        f"{tag} newton host", model, stress, newton_fmt)
+    model.newton_loop = "graphs"
+    rel = abs(checksum - host_checksum) / host_checksum
+    log(f"{tag}: newton graphs against host: NewtonInfo equal "
+        f"{host_infos == infos}, checksum rel. difference {rel:.3e} (limit "
+        f"{LOOPS_RTOL}); the host loop's syncs outside the CG a step "
+        f"{[a - b for a, b in zip(steps['syncs'], steps['cg_syncs'])]}")
+    require(host_infos == infos,
+            f"{tag}: the device Newton loop's NewtonInfo equals the host loop's")
+    require(rel <= LOOPS_RTOL, f"{tag}: checksum against the host Newton loop's")
 
 
 def phase_tangent3d(main):
@@ -1715,6 +1849,7 @@ def phase_jvp(main):
                     "reuse_fine3d: fewer assemblies than Newton iterations")
         else:
             tangent_operator_ms(path, model, state)
+        newton_host_twin(path, model, stress, infos, checksum)
         del model, state
         torch.cuda.empty_cache()
     return by_path
@@ -1968,6 +2103,7 @@ def phase_gather3d(main):
     require(all(i.converged for i in infos), "gather3d: every step converged")
     require(newton == ref["newton"], "gather3d: Newton counts equal jvp3d's")
     require(rel <= JVP_RTOL, "gather3d: checksum against jvp3d's")
+    newton_host_twin("gather3d", model, stress, infos, checksum)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2079,8 +2215,9 @@ def phase_shard3d(main, records):
     from dealii_adapter_tpu_torch.parallel import spawn
 
     t0 = time.perf_counter()
-    out = spawn(_shard3d_rank, SHARD_RANKS, "cuda", main["lam_max"], 4,
-                backend="gloo")
+    out = spawn(_shard3d_rank, SHARD_RANKS, "cuda", main["lam_max"],
+                SHARD3D_STEPS, backend="gloo")
+    ref = main["checksums"][SHARD3D_STEPS - 1]  # main3d's after that step
     log(f"shard3d: {SHARD_RANKS} ranks on the card over gloo, host CG loop, "
         f"ran in {time.perf_counter() - t0:.1f} s (spawn, build and steps)")
     by_name = {rec["name"]: rec for rec in records}
@@ -2104,12 +2241,13 @@ def phase_shard3d(main, records):
             f"peak device memory {r['peak_gib']:.2f} GiB")
         read_counts("shard3d", r["launches"])
         log(f"{tag}: launches {r['launches']}")
-        rel = abs(r["checksums"][-1] - main["checksum"]) / main["checksum"]
+        rel = abs(r["checksums"][-1] - ref) / ref
         log(f"{tag}: checksum {r['checksums'][-1]!r} against main3d's "
-            f"{main['checksum']!r}: rel. difference {rel:.3e} (limit "
-            f"{SHARD_RTOL})")
+            f"{ref!r} after step {SHARD3D_STEPS - 1}: rel. difference "
+            f"{rel:.3e} (limit {SHARD_RTOL})")
         require(all(r["converged"]), f"{tag}: every step converged")
-        require(r["newton"] == main["newton"], f"{tag}: Newton counts equal main3d's")
+        require(r["newton"] == main["newton"][:SHARD3D_STEPS],
+                f"{tag}: Newton counts equal main3d's")
         require(all(abs(a - b) <= SHARD_CG_SLACK for a, b in zip(r["cg"], main["cg"])),
                 f"{tag}: CG within {SHARD_CG_SLACK} a step of main3d's")
         require(rel <= SHARD_RTOL, f"{tag}: checksum against main3d's")
@@ -2275,12 +2413,13 @@ def main():
     by_path = {}
     paths, main_run = timed("main", phase_main, args.profile)
     by_path.update(paths)
+    by_path.update(timed("bench", phase_bench))
     by_path.update(timed("tangent3d", phase_tangent3d, main_run))
     by_path.update(timed("jvp", phase_jvp, main_run))
     by_path["stencil3d"], model, checksum = timed(
         "stencil3d", phase_stencil3d, main_run)
     parallel = {k: main_run[k] for k in ("mesh_tags", "lam_max", "checksum",
-                                         "cg", "newton", "jvp3d")}
+                                         "checksums", "cg", "newton", "jvp3d")}
     del main_run
     by_path["coupled3d"] = timed("coupled3d", phase_coupled3d, model, checksum)
     del model

@@ -42,9 +42,16 @@ def build_transpose_gather_plan(
     (n_cells * nodes_per_cell + 1) cell-value array; the final sentinel row
     is zero. Returns (plan, sentinel_index).
 
-    O(n log n) numpy construction. The structured operators never read the
-    plan; host-side setup (body-force weights) and the interface load of
-    the linear model (`ops/element_ops.py:FaceLoading`) do."""
+    The O(n) C++ builder (`native.py`) where it builds, else this O(n log
+    n) numpy construction; both give the same plan. The structured
+    operators never read the plan; host-side setup (body-force weights),
+    the gather backend and the interface load of the linear model
+    (`ops/element_ops.py:FaceLoading`) do."""
+    from ..native import build_plan_native
+
+    res = build_plan_native(cells, n_nodes)
+    if res is not None:
+        return res
     n_cells, npc = cells.shape
     flat_nodes = cells.ravel().astype(np.int64)
     order = np.argsort(flat_nodes, kind="stable")

@@ -70,11 +70,23 @@ per model: the assembly writes into one (the layouts' `out=`), the jvp
 tangent's linearization point is copied into others, so the captured
 operator reads each Newton iteration's tangent at the same address.
 
+The Newton loop runs as `newton_loop` says: "graphs" (the default under
+`cg_loop="graphs"`, `_newton_solve_device`) makes every decision on the
+device in 0-dim f64 tensors, in the order of operations of the host
+loop, replays the residuals, the tangent refill, the decisions and the
+update from CUDA graphs captured once per model into the CG graphs' memory
+pool (`solvers/graphs.py`; eagerly on the CPU), hands the CG its
+tolerance as a device tensor, and reads back one packed status a Newton
+pass (two in a pass whose f32 residual stalls); "host" (`_newton_solve_
+host`, the default under the host CG loop, which "graphs" cannot run
+beside) decides in Python floats, one read-back a norm. Both give the
+same `NewtonInfo` and iterate bit for bit.
+
 Differences from the JAX package, all in the host orchestration:
-* Newton is a host loop (`lax.while_loop` in JAX): every Newton
-  decision reads its scalars back from the device, one sync each, counted
-  in `host_syncs` with the CG's read-backs; the tangent-reuse decision
-  reads nothing more;
+* Newton is a host loop (`lax.while_loop` in JAX) that reads a packed
+  status back every pass (under `newton_loop="host"` every decision's
+  scalars, one sync each), counted in `host_syncs` with the CG's
+  read-backs;
 * a NaN f32 residual never becomes the noise floor: a non-finite
   calibration leaves the floor uncalibrated (f64 continues), and the
   stall-redo re-calibration keeps the last finite floor (the JAX package
@@ -93,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 import warnings
 import weakref
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -155,9 +168,11 @@ from ..solvers.cg import (
     lambda_max,
     make_cg,
 )
+from ..solvers.graphs import GraphRunner
 from .material import NeoHookean, det_and_inv_c, kinematics_c
 
 DIRECT_MAX_UNKNOWNS = 16384  # dense Direct tangent cap (as in the JAX package)
+NEWTON_LOOPS = ("graphs", "host")  # the `newton_loop` choices
 
 
 def internal_force_cellwise_T(ut, G, w, material):
@@ -246,7 +261,14 @@ class NonlinearElasticity:
     (default `CG_CHUNK`) sets the graphs' chunk length; it exists for
     `tools/cg_chunk_sweep.py`, which measures the lengths on this model.
     With a `device_mesh`, states and interface stresses are this rank's
-    rows (`local_rows`, `global_rows`)."""
+    rows (`local_rows`, `global_rows`). `newton_loop` ("graphs" or "host")
+    chooses the Newton loop (module docstring); it is an attribute that a
+    caller may switch between steps of a model with `cg_loop="graphs"`
+    (both loops share its CG graphs: `chip_smoke.py`'s A/B), never
+    switched by the model itself. `host_syncs` counts the read-backs,
+    `cg_host_syncs` the CG's among them, and `uncounted_f32_evals` the
+    solve-dtype residuals the device loop evaluated and discarded, which
+    `NewtonInfo` does not count (`_newton_solve_device`)."""
 
     def __init__(
         self,
@@ -260,9 +282,12 @@ class NonlinearElasticity:
         cg_loop: str = "graphs",
         cg_chunk: int = CG_CHUNK,
         device_mesh=None,
+        newton_loop: Optional[str] = None,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
-        hierarchy's power-iteration estimates."""
+        hierarchy's power-iteration estimates. `newton_loop` ("graphs" or
+        "host") defaults to "graphs" under `cg_loop="graphs"` and to
+        "host" under the host CG loop, which "graphs" cannot run beside."""
         if not params.data_consistent:
             raise ValueError(
                 "The neo-Hookean solid doesn't support 'Force' data reading. "
@@ -282,6 +307,22 @@ class NonlinearElasticity:
                 f"unknown cg_loop {cg_loop!r}; expected one of {CG_LOOPS}")
         check_collective_loop(device_mesh, self.device, cg_loop)
         self.cg_chunk = int(cg_chunk)
+        if newton_loop is None:
+            newton_loop = "graphs" if cg_loop == "graphs" else "host"
+        if newton_loop not in NEWTON_LOOPS:
+            raise ValueError(f"unknown newton_loop {newton_loop!r}; expected "
+                             f"one of {NEWTON_LOOPS}")
+        if newton_loop == "graphs" and cg_loop != "graphs":
+            raise ValueError(
+                "newton_loop='graphs' needs cg_loop='graphs': the Newton "
+                "loop on the device hands its CG tolerance over as a device "
+                "tensor, which the host CG loop reads back")
+        self.newton_loop = newton_loop
+        # the Newton loop's CUDA graphs share the CG graphs' memory pool
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._graphs = GraphRunner(self.device, self._pool)
+        self._nb = None  # the device Newton loop's buffers, at first use
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -318,7 +359,9 @@ class NonlinearElasticity:
         self.alpha_4 = gamma / (beta * dt)
         self.alpha_5 = 1.0 - gamma / beta
         self.alpha_6 = (1.0 - gamma / (2.0 * beta)) * dt
-        self.host_syncs = 0
+        self.host_syncs = 0  # device-to-host read-backs, the CG's included
+        self.cg_host_syncs = 0  # the CG's read-backs among them
+        self.uncounted_f32_evals = 0  # the device loop's, at u = 0
         self._tangent = None  # (persistent tangent, CG solve), at first use
         self._setup_constants(mg_lam_max)
 
@@ -877,19 +920,30 @@ class NonlinearElasticity:
         )
         return NonlinearState(z, z, z)
 
-    def _norm(self, v: torch.Tensor) -> float:
-        """l2 norm by an f32 reduction of the (f64) vector: norms steer
-        decisions only through ratios and thresholds (the JAX package's
-        choice, kept for decision parity)."""
+    def _norm_t(self, v: torch.Tensor) -> torch.Tensor:
+        """l2 norm by an f32 reduction of the (f64) vector, as a 0-dim f64
+        tensor: norms steer decisions only through ratios and thresholds
+        (the JAX package's choice, kept for decision parity)."""
         v32 = v.to(torch.float32).reshape(-1)
+        return torch.sqrt(self._dot(v32, v32)).to(torch.float64)
+
+    def _norm(self, v: torch.Tensor) -> float:
+        """`_norm_t` read back."""
         self.host_syncs += 1
-        return float(torch.sqrt(self._dot(v32, v32)).to(torch.float64))
+        return float(self._norm_t(v))
 
     def _scalar(self, x: torch.Tensor) -> float:
         self.host_syncs += 1
         return float(x)
 
     def _newton_solve(self, state: NonlinearState, stress: torch.Tensor):
+        if self.newton_loop == "graphs":
+            return self._newton_solve_device(state, stress)
+        return self._newton_solve_host(state, stress)
+
+    def _newton_solve_host(self, state: NonlinearState, stress: torch.Tensor):
+        """The Newton loop on the host: every decision in Python floats
+        read back from the device (`newton_loop="host"`)."""
         params = self.params
         mask = self.mask
         tol_u, tol_f = params.tol_u, params.tol_f
@@ -1023,6 +1077,272 @@ class NonlinearElasticity:
         )
         return delta, info
 
+    # ------------------------------------------------------------------
+    # the Newton loop on the device (`newton_loop="graphs"`)
+    # ------------------------------------------------------------------
+
+    # the packed status read back once a Newton pass (`_newton_decide`)
+    _STATUS = ("stall", "conv", "refresh", "want64", "calibrated", "n64",
+               "n32", "res_abs", "res_rel", "upd_abs", "upd_rel", "min_J")
+
+    def _newton_buffers(self, state, stress):
+        """The device loop's static buffers (allocated at the first step):
+        the step's inputs, the iterate, the residuals, and the loop's
+        scalars as 0-dim f64 (bool for flags) tensors; the step's inputs
+        are copied in."""
+        b = self._nb
+        if b is None:
+            dev, f64 = self.device, torch.float64
+
+            def scalar(dtype=f64):
+                return torch.zeros((), dtype=dtype, device=dev)
+
+            vec = state.displacement
+            b = self._nb = types.SimpleNamespace(
+                **{k: torch.empty_like(vec) for k in (
+                    "disp", "vel", "acc", "delta", "du", "out64", "out32")},
+                stress=torch.empty_like(stress),
+                **{k: scalar() for k in (
+                    "res0", "upd0", "res_abs", "res_rel", "upd_abs",
+                    "upd_rel", "res_floor", "ratio_prev", "min_J", "n64",
+                    "n32", "mJ64", "mJ32", "cg_tol")},
+                calibrated=scalar(torch.bool), want64_next=scalar(torch.bool),
+                tiny=torch.full((), 1e-300, dtype=f64, device=dev),
+                floor_T=torch.full((), 5e-9, dtype=f64, device=dev),
+                status=torch.zeros(len(self._STATUS), dtype=f64, device=dev),
+            )
+            b.state = NonlinearState(b.disp, b.vel, b.acc)
+        for buf, t in zip((b.disp, b.vel, b.acc, b.stress), (*state, stress)):
+            buf.copy_(t)
+        return b
+
+    def _newton_start(self, b):
+        """The loop's initial values: the predictor iterate and the
+        scalars `_newton_solve_host` starts from."""
+        p = self.params
+        if p.newton_predictor and not self.quasi_static:
+            b.delta.copy_(self.mask * (
+                p.delta_t * b.vel + (0.5 * p.delta_t**2) * b.acc))
+        else:
+            b.delta.zero_()
+        for t in (b.res0, b.upd0, b.res_abs, b.res_rel, b.upd_abs, b.upd_rel,
+                  b.ratio_prev):
+            t.fill_(1.0)
+        for t in (b.res_floor, b.n64, b.n32, b.calibrated, b.want64_next):
+            t.zero_()
+        b.min_J.fill_(math.inf)
+
+    def _newton_residual(self, b, f64):
+        """The f64 (`residual`) or solve-dtype (`_residual32`) residual at
+        the iterate, into `out64`/`mJ64` or `out32`/`mJ32`."""
+        fn = self.residual if f64 else self._residual32
+        rhs, mJ = fn(b.delta, b.state, b.stress)
+        out, m = (b.out64, b.mJ64) if f64 else (b.out32, b.mJ32)
+        out.copy_(rhs)
+        m.copy_(mJ)
+
+    def _newton_decide(self, b, it0, was32, calib, redo, refresh_mode, mixed):
+        """One pass's decisions after its residuals, on the device: the
+        lines of `_newton_solve_host` between the residual and the solve,
+        in the same order of operations on 0-dim f64 tensors (maximum and
+        minimum propagate NaN as `_fmax`/`_fmin`, the division is IEEE's
+        as `_div`'s). The flags the host knows select the lines: `it0`
+        (iteration 0), `was32` (the pass evaluated in the solve dtype),
+        `calib` (an f64 pass before the floor is calibrated, which also
+        evaluated `out32`; u != 0 is tested here), `redo` (the f64
+        re-evaluation after a stall; a `was32` pass that stalls commits
+        nothing and asks for it), `refresh_mode` (True, False or "stale":
+        tangent reuse's test). Commits the loop's scalars and writes the
+        packed status (`_STATUS`)."""
+        p, norm = self.params, self._norm_t
+        stall = None  # a device flag only where a stall can occur
+        calibrated, res_floor = b.calibrated, b.res_floor
+        can_calib = None
+        if mixed:
+            res_abs0 = norm(b.out32 if was32 else b.out64)
+            floor0 = res_floor
+            if calib:
+                u_nonzero = norm(b.disp + b.delta) > 0.0
+                can_calib = ~calibrated & u_nonzero
+                denom = res_abs0 if it0 else b.res0
+                fl = norm(b.out32 - b.out64) / torch.maximum(denom, b.tiny)
+                calib_ok = can_calib & torch.isfinite(fl)
+                floor0 = torch.where(calib_ok, fl, res_floor)
+                calibrated = calibrated | calib_ok
+            res_floor = floor0
+            if redo:
+                fl = norm(b.out64 - b.out32) / torch.maximum(b.res0, b.tiny)
+                res_floor = torch.where(torch.isfinite(fl),
+                                        torch.maximum(fl, floor0), floor0)
+                calibrated = torch.ones_like(calibrated)
+                res_abs_new, mJ = norm(b.out64), b.mJ64
+            else:
+                if was32:
+                    stall = ~(res_abs0 <= 0.5 * b.res_abs)
+                res_abs_new, mJ = res_abs0, (b.mJ32 if was32 else b.mJ64)
+            n64_inc = (0 if was32 else 1) + (1 if redo else 0)
+            n32_inc = (1 if was32 else 0) + (
+                can_calib.to(torch.float64) if calib else 0)
+        else:
+            res_abs_new, mJ = norm(b.out64), b.mJ64
+            n64_inc, n32_inc = 1, 0
+        res0 = torch.maximum(res_abs_new, b.tiny) if it0 else b.res0
+        res_rel_new = res_abs_new / res0
+        ratio = res_abs_new / b.res_abs
+        if it0:
+            eta = p.ew_eta0
+        else:
+            x = 0.9 * ratio * ratio
+            eta = torch.where(torch.isnan(x), x, x.clamp(1e-4, 0.5))
+        T = torch.maximum(p.tol_f * res0, b.floor_T)
+        if p.newton_forcing == "ew":
+            cg_tol = torch.maximum(eta * res_abs_new, 0.5 * T)
+        else:
+            cg_tol = p.tol_lin * res_abs_new
+        want64_next = b.want64_next
+        if mixed:  # pred equals cg_tol's expression
+            want64_next = (cg_tol / res0
+                           <= p.newton_residual_f64_window * res_floor)
+        if it0:
+            conv = torch.zeros((), dtype=torch.bool, device=self.device)
+        else:
+            conv = (((b.upd_rel <= p.tol_u) | (b.upd_abs <= 1e-15))
+                    & ((res_rel_new <= p.tol_f) | (res_abs_new <= 5e-9)))
+        if refresh_mode == "stale":
+            refresh = ((ratio > 0.5 * b.ratio_prev)
+                       & (ratio > p.tangent_refresh_ratio))
+        else:
+            refresh = torch.full((), bool(refresh_mode), device=self.device)
+        if mixed:  # the next pass's precision (never iteration 0)
+            want64 = (~calibrated
+                      | (res_rel_new <= p.newton_residual_f64_window
+                         * res_floor) | want64_next)
+        else:
+            want64 = torch.ones((), dtype=torch.bool, device=self.device)
+        new = (
+            (b.res0, res0), (b.res_abs, res_abs_new), (b.res_rel, res_rel_new),
+            (b.res_floor, res_floor), (b.calibrated, calibrated),
+            (b.want64_next, want64_next), (b.cg_tol, cg_tol),
+            (b.ratio_prev, torch.where(conv, b.ratio_prev, ratio)),
+            (b.min_J, torch.minimum(b.min_J, mJ)),
+            (b.n64, b.n64 + n64_inc), (b.n32, b.n32 + n32_inc),
+        )
+        for dst, val in new:
+            if stall is None:
+                dst.copy_(val)
+            else:  # a stalled pass commits nothing: the redo decides
+                torch.where(stall, dst, val, out=dst)
+        for i, val in enumerate((
+                stall if stall is not None else False, conv, refresh, want64,
+                b.calibrated, b.n64, b.n32, b.res_abs, b.res_rel, b.upd_abs,
+                b.upd_rel, b.min_J)):
+            if isinstance(val, torch.Tensor):
+                b.status[i].copy_(val)
+            else:
+                b.status[i].fill_(float(val))
+
+    def _newton_update(self, b, it0):
+        """After a correction: its masked norm, the update ratios and
+        `delta += du`."""
+        upd_abs = self._norm_t(self.mask * b.du)
+        if it0:
+            b.upd0.copy_(torch.maximum(upd_abs, b.tiny))
+        b.upd_rel.copy_(upd_abs / b.upd0)
+        b.upd_abs.copy_(upd_abs)
+        b.delta.add_(b.du)
+
+    def _read_status(self, b) -> dict:
+        self.host_syncs += 1
+        return dict(zip(self._STATUS, b.status.tolist()))
+
+    def _newton_solve_device(self, state: NonlinearState,
+                             stress: torch.Tensor):
+        """`_newton_solve_host` with its decisions on the device
+        (`newton_loop="graphs"`): each residual, tangent refill, decision
+        and update replays its CUDA graph (`solvers/graphs.py`; eager on
+        the CPU), the CG takes its tolerance as a device tensor, and the
+        host reads one packed status a pass, which says what to run next
+        (the residual's precision, the calibration, a stall's f64
+        re-evaluation, the tangent refresh, convergence); a stall costs a
+        second read. `NewtonInfo` is built from the device's scalars, the
+        same floats as the host loop's. Differs in work from the host
+        loop in one place: an f64 pass before the floor is calibrated
+        evaluates the solve-dtype residual whether or not u != 0 (the host
+        loop skips it at u = 0, where the calibration is discarded), so a
+        step from rest pays one more such evaluation, which `f32_evals`
+        does not count and `uncounted_f32_evals` does (a calibrating pass
+        whose status shows no f32 evaluation counted)."""
+        params = self.params
+        use_cg = params.type_lin == "CG"
+        mixed = (use_cg and self._mixed_tangent and not self._cells
+                 and params.newton_residual == "mixed")
+        reuse = bool(params.newton_tangent_reuse and self._use_assembled
+                     and use_cg and self._mixed_tangent)
+        reuse_after = int(params.tangent_reuse_after)
+        max_nr = int(params.max_iterations_NR)
+        run = self._graphs
+        b = self._newton_buffers(state, stress)
+        run("start", lambda: self._newton_start(b))
+        it, converged, cg_total, nasm = 0, False, 0, 0
+        want64, calibrated = True, False
+        st, n32 = None, 0
+        while not converged and it < max_nr:
+            it0 = it == 0
+            was32 = mixed and not want64
+            run(("residual", not was32),
+                lambda: self._newton_residual(b, not was32))
+            calib = mixed and not was32 and not calibrated
+            if calib:
+                run(("residual", False), lambda: self._newton_residual(b, False))
+            refresh_mode = True
+            if reuse:
+                if it < reuse_after or self._tangent is None:
+                    refresh_mode = True
+                elif it > reuse_after:
+                    refresh_mode = "stale"
+                else:
+                    refresh_mode = False
+            flags = (it0, was32, calib, False, refresh_mode, mixed)
+            run(("decide",) + flags, lambda: self._newton_decide(b, *flags))
+            st = self._read_status(b)
+            if calib:  # n32 grows by 1 exactly where u != 0
+                self.uncounted_f32_evals += 1 - (int(st["n32"]) - n32)
+            stalled = bool(st["stall"])
+            if stalled:
+                run(("residual", True), lambda: self._newton_residual(b, True))
+                flags = (it0, was32, False, True, refresh_mode, mixed)
+                run(("decide",) + flags, lambda: self._newton_decide(b, *flags))
+                st = self._read_status(b)
+            n32 = int(st["n32"])
+            converged = bool(st["conv"])
+            if not converged:
+                refresh = (bool(st["refresh"]) if refresh_mode == "stale"
+                           else refresh_mode)
+                rhs = b.out32 if was32 and not stalled else b.out64
+                du, cg_its, asm_inc = self._solve(b.delta, b.state, b.stress,
+                                                  rhs, b.cg_tol, refresh)
+                b.du.copy_(du)
+                run(("update", it0), lambda: self._newton_update(b, it0))
+                it += 1
+                cg_total += cg_its
+                nasm += asm_inc
+            want64, calibrated = bool(st["want64"]), bool(st["calibrated"])
+        if st is None:  # no pass (max_iterations_NR < 1)
+            st = dict(res_abs=1.0, res_rel=1.0, upd_abs=1.0, upd_rel=1.0,
+                      min_J=math.inf, n64=0, n32=0)
+        elif not converged:  # the last correction's update ratios
+            self.host_syncs += 1
+            st["upd_abs"], st["upd_rel"] = torch.stack(
+                [b.upd_abs, b.upd_rel]).tolist()
+        info = NewtonInfo(
+            converged=converged, iterations=it, residual_abs=st["res_abs"],
+            residual_rel=st["res_rel"], update_abs=st["upd_abs"],
+            update_rel=st["upd_rel"], cg_iterations=cg_total,
+            min_det_F=st["min_J"], f64_evals=int(st["n64"]),
+            f32_evals=int(st["n32"]), tangent_assemblies=nasm,
+        )
+        return b.delta.clone(), info
+
     def _solve(self, delta, state, stress, rhs, cg_tol, refresh=True):
         """One Newton correction: (du, CG iterations, tangent assemblies).
         The first one builds the tangent's persistent buffers and the CG
@@ -1036,27 +1356,33 @@ class NonlinearElasticity:
             du = torch.linalg.solve(A, rhs.reshape(-1)).reshape(rhs.shape)
             return du, 1, 1
         tdt = self.solve_dtype
+        # on the device Newton loop the refills replay their CUDA graphs
+        produce = (self._graphs if self.newton_loop == "graphs"
+                   else lambda key, body: body())
         if self._use_assembled:
-            u_t = (state.displacement + delta).to(tdt)
             # the assembly closure refers to the model and is not kept:
             # kept, it would make the model, its tangent and its CG graphs
             # a reference cycle that outlives `del model`
             assemble_Kt, make_tangent_matvec = self._make_tangent_fns()
             if self._tangent is None:
-                Kt = assemble_Kt(u_t)
+                Kt = assemble_Kt((state.displacement + delta).to(tdt))
                 K = make_tangent_matvec(Kt)
                 self._tangent = (Kt, self._make_cg(K))
             elif refresh:
-                assemble_Kt(u_t, out=self._tangent[0])
+                Kt = self._tangent[0]
+                produce("assemble", lambda: assemble_Kt(
+                    (state.displacement + delta).to(tdt), out=Kt))
         elif self._tangent is None:
             refill, K = self._make_jvp_tangent(delta, state, stress)
             self._tangent = (refill, self._make_cg(K))
         else:
-            self._tangent[0](delta, state, stress)
+            refill = self._tangent[0]
+            produce("refill", lambda: refill(delta, state, stress))
         solve = self._tangent[1]
         r = solve(rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt), cg_tol,
                   self._max_cg_iter)
         self.host_syncs += r.host_syncs
+        self.cg_host_syncs += r.host_syncs
         return r.x.to(self.dtype), r.iterations, int(refresh)
 
     def _make_cg(self, K):
@@ -1071,7 +1397,8 @@ class NonlinearElasticity:
                 return K(v.to(tdt)).to(pdt)
 
             precond = precond.with_fine_operator(fine_tangent_op)
-        return make_cg(self.cg_loop, K, precond, self.cg_chunk, self._dot)
+        return make_cg(self.cg_loop, K, precond, self.cg_chunk, self._dot,
+                       self._pool)
 
     def step(
         self, state: NonlinearState, interface_stress: torch.Tensor
@@ -1111,7 +1438,7 @@ class NonlinearElasticity:
                 mesh=self.mesh, tags=self.tags,
                 quasi_static=self.quasi_static, device=self.device,
                 cg_loop=self.cg_loop, cg_chunk=self.cg_chunk,
-                device_mesh=self.device_mesh,
+                device_mesh=self.device_mesh, newton_loop=self.newton_loop,
             )
         return cache[key]
 

@@ -247,11 +247,12 @@ class ChunkedCG:
 
     def __init__(self, operator: Callable,
                  preconditioner: Optional[Callable] = None,
-                 chunk: int = CG_CHUNK, dot: Callable = _dot):
+                 chunk: int = CG_CHUNK, dot: Callable = _dot, pool=None):
         if int(chunk) < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.operator = operator
         self.dot = dot
+        self.pool = pool  # a CUDA-graph memory pool to capture into
         self.M = preconditioner if preconditioner is not None else (lambda r: r)
         self.chunk = int(chunk)
         self._like = None  # (shape, dtype, device) of b, fixed at the first call
@@ -264,8 +265,8 @@ class ChunkedCG:
         self._b, self._x0, self._x, self._r, self._p = (vec() for _ in range(5))
         self._rz, self._resn, self._tol = (scalar(b.dtype) for _ in range(3))
         self._k, self._max_iter = scalar(torch.int32), scalar(torch.int32)
-        # (k, resn) after a chunk, the one tensor read back
-        self._status = torch.zeros(2, dtype=torch.float64, device=b.device)
+        # (k, resn, tol) after a chunk, the one tensor read back
+        self._status = torch.zeros(3, dtype=torch.float64, device=b.device)
 
     def _start(self):
         """cg_solve's lines before the loop, into the static state."""
@@ -302,9 +303,11 @@ class ChunkedCG:
     def _publish(self):
         self._status[0].copy_(self._k)
         self._status[1].copy_(self._resn)
+        self._status[2].copy_(self._tol)
 
     def _capture(self):
         from ..kernels import counters
+        from .graphs import capture
 
         dev = self._like[2]
         side = torch.cuda.Stream(dev)
@@ -313,11 +316,11 @@ class ChunkedCG:
             self._start()
             self._chunk(1)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graphs, pool = [], None
+        graphs, pool = [], self.pool
         for body in (self._start, self._chunk):
             graph = torch.cuda.CUDAGraph()
             before = counters.launch_counts()
-            with torch.cuda.graph(graph, pool=pool):
+            with capture(graph, pool):
                 body()
             graphs.append((graph, counters.captured(before)))
             pool = graph.pool()
@@ -335,9 +338,11 @@ class ChunkedCG:
         graph.replay()
         counters.add(per_replay)
 
-    def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol: float,
+    def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol,
                  max_iter: int) -> CGResult:
-        tol = torch.tensor(float(tol), dtype=b.dtype).item()
+        """`tol` a float, or a 0-dim tensor on b's device, copied into the
+        solver's tolerance on the device (no read-back; the Newton loop on
+        the device computes it there)."""
         if self._like is None:
             self._allocate(b)
         elif (b.shape, b.dtype, b.device) != self._like:
@@ -348,7 +353,10 @@ class ChunkedCG:
             )
         self._b.copy_(b)
         self._x0.copy_(x0)
-        self._tol.fill_(tol)
+        if isinstance(tol, torch.Tensor):
+            self._tol.copy_(tol)  # rounds to b's dtype, as the float path
+        else:
+            self._tol.fill_(torch.tensor(float(tol), dtype=b.dtype).item())
         self._max_iter.fill_(min(int(max_iter), _INT32_MAX))
         if b.is_cuda and self._graphs is None:
             self._capture()
@@ -356,7 +364,7 @@ class ChunkedCG:
         syncs = 0
         while True:
             self._run(1)
-            k, resn = self._status.tolist()
+            k, resn, tol = self._status.tolist()
             syncs += 1
             k = int(k)
             if not (resn > tol and k < max_iter):
@@ -367,12 +375,14 @@ class ChunkedCG:
 
 def make_cg(loop: str, operator: Callable,
             preconditioner: Optional[Callable] = None,
-            chunk: int = CG_CHUNK, dot: Callable = _dot) -> Callable:
+            chunk: int = CG_CHUNK, dot: Callable = _dot,
+            pool=None) -> Callable:
     """The models' Krylov solve `solve(b, x0, tol, max_iter) -> CGResult`:
-    `ChunkedCG` for `loop="graphs"` (CUDA graphs on a card, the same chunks
-    eagerly on the CPU), the host-loop `cg_solve` for `loop="host"`."""
+    `ChunkedCG` for `loop="graphs"` (CUDA graphs on a card, captured into
+    `pool` if given; the same chunks eagerly on the CPU), the host-loop
+    `cg_solve` for `loop="host"`."""
     if loop == "graphs":
-        return ChunkedCG(operator, preconditioner, chunk, dot)
+        return ChunkedCG(operator, preconditioner, chunk, dot, pool)
     if loop == "host":
         def solve(b, x0, tol, max_iter):
             return cg_solve(operator, b, x0, tol, max_iter, preconditioner, dot)

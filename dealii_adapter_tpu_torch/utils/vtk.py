@@ -124,11 +124,15 @@ def vtk_lagrange_perm(degree: int, dim: int) -> np.ndarray:
 
 
 def _b64(arr: np.ndarray) -> str:
-    """The UInt64 byte-count header and the raw bytes, base64-encoded (the
-    JAX package's plain path; its C++ encoder is not ported)."""
+    """The UInt64 byte-count header and the raw bytes, base64-encoded: by
+    the C++ encoder (`native.py`) where it builds, else the standard
+    library's (the same text)."""
+    from ..native import b64_native
+
     raw = arr.tobytes()
     payload = struct.pack("<Q", len(raw)) + raw
-    return base64.b64encode(payload).decode("ascii")
+    enc = b64_native(payload)
+    return enc if enc is not None else base64.b64encode(payload).decode("ascii")
 
 
 def _host(x) -> np.ndarray:

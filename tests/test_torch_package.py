@@ -843,3 +843,45 @@ def test_jvp_tangent_on_card():
         NonlinearElasticity(AllParameters(**dict(
             PRODUCTION_3D, solve_dtype="", precond_dtype="")),
             mesh=mesh, tags=tags, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [{}, {"tangent_backend": "jvp"}],
+                         ids=["assembled", "jvp"])
+def test_newton_graphs_replay_as_the_host_loop_on_card(overrides):
+    """Run on the card (see above). The 3D production step at scale 1
+    (2,331 DoF) with the Newton loop replayed from CUDA graphs
+    (`newton_loop="graphs"`) and on the host, on one model and so on the
+    same CG graphs, three steps from rest each: the same `NewtonInfo` and
+    states bit for bit; the device loop reads back at most its Newton
+    iterations + 1 a step outside the CG, and it replays graphs (residuals,
+    decisions, update, tangent refill) from its second step on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
+
+    dev = torch.device("cuda")
+    mesh, tags = make_scenario_grid("PF", 3, 2, scale=1, solver="neo-Hookean")
+    model = NonlinearElasticity(
+        AllParameters(**dict(PRODUCTION_3D, **overrides)), mesh=mesh,
+        tags=tags, device=dev)
+    assert model.newton_loop == "graphs"
+    n = model.space.n_nodes
+    stress = torch.zeros((n, 3), dtype=torch.float64, device=dev)
+    stress[torch.as_tensor(model.space.boundary_nodes[model.interface_id],
+                           device=dev), 0] = 1000.0
+    runs = {}
+    for loop in ("graphs", "host"):
+        model.newton_loop = loop
+        state, out = model.initial_state(), []
+        for _ in range(3):
+            syncs, cg = model.host_syncs, model.cg_host_syncs
+            state, info = model.step(state, stress)
+            outside = (model.host_syncs - syncs) - (model.cg_host_syncs - cg)
+            out.append((info, [t.clone() for t in state], outside))
+        runs[loop] = out
+    assert len(model._graphs) >= 4
+    for (ig, sg, og), (ih, sh, oh) in zip(runs["graphs"], runs["host"]):
+        assert ig.converged and ig == ih
+        assert all(torch.equal(a, b) for a, b in zip(sg, sh))
+        assert og <= ig.iterations + 1 < oh
