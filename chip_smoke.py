@@ -192,9 +192,38 @@ script exits non-zero without printing a result):
      ||u||^2 within `SHARD_RTOL`;
    - dryrun — `parallel/dryrun.py:dryrun_multichip(SHARD_RANKS, "cuda")`:
      converged, det F > 0, K1, K3 and K5 launched on every rank.
+14. the coupled run and the CLI on several ranks, and the Neo-Hookean
+   golden trajectories:
+   - coupled_shard — phase 10's coupled run (phase 9's configuration, K6
+     on every Q1 level, phase 4's lam_max values) on the lattice partition
+     on `SHARD_RANKS` gloo ranks sharing the card, the host CG loop, cut
+     to its first window (window 0.01, 2 implicit iterations, so one
+     rollback; 2 steps of ~6.5 s: the 4 windows would cost about a
+     minute); rank 0 alone holds the participant: the window's time and
+     write count equal phase 10's first window, rank 0's write-history
+     norms and ||u||^2 within `SHARD_RTOL` of it; each rank's launches,
+     collectives and seconds a window;
+   - coupled_nccl1 — the same window on a world of one over NCCL in the
+     script's own process, with the CG graphs and the device Newton loop:
+     the write history and ||u||^2 bit for bit phase 10's first window;
+   - cli_ranks — `torchrun --standalone --nproc-per-node 2 -m
+     dealii_adapter_tpu_torch` on `CLI_PRM` with `--devices 2` in a
+     subprocess (gloo ranks sharing the card, the host CG loop): exit code
+     0, one banner, naming the card, 2 ranks and the host CG loop, each
+     VTU file written once, the final ||u||^2 within 1e-9
+     (`CLI_RANKS_RTOL`) of phase 11's; rank 0's closing `kernel
+     launches` line gives the path's counts;
+   - golden_nl — the recorded Neo-Hookean golden tip trajectories
+     (`nonlinear_pf_q2`: 2D PF, Q2, the f64 Jacobi CG on the f64 jvp
+     tangent, 518 DoF, traction 5000; `nonlinear_pf_q4`: Q4, dense Direct
+     Newton solves, 1,898 DoF, traction 2000; tests/test_golden_trajectory.py's
+     configuration), 20 steps each, every step converged and the tip
+     within rtol 1e-7 of tests/golden_trajectories.json; C1/C2 and no
+     other kernel launched.
 
-Every path but `main3d host`, shard3d, shard_cells and dryrun (the host
-CG and Newton loops; the last three on gloo ranks) runs its CG in CUDA
+Every path but `main3d host`, shard3d, shard_cells, dryrun,
+coupled_shard and cli_ranks (the host CG and Newton loops; all but the
+first on gloo ranks) runs its CG in CUDA
 graphs and its Newton loop on the device (`newton_loop="graphs"`); f64jvp3d, jvp3d, reuse_fine3d and
 gather3d then run their 4 steps again from rest on the host Newton loop
 (`newton_host_twin`): the same `NewtonInfo` in every step, ||u||^2 within
@@ -350,6 +379,10 @@ PATH_KERNELS.update({
     "jvp3d": _HEALTH + _MG3D,
     "reuse_fine3d": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
     "cli_nl": _HEALTH,
+    "coupled_shard": _STENCIL3D,
+    "coupled_nccl1": _STENCIL3D,
+    "cli_ranks": _HEALTH + ("K4b q1_structured_2d",),
+    "golden_nl": _HEALTH,
 })
 # kernels a path must NOT launch: the stencil paths replace K3 with K6, the
 # jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
@@ -367,7 +400,11 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                  "jvp3d": ("K1 tangent_matvec",),
                  "reuse_fine3d": ("K5 q2_structured",),
                  "cli_nl": ("K1 tangent_matvec", "K3 q1_structured",
-                            "K5 q2_structured", "K4b q1_structured_2d")}
+                            "K5 q2_structured", "K4b q1_structured_2d"),
+                 "coupled_shard": ("K3 q1_structured",),
+                 "coupled_nccl1": ("K3 q1_structured",),
+                 "golden_nl": ("K1 tangent_matvec", "K3 q1_structured",
+                               "K5 q2_structured", "K4b q1_structured_2d")}
 # ||u||^2 after cli_nl's 3 steps, the JAX package on the CPU:
 #   JAX_PLATFORMS=cpu python tools/jax_reference_nl_default.py
 NL_DEFAULT_REF = 0.10160554980143784
@@ -391,6 +428,22 @@ SHARD_RTOL = 1e-7
 SHARD_CELLS_SCALE = 2
 SHARD_CELLS_STEPS = 2
 SHARD3D_STEPS = 2  # shard3d's steps (phase 13's docstring)
+# cli_ranks (phase 14): the cli phase's case on this many ranks under
+# torchrun; its final ||u||^2 against the cli phase's
+CLI_RANKS = 2
+CLI_RANKS_RTOL = 1e-9
+# golden_nl (phase 14): tests/test_golden_trajectory.py's Neo-Hookean
+# configuration, and each trajectory's changes to it and traction
+GOLDEN_NONLINEAR = dict(
+    model="neo-Hookean", type_lin="CG", scenario="PF", dim=2, poly_degree=2,
+    delta_t=0.01, mu=0.5e6, nu=0.4, rho=1000.0, tol_lin=1e-6, tol_u=1e-6,
+    tol_f=1e-9, max_iterations_NR=12, max_iterations_lin=10.0,
+)
+GOLDEN_NL_CASES = {
+    "nonlinear_pf_q2": ({}, 5000.0),
+    "nonlinear_pf_q4": (dict(poly_degree=4, type_lin="Direct"), 2000.0),
+}
+GOLDEN_NL_RTOL = 1e-7  # tests/test_golden_trajectory.py's
 SHARD_CELLS = dict(element_backend="gather", preconditioner="Chebyshev")
 # the cli phase: tests/test_cli.py's case, refined so that the multigrid
 # hierarchy has a Q1 level above its coarse solve (MG in f32, f32 CG)
@@ -1670,55 +1723,96 @@ def phase_stencil3d(main):
     return launches, model, checksum
 
 
+def coupled_participant(end_time):
+    """Phase 10's `FakeParticipant`: windows of `COUPLED_WINDOW` to
+    `end_time`, `COUPLED_ITERATIONS` implicit iterations each, the
+    constant read field (1000, 0, 0) (`interface_traction`'s load)."""
+    import numpy as np
+
+    from dealii_adapter_tpu_torch.adapter import FakeParticipant
+
+    load = np.array([1000.0, 0.0, 0.0])
+    return FakeParticipant(
+        dim=3, window_dt=COUPLED_WINDOW, end_time=end_time,
+        read_fn=lambda t, coords: np.tile(load, (len(coords), 1)),
+        implicit_iterations=COUPLED_ITERATIONS,
+    )
+
+
+def coupled_window(model, mesh=None):
+    """`coupled_run` on `model` (with `mesh`, the ranks' `RankGroup`, on
+    several ranks) through `coupled_participant(COUPLED_END)`, or its
+    first window alone on several ranks, from `start_counts`; returns its
+    windows (time, seconds, Newton, CG, ||u||^2 of the gathered field),
+    the write history (rank 0's; [] elsewhere), the launches, the
+    collectives, the seconds, the final state and whether the participant
+    finished."""
+    import torch
+
+    from dealii_adapter_tpu_torch.adapter import Adapter
+    from dealii_adapter_tpu_torch.kernels import counters
+    from dealii_adapter_tpu_torch.runner import coupled_run
+
+    fake = coupled_participant(COUPLED_END if mesh is None else COUPLED_WINDOW)
+    adapter = Adapter(model.params, model.interface_id, model.space,
+                      participant=fake, dtype=model.dtype, device=model.device,
+                      device_mesh=mesh)
+    windows = []
+    marks = []
+
+    def output_cb(state, t, info):
+        u = model.global_rows(state.displacement).reshape(-1)
+        u2 = torch.dot(u, u).item()
+        now = time.perf_counter()
+        windows.append(dict(t=t.current(), seconds=now - marks[-1],
+                            newton=info.iterations, cg=info.cg_iterations,
+                            checksum=u2))
+        marks.append(now)
+
+    start_counts()
+    calls0 = dict(mesh.calls) if mesh is not None else {}
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    t0 = marks[0]
+    state = coupled_run(model, adapter, output_cb=output_cb)
+    torch.cuda.synchronize()
+    lead = mesh is None or mesh.rank == 0
+    return dict(
+        windows=windows, seconds=time.perf_counter() - t0,
+        writes=[(h[0], h[1], h[2].copy()) for h in fake.write_history]
+        if lead else [],
+        finalized=fake.finalized if lead else True,
+        launches=counters.launch_counts(),
+        calls={k: mesh.calls[k] - calls0[k] for k in calls0}), state
+
+
 def phase_coupled3d(model, stencil_checksum):
     """`coupled_run` on the stencil3d model: 4 windows x 2 implicit
-    iterations against stencil3d's 4 steps; one VTU of the last window."""
+    iterations against stencil3d's 4 steps; one VTU of the last window.
+    Returns (launches, the first window: phase 14's reference)."""
     import os
     import tempfile
 
     import numpy as np
     import torch
 
-    from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
-    from dealii_adapter_tpu_torch.runner import coupled_run
     from dealii_adapter_tpu_torch.utils import write_vtu
 
-    load = np.array([1000.0, 0.0, 0.0])  # interface_traction's load
-    fake = FakeParticipant(
-        dim=3, window_dt=COUPLED_WINDOW, end_time=COUPLED_END,
-        read_fn=lambda t, coords: np.tile(load, (len(coords), 1)),
-        implicit_iterations=COUPLED_ITERATIONS,
-    )
-    adapter = Adapter(model.params, model.interface_id, model.space,
-                      participant=fake, dtype=model.dtype, device=model.device)
-    windows = []
-    marks = [time.perf_counter()]
-
-    def output_cb(state, t, info):
-        now = time.perf_counter()
-        windows.append(dict(t=t.current(), seconds=now - marks[-1],
-                            newton=info.iterations, cg=info.cg_iterations))
-        marks.append(now)
-
-    start_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = coupled_run(model, adapter, output_cb=output_cb)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts("coupled3d")
+    run, state = coupled_window(model)
+    windows, wall, writes = run["windows"], run["seconds"], run["writes"]
+    launches = read_counts("coupled3d", run["launches"])
     u = state.displacement
     checksum = torch.dot(u.reshape(-1), u.reshape(-1)).item()
     n_windows = round(COUPLED_END / COUPLED_WINDOW)
     log(f"coupled3d: {n_windows} windows x {COUPLED_ITERATIONS} implicit "
         f"iterations in {wall:.3f} s; per window {windows}")
     log(f"coupled3d: write history (t, iteration, ||values||): "
-        f"{[(round(h[0], 10), h[1], float(np.linalg.norm(h[2]))) for h in fake.write_history]}")
+        f"{[(round(h[0], 10), h[1], float(np.linalg.norm(h[2]))) for h in writes]}")
     log(f"coupled3d: launches {launches}")
-    require(fake.finalized and len(windows) == n_windows,
+    require(run["finalized"] and len(windows) == n_windows,
             f"coupled3d: {len(windows)} windows completed")
-    require(len(fake.write_history) == n_windows * COUPLED_ITERATIONS,
-            f"coupled3d: {len(fake.write_history)} writes")
+    require(len(writes) == n_windows * COUPLED_ITERATIONS,
+            f"coupled3d: {len(writes)} writes")
     require(bool(torch.isfinite(u).all()), "coupled3d: non-finite displacement")
     rel = abs(checksum - stencil_checksum) / stencil_checksum
     log(f"coupled3d: checksum {checksum!r}, rel. difference to stencil3d's "
@@ -1732,6 +1826,110 @@ def phase_coupled3d(model, stencil_checksum):
                   extra_point_data={"velocity": state.velocity})
         log(f"coupled3d: VTU of the last window {os.path.getsize(path)} bytes "
             f"written in {time.perf_counter() - ts:.3f} s")
+    first = dict(window=windows[0], writes=writes[:COUPLED_ITERATIONS],
+                 lam_max=[lv.lam_max for lv in model._precond.levels])
+    return launches, first
+
+
+def _coupled_shard_rank(mesh, lam_max):
+    """One rank of coupled_shard (a spawned process): phase 10's model on
+    the lattice partition with the host CG loop, its first window."""
+    import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
+
+    t0 = time.perf_counter()
+    model = build_model(mesh.device, mg_lam_max=lam_max, cg_loop="host",
+                        device_mesh=mesh, mg_level_backend="stencil_vmem",
+                        end_time=COUPLED_END)
+    build_s = time.perf_counter() - t0
+    run, _ = coupled_window(model, mesh)
+    return dict(run, rank=mesh.rank, build_s=build_s)
+
+
+def check_first_window(tag, run, ref, rtol):
+    """`run`'s window against phase 10's first (`ref`): the window's time,
+    rank 0's write count and write norms and ||u||^2 within `rtol` (0:
+    bit for bit, the written values too)."""
+    import numpy as np
+
+    w, rw = run["windows"], ref["window"]
+    require(len(w) == 1 and w[0]["t"] == rw["t"],
+            f"{tag}: windows {[x['t'] for x in w]} against {rw['t']}")
+    rel = abs(w[0]["checksum"] - rw["checksum"]) / rw["checksum"]
+    log(f"{tag}: window t={w[0]['t']} in {w[0]['seconds']!r} s, Newton "
+        f"{w[0]['newton']}, CG {w[0]['cg']} (phase 10: {rw['newton']}, "
+        f"{rw['cg']}); ||u||^2 {w[0]['checksum']!r} against phase 10's "
+        f"{rw['checksum']!r}: rel. difference {rel:.3e} (limit {rtol})")
+    require(rel <= rtol, f"{tag}: ||u||^2 against phase 10's first window")
+    if not run["writes"]:
+        return
+    writes, refs = run["writes"], ref["writes"]
+    require(len(writes) == len(refs) == COUPLED_ITERATIONS,
+            f"{tag}: {len(writes)} writes against {len(refs)}")
+    for (t, it, x), (t0, it0, x0) in zip(writes, refs):
+        n, n0 = float(np.linalg.norm(x)), float(np.linalg.norm(x0))
+        rel = abs(n - n0) / n0
+        log(f"{tag}: write (t={t}, iteration {it}) norm {n!r} against "
+            f"{n0!r}: rel. difference {rel:.3e}; bitwise "
+            f"{bool(np.array_equal(x, x0))}")
+        require(t == t0 and it == it0 and rel <= rtol,
+                f"{tag}: write history against phase 10's")
+        require(rtol > 0 or np.array_equal(x, x0),
+                f"{tag}: write values bit for bit phase 10's")
+
+
+def phase_coupled_shard(parallel):
+    """coupled_shard (phase 14): phase 10's first window on `SHARD_RANKS`
+    gloo ranks sharing the card; returns the launches of all ranks."""
+    from dealii_adapter_tpu_torch.parallel import spawn
+
+    ref = parallel["coupled"]
+    t0 = time.perf_counter()
+    out = spawn(_coupled_shard_rank, SHARD_RANKS, "cuda", ref["lam_max"],
+                backend="gloo")
+    log(f"coupled_shard: {SHARD_RANKS} ranks on the card over gloo, host CG "
+        f"loop, ran in {time.perf_counter() - t0:.1f} s (spawn, build and "
+        "window)")
+    total = {}
+    for r in out:
+        tag = f"coupled_shard rank {r['rank']}"
+        log(f"{tag}: model built in {r['build_s']:.1f} s; window seconds "
+            f"{[w['seconds'] for w in r['windows']]}; collectives in the run "
+            f"{r['calls']}; launches {r['launches']}; participant "
+            f"{'held' if r['writes'] else 'none'}")
+        read_counts("coupled_shard", r["launches"])
+        check_first_window(tag, r, ref, SHARD_RTOL)
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    require(bool(out[0]["writes"]) and not any(r["writes"] for r in out[1:]),
+            "coupled_shard: rank 0 alone holds the participant")
+    require(all([w["checksum"] for w in r["windows"]]
+                == [w["checksum"] for w in out[0]["windows"]] for r in out),
+            "coupled_shard: every rank read the same field")
+    return total
+
+
+def coupled_nccl1(mesh, parallel):
+    """coupled_nccl1 (phase 14): phase 10's first window on `mesh`, a world
+    of one over NCCL, with the CG graphs and the device Newton loop; bit
+    for bit phase 10's first window. Returns the launches."""
+    import torch
+
+    ref = parallel["coupled"]
+    t0 = time.perf_counter()
+    model = build_model(mesh.device, mesh_tags=parallel["mesh_tags"],
+                        mg_lam_max=ref["lam_max"], device_mesh=mesh,
+                        mg_level_backend="stencil_vmem", end_time=COUPLED_END)
+    require(model.cg_loop == "graphs" and model.newton_loop == "graphs",
+            "coupled_nccl1: CG graphs and the device Newton loop")
+    build_s = time.perf_counter() - t0
+    run, _ = coupled_window(model, mesh)
+    log(f"coupled_nccl1: model built in {build_s:.1f} s; window in "
+        f"{run['seconds']:.3f} s; collectives {run['calls']}; launches "
+        f"{run['launches']}")
+    launches = read_counts("coupled_nccl1", run["launches"])
+    check_first_window("coupled_nccl1", run, ref, 0.0)
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1936,7 +2134,112 @@ def phase_cli():
     require(torch.cuda.get_device_name(0) in r.stdout, "cli: banner names the card")
     require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"], f"cli: files {files}")
     line = next(x for x in r.stdout.splitlines() if x.startswith("kernel launches: "))
-    return read_counts("cli", ast.literal_eval(line[len("kernel launches: "):]))
+    launches = read_counts("cli", ast.literal_eval(line[len("kernel launches: "):]))
+    return launches, final_u2(r.stdout)
+
+
+def final_u2(text):
+    """The CLI's closing `final ||u||^2:` value."""
+    line = next(x for x in text.splitlines() if x.startswith("final ||u||^2: "))
+    return float(line[len("final ||u||^2: "):])
+
+
+def phase_cli_ranks(cli_u2):
+    """cli_ranks (phase 14): `CLI_PRM` under `torchrun --standalone
+    --nproc-per-node CLI_RANKS -m dealii_adapter_tpu_torch ... --devices
+    CLI_RANKS` in a subprocess; returns rank 0's launch counts."""
+    import ast
+    import pathlib
+    import sys
+
+    import torch
+
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        prm = os.path.join(tmp, "case.prm")
+        pathlib.Path(prm).write_text(CLI_PRM.format(out=out))
+        env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+        ts = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(CLI_RANKS), "-m",
+             "dealii_adapter_tpu_torch", prm, "--standalone", "--traction",
+             "1000", "0", "--refine", str(CLI_REFINE), "--devices",
+             str(CLI_RANKS)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - ts
+        for line in r.stdout.splitlines():
+            log(f"cli_ranks| {line}")
+        require(r.returncode == 0,
+                f"cli_ranks: exit code {r.returncode}: {r.stderr[-3000:]}")
+        files = sorted(os.listdir(out))
+        log(f"cli_ranks: exit code 0 in {wall:.1f} s (torchrun and both "
+            f"ranks' start included), VTU files "
+            f"{[(f, os.path.getsize(os.path.join(out, f))) for f in files]}")
+    text = r.stdout
+    require(text.count("running dealii_adapter_tpu_torch") == 1,
+            "cli_ranks: one banner (rank 0's)")
+    require(torch.cuda.get_device_name(0) in text, "cli_ranks: banner names the card")
+    require(f"{CLI_RANKS} ranks over gloo; CG loop: host" in text,
+            "cli_ranks: banner names the ranks and the host CG loop")
+    require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"]
+            and "2 VTU files" in text, f"cli_ranks: files {files}")
+    u2 = final_u2(text)
+    rel = abs(u2 - cli_u2) / cli_u2
+    log(f"cli_ranks: final ||u||^2 {u2!r} against the cli phase's {cli_u2!r}: "
+        f"rel. difference {rel:.3e} (limit {CLI_RANKS_RTOL})")
+    require(rel <= CLI_RANKS_RTOL, "cli_ranks: final ||u||^2 against cli's")
+    line = next(x for x in text.splitlines() if x.startswith("kernel launches: "))
+    return read_counts("cli_ranks", ast.literal_eval(line[len("kernel launches: "):]))
+
+
+def phase_golden_nl():
+    """golden_nl (phase 14): the Neo-Hookean golden tip trajectories on the
+    card (`GOLDEN_NL_CASES`); returns the launches."""
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from dealii_adapter_tpu_torch.config import AllParameters
+    from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
+        NonlinearElasticity,
+    )
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "golden_trajectories.json"
+    goldens = json.loads(path.read_text())
+    dev = torch.device("cuda")
+    start_counts()
+    for key, (changes, magnitude) in GOLDEN_NL_CASES.items():
+        golden = goldens[key]
+        t0 = time.perf_counter()
+        model = NonlinearElasticity(
+            AllParameters(**dict(GOLDEN_NONLINEAR, **changes)), device=dev)
+        nodes = model.space.mesh.nodes
+        target = np.zeros(2)
+        target[1] = nodes[:, 1].max()
+        tip = int(np.argmin(((nodes - target) ** 2).sum(axis=1)))
+        stress = np.zeros((model.space.n_nodes, 2))
+        stress[model.space.boundary_nodes[model.interface_id], 0] = magnitude
+        stress = torch.as_tensor(stress, dtype=model.dtype, device=dev)
+        state, traj, newton, cg = model.initial_state(), [], 0, 0
+        for _ in range(len(golden)):
+            state, info = model.step(state, stress)
+            require(info.converged, f"golden_nl {key}: a step converged")
+            traj.append(float(state.displacement[tip, 0]))
+            newton += info.iterations
+            cg += info.cg_iterations
+        rel = float(np.max(np.abs(np.subtract(traj, golden)) / np.abs(golden)))
+        log(f"golden_nl: {key} ({len(golden)} steps, {model.space.n_dofs} DoF, "
+            f"{model.params.type_lin}, {newton} Newton and {cg} CG "
+            f"iterations) in {time.perf_counter() - t0:.1f} s: max rel. "
+            f"difference {rel:.3e} (limit {GOLDEN_NL_RTOL}); tip {traj[-1]!r} "
+            f"vs {golden[-1]!r}")
+        require(rel <= GOLDEN_NL_RTOL, f"golden_nl: {key} trajectory")
+        del model, state
+    return read_counts("golden_nl")
 
 
 def phase_vcycle_bf16():
@@ -2262,8 +2565,9 @@ def phase_shard3d(main, records):
 def phase_shard3d_nccl1(main):
     """shard3d_nccl1 (phase 13): a world of one on NCCL in this process,
     the CG in CUDA graphs, bit for bit phase 4; then shard_cells'
-    configuration on that world, its one-rank reference. Returns
-    (launches, the reference)."""
+    configuration on that world, its one-rank reference, and phase 14's
+    coupled_nccl1. Returns (launches, the reference, coupled_nccl1's
+    launches)."""
     import torch
     import torch.distributed as dist
 
@@ -2309,9 +2613,12 @@ def phase_shard3d_nccl1(main):
                    n_dofs=model.space.n_dofs)
         del model, state
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        coupled = coupled_nccl1(mesh, main)
+        log(f"coupled_nccl1: took {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
-    return launches, ref
+    return launches, ref, coupled
 
 
 def _shard_cells_rank(mesh):
@@ -2421,20 +2728,25 @@ def main():
     parallel = {k: main_run[k] for k in ("mesh_tags", "lam_max", "checksum",
                                          "checksums", "cg", "newton", "jvp3d")}
     del main_run
-    by_path["coupled3d"] = timed("coupled3d", phase_coupled3d, model, checksum)
+    by_path["coupled3d"], parallel["coupled"] = timed(
+        "coupled3d", phase_coupled3d, model, checksum)
     del model
     torch.cuda.empty_cache()
     by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
-    by_path["cli"] = timed("cli", phase_cli)
+    by_path["cli"], cli_u2 = timed("cli", phase_cli)
     by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
+    by_path["cli_ranks"] = timed("cli_ranks", phase_cli_ranks, cli_u2)
+    by_path["golden_nl"] = timed("golden_nl", phase_golden_nl)
     by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
     by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
-    by_path["shard3d_nccl1"], cells_ref = timed(
+    by_path["shard3d_nccl1"], cells_ref, by_path["coupled_nccl1"] = timed(
         "shard3d_nccl1", phase_shard3d_nccl1, parallel)
     by_path["shard_cells"] = timed("shard_cells", phase_shard_cells, cells_ref)
     by_path["dryrun"] = timed("dryrun", phase_dryrun)
+    by_path["coupled_shard"] = timed("coupled_shard", phase_coupled_shard,
+                                     parallel)
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
     log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}; "
         f"device times taken from CUDA-graph replays instead: "

@@ -17,9 +17,19 @@ port's counterpart of `JAX_PLATFORMS=cpu`: without a card and without
 device, `--profile` through `torch.profiler`, the kernel launch counts of
 the model build and, in the closing lines, the final ||u||^2 and the
 kernel launch counts of the coupled run alone.
-A configuration whose code path is not ported raises NotImplementedError
-naming its ROADMAP item: `--devices` above 1 (the coupled run on several
-ranks, `runner.MULTI_RANK_COUPLING`) here, the rest in the model.
+
+`--devices N` above 1 runs one process per rank:
+`torchrun --nproc-per-node N -m dealii_adapter_tpu_torch <case.prm>
+--devices N`. Each rank initializes the default process group from
+torchrun's environment (or uses one its caller initialized), with the
+backend `parallel/partition.py:choose_backend` picks: NCCL when every rank
+has a card of its own, gloo when the ranks share one card or run on the
+CPU. Without either it raises, saying how to launch. A gloo world on the
+card cannot capture its collectives in CUDA graphs, so there the models
+run the host CG loop (`cg_loop="host"`), which the banner says. Rank 0
+holds the participant (`adapter/adapter.py`) and alone prints the banner,
+the table and the closing lines and writes the VTU files, from the
+gathered fields.
 
 Usage: python -m dealii_adapter_tpu_torch <case.prm> [options]
 """
@@ -73,8 +83,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--refine", type=int, default=0,
                    help="global refinements (cells x 2^n per axis)")
     p.add_argument("--devices", type=int, default=None,
-                   help="ranks (> 1 raises: the coupled run on several ranks is "
-                        "ROADMAP Queue 1 item 16)")
+                   help="ranks: above 1, launch one process per rank with "
+                        "`torchrun --nproc-per-node N -m "
+                        "dealii_adapter_tpu_torch`")
     p.add_argument("--dtype", choices=("float32", "float64"), default=None)
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the CUDA card; "
@@ -98,6 +109,36 @@ def _launched() -> dict:
     return {k: n for k, n in launch_counts().items() if n}
 
 
+def _rank_group(n_devices: int, device_arg):
+    """`(RankGroup, whether this call initialized the default process
+    group)` for `--devices n_devices` above 1: the initialized default
+    group, or one initialized from torchrun's environment with the
+    backend `choose_backend` picks; raises with the launch hint without
+    either."""
+    import torch
+    import torch.distributed as dist
+
+    from dealii_adapter_tpu_torch.parallel.partition import (
+        LAUNCH_HINT,
+        choose_backend,
+        make_device_mesh,
+    )
+
+    made = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ or "MASTER_ADDR" not in os.environ:
+            raise RuntimeError(
+                f"--devices {n_devices} needs one process per rank: "
+                + LAUNCH_HINT)
+        dev = torch.device(device_arg or "cuda")
+        backend = choose_backend(dev, int(os.environ["WORLD_SIZE"]))
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+        made = True
+    return make_device_mesh(n_devices, device=device_arg), made
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
 
@@ -107,7 +148,7 @@ def main(argv=None) -> int:
     from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
     from dealii_adapter_tpu_torch.device import resolve_device
     from dealii_adapter_tpu_torch.kernels import counters
-    from dealii_adapter_tpu_torch.runner import MULTI_RANK_COUPLING, coupled_run
+    from dealii_adapter_tpu_torch.runner import coupled_run
     from dealii_adapter_tpu_torch.utils import TimerOutput, write_vtu
 
     overrides = {}
@@ -118,40 +159,53 @@ def main(argv=None) -> int:
     if args.dtype is not None:
         overrides["dtype"] = args.dtype
     params = dat.parse_prm(args.prm, strict=not args.lenient, **overrides)
+    mesh, made_group = None, False
     if params.n_devices > 1:
-        raise NotImplementedError(MULTI_RANK_COUPLING)
-    device = resolve_device(args.device)
+        mesh, made_group = _rank_group(params.n_devices, args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # prints and writes
+    # a gloo world on the card cannot capture its collectives
+    cg_loop = ("host" if mesh is not None and mesh.backend == "gloo"
+               and device.type == "cuda" else "graphs")
+
+    def say(*a):
+        if lead:
+            print(*a)
 
     # banner (the reference prints thread count + git revisions,
     # `elasticity.cc:19-44`)
-    print("-" * 58)
-    print(f"--     . running dealii_adapter_tpu_torch v{dat.__version__}"
-          f" (rev {_vcs_revision()})")
+    say("-" * 58)
+    say(f"--     . running dealii_adapter_tpu_torch v{dat.__version__}"
+        f" (rev {_vcs_revision()})")
     if device.type == "cuda":
-        print(f"--     . device cuda: {torch.cuda.get_device_name(device)} "
-              f"({torch.cuda.device_count()} visible)")
+        say(f"--     . device cuda: {torch.cuda.get_device_name(device)} "
+            f"({torch.cuda.device_count()} visible)")
     else:
-        print(f"--     . device {device.type}")
-    print(f"--     . model '{params.model}', scenario {params.scenario}, "
-          f"dim {params.dim}, degree {params.poly_degree}")
-    print("-" * 58)
+        say(f"--     . device {device.type}")
+    if mesh is not None:
+        say(f"--     . {mesh.world} ranks over {mesh.backend}; CG loop: "
+            + ("host (gloo collectives cannot be captured in CUDA graphs)"
+               if cg_loop == "host" else "graphs"))
+    say(f"--     . model '{params.model}', scenario {params.scenario}, "
+        f"dim {params.dim}, degree {params.poly_degree}")
+    say("-" * 58)
 
     out_dir = params.output_folder or "."
-    if not args.no_output and out_dir != ".":
+    if lead and not args.no_output and out_dir != ".":
         os.makedirs(out_dir, exist_ok=True)  # `elasticity.cc:56-81`
 
     if params.model == "neo-Hookean":
         from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
-            NonlinearElasticity,
+            NonlinearElasticity as cls,
         )
-
-        model = NonlinearElasticity(params, refine=args.refine, device=device)
     else:
         from dealii_adapter_tpu_torch.models.linear_elasticity import (
-            LinearElastodynamics,
+            LinearElastodynamics as cls,
         )
-
-        model = LinearElastodynamics(params, refine=args.refine, device=device)
+    model = cls(params, refine=args.refine, device=device, device_mesh=mesh,
+                cg_loop=cg_loop)
 
     standalone = args.standalone or not args.coupled
     if standalone:
@@ -175,6 +229,7 @@ def main(argv=None) -> int:
     adapter = Adapter(
         params, model.interface_id, model.space,
         participant=participant, dtype=model.dtype, device=device,
+        device_mesh=mesh,
     )
 
     timer = TimerOutput("run")
@@ -183,26 +238,28 @@ def main(argv=None) -> int:
     def output_cb(state, t, info):
         ts = t.get_timestep()
         if hasattr(info, "cg_iterations"):  # Newton table analog
-            print(f"  t={t.current():.4g}  newton_its={int(info.iterations)} "
-                  f"cg_its={int(info.cg_iterations)} "
-                  f"res={float(info.residual_abs):.3e} "
-                  f"minJ={float(info.min_det_F):.4f}")
+            say(f"  t={t.current():.4g}  newton_its={int(info.iterations)} "
+                f"cg_its={int(info.cg_iterations)} "
+                f"res={float(info.residual_abs):.3e} "
+                f"minJ={float(info.min_det_F):.4f}")
         else:
-            print(f"  t={t.current():.4g}  cg_its={int(info.iterations)} "
-                  f"res={float(info.residual):.3e}")
+            say(f"  t={t.current():.4g}  cg_its={int(info.iterations)} "
+                f"res={float(info.residual):.3e}")
         if args.verbose:
-            print(f"    {info}")
+            say(f"    {info}")
         if not args.no_output:
             with timer.section("Output results"):
-                name = os.path.join(
-                    out_dir, f"solution-{params.dim}d-{ts}.vtu"
-                )
+                # every rank takes part in the gathers, rank 0 writes
+                disp = model.global_rows(state.displacement)
                 extra = {}
                 if hasattr(state, "velocity"):
-                    extra["velocity"] = state.velocity
-                write_vtu(name, model.space, state.displacement,
-                          extra_point_data=extra)
-                n_out[0] += 1
+                    extra["velocity"] = model.global_rows(state.velocity)
+                if lead:
+                    name = os.path.join(
+                        out_dir, f"solution-{params.dim}d-{ts}.vtu"
+                    )
+                    write_vtu(name, model.space, disp, extra_point_data=extra)
+                    n_out[0] += 1
 
     final = []
 
@@ -216,7 +273,7 @@ def main(argv=None) -> int:
     # launches (power iterations, the library's C1/C2 check) are printed
     # here, then every count restarts at 0 and, on the card, the library
     # is bound again, so its check runs anew and counts in the run
-    print(f"kernel launches (model build): {_launched()}")
+    say(f"kernel launches (model build): {_launched()}")
     counters.restart(device)
 
     t0 = _time.perf_counter()
@@ -237,14 +294,19 @@ def main(argv=None) -> int:
     elapsed = _time.perf_counter() - t0
 
     n_steps = round(params.end_time / params.delta_t)
-    print("-" * 58)
-    print(f"done: {n_steps} steps, {model.space.n_dofs} DoF, "
-          f"{elapsed:.2f}s wall ({elapsed / max(n_steps,1):.4f} s/step), "
-          f"{n_out[0]} VTU files in '{out_dir}'")
-    u = final[0].displacement.reshape(-1)
-    print(f"final ||u||^2: {torch.dot(u, u).item()!r}")
-    print(f"kernel launches: {_launched()}")
-    timer.print_summary()
+    say("-" * 58)
+    say(f"done: {n_steps} steps, {model.space.n_dofs} DoF, "
+        f"{elapsed:.2f}s wall ({elapsed / max(n_steps,1):.4f} s/step), "
+        f"{n_out[0]} VTU files in '{out_dir}'")
+    u = model.global_rows(final[0].displacement).reshape(-1)
+    say(f"final ||u||^2: {torch.dot(u, u).item()!r}")
+    say(f"kernel launches: {_launched()}")
+    if lead:
+        timer.print_summary()
+    if made_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

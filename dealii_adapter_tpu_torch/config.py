@@ -215,9 +215,10 @@ class AllParameters(
     # the flop advantage. Kept as an opt-in for TPU generations with
     # native f64 (flop-bound there) and as the Q3+ scaling path.
     use_sumfact: bool = False
-    # "highest": true-f32 assembly matmuls; "default": single-bf16-pass MXU
-    # (the assembled K stays exactly symmetric either way — see
-    # ops/assembled_tangent.py)
+    # "highest", "high" and "default": true-f32 assembly products (TF32 is
+    # off); "bf16emu": both operands of each assembly product rounded to
+    # bf16, accumulated in f32; "default" and "bf16emu" warn, as the JAX
+    # package does (ops/assembled_tangent.py:_assemble_upper)
     tangent_assembly_precision: str = "highest"
     # store only the upper component blocks (d <= e) of the per-cell
     # tangent and apply symmetrically: 2/3 the assembly MXU matmuls, 2/3

@@ -23,7 +23,8 @@ partition (`parallel/sharded_ops.py`, vectors replicated, MG raises as in
 the JAX package), `auto`/`structured` the lattice partition
 (`parallel/lattice.py`: vectors distributed by rows, every operator and
 the V-cycle on per-rank slabs, inner products all-reduced; the interface
-load is integrated on the gathered interface data). The solve is the reference's absolute 1e-10 CG contract: f32
+load is integrated on the gathered interface data, and the dense Direct
+solve runs whole on every rank on the gathered right-hand side). The solve is the reference's absolute 1e-10 CG contract: f32
 preconditioned CG inside f64 defect correction (`ir_cg_solve`) when
 `solve_dtype` is float32, plain CG otherwise, or a prefactored dense
 Cholesky (`type_lin="Direct"`, up to 16,384 unknowns). The MG
@@ -219,10 +220,6 @@ class LinearElastodynamics:
 
         self._direct = None
         if params.type_lin == "Direct":
-            if lat is not None:
-                raise NotImplementedError(
-                    "type_lin='Direct' on the lattice partition is not ported "
-                    "(ROADMAP Queue 1 item 17)")
             if space.n_dofs > DIRECT_MAX_UNKNOWNS:
                 raise ValueError(
                     f"type_lin='Direct' assembles the dense ({space.n_dofs}, "
@@ -302,7 +299,10 @@ class LinearElastodynamics:
         )
         rhs = mask * rhs  # zero-valued Dirichlet rows
         if self._direct is not None:
-            v_new, iters, resn = self._direct.solve(rhs), 1, 0.0
+            # the whole system on every rank (one factor each): the gathered
+            # right-hand side, this rank's rows of the solution
+            v_new = self.local_rows(self._direct.solve(self.global_rows(rhs)))
+            iters, resn = 1, 0.0
         else:
             if self._mixed:
                 res = ir_cg_solve(

@@ -13,6 +13,16 @@ so each component is one contiguous pointwise pass.
 In f64 the reciprocal and J^{-2/3} are taken from an f32 seed refined by
 two division-free Newton steps, exactly as the JAX package does, so both
 packages round the same way.
+
+Arithmetic between a tensor and a Python number goes through the Scalar
+overloads (`smul`, `sadd`, `ssub`, `rsub`) and sums of terms through
+`fsum`, never through `x * 2.0` or the built-in `sum`: under forward-mode
+AD (the jvp tangent differentiates this code) a number that the Python
+binding wraps as a tensor has no tangent, and PyTorch then builds a zero
+tangent whose shape logic runs in Python, hundreds of microseconds an
+operation on the CPU. The Scalar overloads' derivatives need no tangent
+for the number, and the values are the same bits (the binding wraps the
+number as those overloads do).
 """
 
 from __future__ import annotations
@@ -20,6 +30,38 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+_aten = torch.ops.aten
+
+
+def smul(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x * s."""
+    return _aten.mul.Scalar(x, s)
+
+
+def sadd(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x + s."""
+    return _aten.add.Scalar(x, s)
+
+
+def ssub(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x - s."""
+    return _aten.sub.Scalar(x, s)
+
+
+def rsub(s: float, x: torch.Tensor) -> torch.Tensor:
+    """s - x."""
+    return _aten.rsub.Scalar(x, s)
+
+
+def fsum(terms):
+    """The terms added left to right, as the built-in `sum` adds them
+    after its leading 0."""
+    it = iter(terms)
+    out = next(it)
+    for t in it:
+        out = out + t
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +82,14 @@ class NeoHookean:
         """Component-wise Kirchhoff stress: `b_bar` is a dim x dim nested
         list of equally shaped tensors; returns the same structure."""
         dim = len(b_bar)
-        p_vol = 0.5 * self.kappa * (det_F**2 - 1.0)
+        p_vol = smul(ssub(det_F**2, 1.0), 0.5 * self.kappa)
         c2 = 2.0 * self.c1
-        tr = sum(b_bar[i][i] for i in range(dim))
-        iso_diag = p_vol - (c2 / dim) * tr
+        tr = fsum(b_bar[i][i] for i in range(dim))
+        iso_diag = p_vol - smul(tr, c2 / dim)
         return [
             [
-                c2 * b_bar[i][j] + (iso_diag if i == j else 0.0)
+                smul(b_bar[i][j], c2) + iso_diag if i == j
+                else smul(b_bar[i][j], c2)
                 for j in range(dim)
             ]
             for i in range(dim)
@@ -82,9 +125,9 @@ class NeoHookean:
 
 
 def _refined_recip(d: torch.Tensor) -> torch.Tensor:
-    r = (1.0 / d.to(torch.float32)).to(torch.float64)
-    r = r * (2.0 - d * r)
-    r = r * (2.0 - d * r)
+    r = d.to(torch.float32).reciprocal().to(torch.float64)
+    r = r * rsub(2.0, d * r)
+    r = r * rsub(2.0, d * r)
     return r
 
 
@@ -93,8 +136,8 @@ def _refined_pow_m23(J: torch.Tensor) -> torch.Tensor:
     J2 = J * J
     s = (J.to(torch.float32) ** (-2.0 / 3.0)).to(torch.float64)
     third = 1.0 / 3.0
-    s = s * (4.0 - J2 * s * s * s) * third
-    s = s * (4.0 - J2 * s * s * s) * third
+    s = smul(s * rsub(4.0, J2 * s * s * s), third)
+    s = smul(s * rsub(4.0, J2 * s * s * s), third)
     return s
 
 
@@ -105,7 +148,7 @@ def _is_f64(x) -> bool:
 def iso_scale(J, dim: int):
     """J^(-2/dim) with the refined f64 path."""
     if dim == 2:
-        return _refined_recip(J) if _is_f64(J) else 1.0 / J
+        return _refined_recip(J) if _is_f64(J) else J.reciprocal()
     if _is_f64(J):
         return _refined_pow_m23(J)
     return J ** (-2.0 / dim)
@@ -118,7 +161,7 @@ def det_and_inv_c(F):
     if dim == 2:
         (a, b), (c, e) = F
         det = a * e - b * c
-        inv_det = _refined_recip(det) if _is_f64(det) else 1.0 / det
+        inv_det = _refined_recip(det) if _is_f64(det) else det.reciprocal()
         return det, [[e * inv_det, -b * inv_det], [-c * inv_det, a * inv_det]]
     a = F
     c00 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
@@ -131,7 +174,7 @@ def det_and_inv_c(F):
     c20 = a[0][1] * a[1][2] - a[0][2] * a[1][1]
     c21 = a[0][2] * a[1][0] - a[0][0] * a[1][2]
     c22 = a[0][0] * a[1][1] - a[0][1] * a[1][0]
-    inv_det = _refined_recip(det) if _is_f64(det) else 1.0 / det
+    inv_det = _refined_recip(det) if _is_f64(det) else det.reciprocal()
     inv = [
         [c00 * inv_det, c10 * inv_det, c20 * inv_det],
         [c01 * inv_det, c11 * inv_det, c21 * inv_det],
@@ -145,13 +188,13 @@ def kinematics_c(grad_u):
     the same nested-list structure."""
     dim = len(grad_u)
     F = [
-        [grad_u[i][j] + (1.0 if i == j else 0.0) for j in range(dim)]
+        [sadd(grad_u[i][j], 1.0) if i == j else grad_u[i][j] for j in range(dim)]
         for i in range(dim)
     ]
     J, F_inv = det_and_inv_c(F)
     scale = iso_scale(J, dim)
     b_bar = [
-        [scale * sum(F[i][k] * F[j][k] for k in range(dim)) for j in range(dim)]
+        [scale * fsum(F[i][k] * F[j][k] for k in range(dim)) for j in range(dim)]
         for i in range(dim)
     ]
     return F, J, F_inv, b_bar

@@ -29,7 +29,8 @@ Newton tangent is chosen as the JAX package chooses it:
   (`forward_jvp`) of the f32 internal force for a mixed solve
   (`tangent_backend="jvp"`, or tangents above the cap), of the whole f64
   residual for an f64 inner solve (the reference's default
-  configuration);
+  configuration; formed from the internal force's derivative, the only
+  term of the residual that is not constant or linear in the iterate);
 * the dense masked tangent for `type_lin="Direct"`.
 
 The element backend (`element_backend`): `auto`/`structured` runs the
@@ -50,9 +51,11 @@ schedule evaluates in f64 only, and MG raises, as in the JAX package),
 residuals and the CG's vectors distributed by rows, every structured
 operator and kernel, the assembled tangent's K1 and the V-cycle on
 per-rank slabs, norms and inner products all-reduced; a Neumann side
-along the split axis is evaluated by the rank that holds it). Every
-rank reads the same reduced scalars, so every rank takes the same Newton
-branch.
+along the split axis is evaluated by the rank that holds it, an
+interface that covers part of a side on the gathered fields; the dense
+Direct tangent is assembled and solved whole on every rank from the
+gathered iterate and right-hand side). Every rank reads the same reduced
+scalars, so every rank takes the same Newton branch.
 
 The CG is preconditioned by the geometric-multigrid V-cycle (kernels K5
 and K3 in 3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
@@ -97,8 +100,6 @@ Differences from the JAX package, all in the host orchestration:
 * under `newton_tangent_reuse` with `tangent_reuse_after` < 1, the
   model's first Newton iteration assembles (the JAX package applies a
   zero tangent there).
-
-Unported variants raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -169,7 +170,7 @@ from ..solvers.cg import (
     make_cg,
 )
 from ..solvers.graphs import GraphRunner
-from .material import NeoHookean, det_and_inv_c, kinematics_c
+from .material import NeoHookean, det_and_inv_c, fsum, kinematics_c
 
 DIRECT_MAX_UNKNOWNS = 16384  # dense Direct tangent cap (as in the JAX package)
 NEWTON_LOOPS = ("graphs", "host")  # the `newton_loop` choices
@@ -186,12 +187,12 @@ def internal_force_cellwise_T(ut, G, w, material):
     tau = material.tau_c(J, b_bar)
     # P[d][k] = (tau F^{-T})[d][k] = sum_e tau[d][e] F_inv[k][e]
     P = [
-        [sum(tau[d][e] * F_inv[k][e] for e in range(dim)) for k in range(dim)]
+        [fsum(tau[d][e] * F_inv[k][e] for e in range(dim)) for k in range(dim)]
         for d in range(dim)
     ]
     GwT = [(G[:, :, k] * w[:, None]).T for k in range(dim)]
     rt = torch.stack(
-        [sum(GwT[k] @ P[d][k] for k in range(dim)) for d in range(dim)], dim=0
+        [fsum(GwT[k] @ P[d][k] for k in range(dim)) for d in range(dim)], dim=0
     )
     return rt, J.min()
 
@@ -336,18 +337,13 @@ class NonlinearElasticity:
         self.interface_id = tags["interface"]
         # quadrature degree + 2 per the reference
         self.space = DofSpace.create(mesh, n_q_1d=params.poly_degree + 2)
-        if params.type_lin == "Direct" and self.space.n_dofs > DIRECT_MAX_UNKNOWNS:
-            raise NotImplementedError(
-                f"type_lin='Direct' materializes the dense "
-                f"({self.space.n_dofs})^2 tangent; capped at "
-                f"{DIRECT_MAX_UNKNOWNS} unknowns (a sparse direct solver is "
-                "not ported, ROADMAP Queue 1 item 13)"
+        n = self.space.n_dofs
+        if params.type_lin == "Direct" and n > DIRECT_MAX_UNKNOWNS:
+            raise ValueError(
+                f"type_lin='Direct' materializes the dense ({n}, {n}) "
+                f"tangent; capped at {DIRECT_MAX_UNKNOWNS} unknowns. Use "
+                "type_lin='CG' for this size."
             )
-        if params.type_lin == "Direct" and device_mesh is not None and (
-                params.element_backend != "gather"):
-            raise NotImplementedError(
-                "type_lin='Direct' on the lattice partition is not ported "
-                "(ROADMAP Queue 1 item 17)")
         self.dtype = torch.float64 if params.dtype == "float64" else torch.float32
         self.material = NeoHookean(params.mu, params.nu, params.rho)
 
@@ -449,16 +445,13 @@ class NonlinearElasticity:
             )
         self._neumann_sides = sides if complete else None
         if not complete:
-            if lat is not None:
-                raise NotImplementedError(
-                    "an interface that does not cover whole lattice sides "
-                    "needs the gather Neumann pull-back, which the lattice "
-                    "partition does not run (ROADMAP Queue 1 item 17)")
             self._setup_gather_neumann(faces, fnodes, h, detJ)
 
-        self.mask = self.local_rows(self._tensor(
-            space.dirichlet_mask(self.tags["clamped"], self.tags.get("out_of_plane"))
-        ))
+        mask = self._tensor(
+            space.dirichlet_mask(self.tags["clamped"], self.tags.get("out_of_plane")))
+        self.mask = self.local_rows(mask)
+        # the dense Direct tangent is assembled and solved whole on every rank
+        self._mask_global = mask if params.type_lin == "Direct" else None
 
         # inner-solve dtype: f32 copies of the operator constants (inexact
         # Newton; residual, norms and state stay in `dtype`)
@@ -493,6 +486,20 @@ class NonlinearElasticity:
                     "the cap"
                 )
             self._use_assembled = fits
+            if fits and params.tangent_assembly_precision in ("default",
+                                                              "bf16emu"):
+                # the JAX package's warning, word for word; "bf16emu"
+                # assembles as it does, "default" at full precision
+                # (`ops/assembled_tangent.py:_assemble_upper` says why)
+                warnings.warn(
+                    "tangent_assembly_precision="
+                    f"'{params.tangent_assembly_precision}' assembles "
+                    "the Newton tangent from single-bf16-pass matmuls "
+                    "— measured DIVERGENT at production scale "
+                    "(round-4 hardware session). Use 'highest' (or "
+                    "'high') for real runs.",
+                    stacklevel=3,
+                )
         elif params.tangent_backend == "assembled":
             raise ValueError(
                 "tangent_backend='assembled' requires type_lin='CG', "
@@ -589,6 +596,7 @@ class NonlinearElasticity:
         mask_t = self.mask_t
         kern = self.tangent_kernel
         slab, own = self._slab, self._own
+        precision = self.params.tangent_assembly_precision
         sym = kern in ("K2", "K2b")
         assemble = assemble_cell_tangents_sym if sym else assemble_cell_tangents
         # K1c and K2b read the blocks as the assembly returns them
@@ -609,10 +617,12 @@ class NonlinearElasticity:
                 return assemble(
                     ut_p, self._G_t, self._w_t, self.material,
                     mass_term=self._tangent_mass, S=self._S_t, out=out,
+                    precision=precision,
                 )
             return layout(assemble(
                 ut_p, self._G_t, self._w_t, self.material,
                 mass_term=self._tangent_mass, S=self._S_t,
+                precision=precision,
             ), out=out)
 
         def make_tangent_matvec(Kt):
@@ -630,10 +640,12 @@ class NonlinearElasticity:
 
     def _dense_tangent(self, delta, state) -> torch.Tensor:
         """Masked global tangent (n_dofs, n_dofs) in `dtype`, assembled from
-        the per-cell tangents (the Direct solver)."""
+        the per-cell tangents (the Direct solver). Under the lattice
+        partition every rank assembles the whole of it from the gathered
+        iterate."""
         dim, p = self.space.dim, self.mesh.degree
         gs, rr = self._grid_shape, self._reps_rev
-        u = state.displacement + delta
+        u = self.global_rows(state.displacement) + self.global_rows(delta)
         ut = extract_cell_patches_T(u.reshape(gs + (dim,)), p, rr)
         a1 = 0.0 if self.quasi_static else self.alpha_1
         mass = self._tensor(a1 * self._m_scalar) if a1 != 0.0 else None
@@ -653,7 +665,7 @@ class NonlinearElasticity:
              gdof[:, None, :].expand_as(Kc).reshape(-1)),
             Kc.reshape(-1), accumulate=True,
         )
-        m = self.mask.reshape(-1)
+        m = self._mask_global.reshape(-1)
         return m[:, None] * A * m[None, :] + torch.diag(1.0 - m)
 
     # ------------------------------------------------------------------
@@ -695,19 +707,28 @@ class NonlinearElasticity:
 
             return refill, K
 
-        point = [t.clone() for t in (delta, *state, stress)]
+        # J_rhs(w) = mask * ((-J_int(w)) - M(a1 w)): the pull-back is
+        # detached, the body force constant and the inertia linear in
+        # delta with the factor a1. So -J_rhs is formed from the internal
+        # force's derivative alone, with the same IEEE operations on the
+        # same values as the derivative of the whole residual (negation is
+        # exact), and the residual's other terms stay off the dual numbers
+        u = state.displacement + delta
         mask = self.mask
+        a1 = 0.0 if self.quasi_static else self.alpha_1
 
-        def rhs(d):
-            return model.residual(d, NonlinearState(*point[1:4]), point[4])[0]
+        def force(u):
+            return model._internal_force_and_J(u)[0]
 
         def K(v):
-            Jv = forward_jvp(rhs, point[0], mask * v)
-            return mask * (-Jv) + (1.0 - mask) * v
+            mv = mask * v
+            Jv = forward_jvp(force, u, mv)
+            if a1 != 0.0:
+                Jv = Jv + model.M(a1 * mv)
+            return mask * (mask * Jv) + (1.0 - mask) * v
 
         def refill(delta, state, stress):
-            for buf, t in zip(point, (delta, *state, stress)):
-                buf.copy_(t)
+            torch.add(state.displacement, delta, out=u)
 
         return refill, K
 
@@ -784,11 +805,18 @@ class NonlinearElasticity:
         configuration, per complete lattice side through strided boundary
         slabs (on the lattice partition a side along the split axis by the
         rank that holds it, the others by every rank on its slab), or per
-        face through gathers (`_external_force_gather`). F is detached:
+        face through gathers (`_external_force_gather`; on the lattice
+        partition on the gathered fields, every rank keeping its rows). F
+        is detached:
         the tangent omits the Neumann linearization, as the reference
         does."""
         if self._neumann_sides is None:
-            return self._external_force_gather(u, stress)
+            if self._lat is None:
+                return self._external_force_gather(u, stress)
+            # on the lattice partition: the faces of the gathered fields,
+            # this rank's rows of the load
+            return self.local_rows(self._external_force_gather(
+                self.global_rows(u), self.global_rows(stress)))
         dim = u.shape[-1]
         p = self.mesh.degree
         gs, rr = self._gs_loc, self._rr_loc
@@ -1352,9 +1380,12 @@ class NonlinearElasticity:
         frozen iteration of `newton_tangent_reuse`, which leaves them and
         so the captured CG graphs' operator as they are."""
         if self.params.type_lin != "CG":
+            # the dense problem whole on every rank: the gathered right-hand
+            # side, the one-device solve, this rank's rows of the solution
             A = self._dense_tangent(delta, state)
-            du = torch.linalg.solve(A, rhs.reshape(-1)).reshape(rhs.shape)
-            return du, 1, 1
+            b = self.global_rows(rhs)
+            du = torch.linalg.solve(A, b.reshape(-1)).reshape(b.shape)
+            return self.local_rows(du), 1, 1
         tdt = self.solve_dtype
         # on the device Newton loop the refills replay their CUDA graphs
         produce = (self._graphs if self.newton_loop == "graphs"

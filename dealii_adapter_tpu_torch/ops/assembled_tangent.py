@@ -99,7 +99,17 @@ def upper_blocks(dim):
     return [(d, e) for d in range(dim) for e in range(dim) if d <= e]
 
 
-def _assemble_upper(ut, G, w, material, mass_term, S, out=None):
+ASSEMBLY_PRECISIONS = ("highest", "high", "default", "bf16emu")
+
+
+def _bf16emu(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 and widened back (an operand of a "bf16emu"
+    product)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _assemble_upper(ut, G, w, material, mass_term, S, out=None,
+                    precision="highest"):
     """The upper component blocks {(d, e): (npc, npc, c)}, d <= e, in
     `upper_blocks` order; diagonal blocks symmetrized exactly, mass term
     added to them. `out`, a list of (npc, npc, c) tensors in that order,
@@ -115,17 +125,35 @@ def _assemble_upper(ut, G, w, material, mass_term, S, out=None):
     and the CPU, where the products with random vectors agreed to 5e-7,
     and the Newton CG of the first step took 59 iterations on the card
     and 34 on the CPU; with the f64 sum both take 31
-    (tools/vcycle_operator_ab.py)."""
+    (tools/vcycle_operator_ab.py).
+
+    `precision` (`tangent_assembly_precision`): "highest", "high" and
+    "default" assemble as above. "default" is full precision on purpose:
+    PyTorch's default f32 product has TF32 off (the package sets it so),
+    which the port's numerics require, and the JAX package's
+    `Precision.DEFAULT` is the same product on the CPU, where it is a
+    no-op. "bf16emu" computes each assembly product as the JAX package's
+    `_pdot` does: both operands rounded to bf16, the product accumulated
+    in the tangent's own dtype (the gradients and the S contraction, with
+    no f64 sum)."""
+    if precision not in ASSEMBLY_PRECISIONS:
+        raise ValueError(f"unknown assembly precision {precision!r}; "
+                         f"expected one of {ASSEMBLY_PRECISIONS}")
+    emu = precision == "bf16emu"
     dim, npc, c = ut.shape
     q = G.shape[0]
-    grad = [
-        [G[:, :, e] @ ut[d] for e in range(dim)] for d in range(dim)
-    ]
+    if emu:
+        grad = [[_bf16emu(G[:, :, e]) @ _bf16emu(ut[d]) for e in range(dim)]
+                for d in range(dim)]
+    else:
+        grad = [
+            [G[:, :, e] @ ut[d] for e in range(dim)] for d in range(dim)
+        ]
     comps = piola_tangent_blocks(grad, material)
     if S is None:
         S = contraction_basis(G, w)
     m = mass_term[:, :, None] if mass_term is not None else None
-    S64 = S.to(torch.float64)
+    Sop = _bf16emu(S) if emu else S.to(torch.float64)
     blocks = upper_blocks(dim)
     if out is not None and (len(out) != len(blocks) or any(
             tuple(o.shape) != (npc, npc, c) or o.dtype != ut.dtype
@@ -144,29 +172,31 @@ def _assemble_upper(ut, G, w, material, mass_term, S, out=None):
             ],
             dim=0,
         ).reshape(dim * dim * q, c)
-        K64 = (S64 @ A_de.to(torch.float64)).reshape(npc, npc, c)
+        A_op = _bf16emu(A_de) if emu else A_de.to(torch.float64)
+        Ksum = (Sop @ A_op).reshape(npc, npc, c)
         dst = None if out is None else out[b]
         if d == e:
             # restore exact within-block symmetry lost to summation order
-            Kde = K64.to(A_de.dtype)
+            Kde = Ksum.to(A_de.dtype)
             Kde = torch.mul(Kde + Kde.transpose(0, 1), 0.5, out=dst)
             if m is not None:
                 Kde = Kde.add_(m) if dst is not None else Kde + m
         else:
-            Kde = K64.to(A_de.dtype) if dst is None else dst.copy_(K64)
+            Kde = Ksum.to(A_de.dtype) if dst is None else dst.copy_(Ksum)
         K[(d, e)] = Kde
     return K
 
 
 def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None,
-                           out=None):
+                           out=None, precision="highest"):
     """Element tangents at the current iterate.
 
     ut: (dim, npc, c) cell-patch displacements; G: (q, npc, dim) physical
     reference gradients; w: (q,) weights; mass_term: optional (npc, npc)
     scalar matrix added to the diagonal component blocks (alpha_1 * rho
     element mass); S: the precomputed `contraction_basis(G, w)`; out: an
-    earlier result to overwrite (its upper blocks receive the new ones).
+    earlier result to overwrite (its upper blocks receive the new ones);
+    precision: the assembly tier (`_assemble_upper`).
 
     Returns K as a dim x dim nested list of (npc, npc, c) tensors,
     K[d][e][i, j, c] = dF_int[d,i,c] / du[e,j,c]; the lower blocks are
@@ -175,7 +205,7 @@ def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None,
     dim = ut.shape[0]
     if out is not None:
         out = [out[d][e] for d, e in upper_blocks(dim)]
-    Ku = _assemble_upper(ut, G, w, material, mass_term, S, out)
+    Ku = _assemble_upper(ut, G, w, material, mass_term, S, out, precision)
     K = [[None] * dim for _ in range(dim)]
     for (d, e), Kde in Ku.items():
         K[d][e] = Kde
@@ -185,14 +215,15 @@ def assemble_cell_tangents(ut, G, w, material, mass_term=None, S=None,
 
 
 def assemble_cell_tangents_sym(ut, G, w, material, mass_term=None, S=None,
-                               out=None):
+                               out=None, precision="highest"):
     """Block-symmetric element tangents: the list [K00, K01, (K02,) K11,
     ...] of the upper blocks in `upper_blocks` order, each a contiguous
     (npc, npc, c) tensor (arguments as `assemble_cell_tangents`; `out` an
     earlier such list to overwrite). The lower blocks are never stored;
     `apply_cell_tangents_sym` applies the upper ones transposed in their
     place."""
-    return list(_assemble_upper(ut, G, w, material, mass_term, S, out).values())
+    return list(_assemble_upper(ut, G, w, material, mass_term, S, out,
+                                precision).values())
 
 
 def apply_cell_tangents(K, ut):

@@ -32,7 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..fem.tabulation import gauss_legendre, lagrange_basis
-from ..models.material import kinematics_c
+from ..models.material import fsum, kinematics_c
 from .structured import (
     _cells_shape,
     _grid_shape,
@@ -176,7 +176,7 @@ def internal_force_cellwise_sumfact(ut, sf: SumfactBasis, material):
     _, J, F_inv, b_bar = kinematics_c(grad)
     tau = material.tau_c(J, b_bar)
     P = [
-        [sum(tau[d][e] * F_inv[k][e] for e in range(dim)) for k in range(dim)]
+        [fsum(tau[d][e] * F_inv[k][e] for e in range(dim)) for k in range(dim)]
         for d in range(dim)
     ]
     return project_cellwise(P, sf), J.min()

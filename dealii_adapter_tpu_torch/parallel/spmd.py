@@ -44,6 +44,17 @@ def check_collective_loop(device_mesh, device, cg_loop: str) -> None:
             "graph: pass cg_loop='host' (or run one rank per card on NCCL)")
 
 
+def lattice_layout(params: AllParameters, space: DofSpace, device_mesh):
+    """The fine lattice's `SlabLayout` when the parameters and the rank
+    group run the lattice partition (several ranks, an element backend
+    other than `gather`), else None (one device, or the cell partition,
+    whose vectors are replicated)."""
+    if device_mesh is None or params.element_backend == "gather":
+        return None
+    gs, p = _grid_shape(space), space.mesh.degree
+    return SlabLayout(gs, p, split_axis(gs, p, device_mesh.world), device_mesh)
+
+
 def element_operators(params: AllParameters, space: DofSpace, device_mesh,
                       device):
     """`(mkop, lattice, cells)`: `mkop(E, dtype)` builds the constant
@@ -62,8 +73,8 @@ def element_operators(params: AllParameters, space: DofSpace, device_mesh,
 
         return mkop, None, True
     if device_mesh is not None:
-        gs, p = _grid_shape(space), space.mesh.degree
-        lat = SlabLayout(gs, p, split_axis(gs, p, device_mesh.world), device_mesh)
+        lat = lattice_layout(params, space, device_mesh)
+        p = space.mesh.degree
 
         def mkop(E, dtype):
             return SlabOperator(structured_operator_from_lattice(

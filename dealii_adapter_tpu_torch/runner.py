@@ -9,6 +9,12 @@ emits output only on completed time windows. Works with both solver
 models (they share the `initial_state()` / `step(state, interface_data)` /
 `with_delta_t(dt)` surface) and any participant (real preCICE or the
 in-process fakes).
+
+On several ranks (a model with a `device_mesh`) every rank runs this loop
+with its own rows of the state; the adapter, built with the model's
+`device_mesh`, holds the participant on rank 0 and hands every rank rank
+0's steering answers, so every rank takes the same branch, and
+`output_cb` fires on every rank with its rows.
 """
 
 from __future__ import annotations
@@ -25,12 +31,6 @@ class NewtonDivergedError(RuntimeError):
     """Raised when the nonlinear solve does not converge — the analog of
     the AssertThrow at `nonlinear_elasticity.cc:497-498`."""
 
-
-# the coupled run (and with it the CLI and the preCICE adapter) exchanges
-# interface data of one process; on several ranks it is not ported
-MULTI_RANK_COUPLING = (
-    "the coupled run, the CLI and the preCICE adapter on several ranks are "
-    "not ported (ROADMAP Queue 1 item 16)")
 
 
 def coupled_run(
@@ -52,8 +52,6 @@ def coupled_run(
     own dt until the window closes (the design headroom noted at
     `adapter.h:104-107`).
     """
-    if getattr(model, "device_mesh", None) is not None:
-        raise NotImplementedError(MULTI_RANK_COUPLING)
     params = model.params
     time = Time(params.end_time, params.delta_t)
     if state is None:

@@ -431,3 +431,62 @@ def test_f32_tangent_keeps_rigid_translations_nearly_free():
             ys.append(make(K)(t.to(m.solve_dtype)).double())
         rel = float((ys[0] - ys[1]).norm() / ys[1].norm())
         assert rel <= 2e-5, (comp, rel)
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_bf16emu_assembly_matches_jax(sym):
+    """`tangent_assembly_precision="bf16emu"`: both operands of each
+    assembly product rounded to bf16, accumulated in f32, as the JAX
+    package's `_pdot` does, on a 2D Q2 f32 case against its
+    `assemble_cell_tangents(..., precision="bf16emu")` (and the `_sym`
+    form): within 2e-4 of the largest entry. The two sum their f32
+    products in other orders, so a pointwise tangent entry near a bf16
+    rounding boundary can round to its neighbour (one bf16 ulp of one
+    term); the bf16 emulation itself moves the tangent 1e-3 to 1e-2 of
+    its largest entry from the full-precision one, which the test also
+    requires, so the limit tells the tiers apart."""
+    _, t, j = _setup(2, 2, torch.float32)
+    mat_j, mat_t = JaxNeoHookean(MU, NU, RHO), NeoHookean(MU, NU, RHO)
+    jf = jat.assemble_cell_tangents_sym if sym else jat.assemble_cell_tangents
+    tf = tat.assemble_cell_tangents_sym if sym else tat.assemble_cell_tangents
+    Kj = jf(j["ut"], j["G"], j["w"], mat_j, mass_term=j["mass"],
+            precision="bf16emu")
+    Kt = tf(t["ut"], t["G"], t["w"], mat_t, mass_term=t["mass"],
+            precision="bf16emu")
+    Kh = tf(t["ut"], t["G"], t["w"], mat_t, mass_term=t["mass"])
+    flat = (lambda K: K) if sym else (lambda K: [b for row in K for b in row])
+    for a, b, h in zip(flat(Kj), flat(Kt), flat(Kh)):
+        a = np.asarray(a, dtype=np.float64)
+        scale = np.abs(a).max()
+        assert np.abs(b.numpy() - a).max() <= 2e-4 * scale
+        assert np.abs(h.numpy() - a).max() >= 1e-3 * scale
+
+
+@pytest.mark.parametrize("tier", ["default", "bf16emu"])
+def test_reduced_assembly_tiers_warn(tier, monkeypatch, recwarn):
+    """Both reduced tiers warn with the JAX package's words where the
+    assembled tangent is in use; "highest" does not; the tier reaches the
+    assembly."""
+    import dealii_adapter_tpu_torch.models.nonlinear_elasticity as tne
+
+    kw = dict(model="neo-Hookean", type_lin="CG", scenario="PF", dim=2,
+              poly_degree=2, delta_t=0.01, mu=MU, nu=NU, rho=RHO,
+              solve_dtype="float32", preconditioner="Jacobi")
+    NonlinearElasticity(params_from_jax(JaxParams(**kw)), device="cpu")
+    assert not [w for w in recwarn if "tangent_assembly_precision" in str(w.message)]
+    with pytest.warns(UserWarning, match=(
+            f"tangent_assembly_precision='{tier}' assembles the Newton "
+            "tangent from single-bf16-pass matmuls — measured DIVERGENT")):
+        model = NonlinearElasticity(params_from_jax(JaxParams(
+            **kw, tangent_assembly_precision=tier)), device="cpu")
+    assert model._use_assembled
+    seen = []
+
+    def spy(*a, **k):
+        seen.append(k.get("precision"))
+        return tat.assemble_cell_tangents(*a, **k)
+
+    monkeypatch.setattr(tne, "assemble_cell_tangents", spy)
+    assemble_Kt, _ = model._make_tangent_fns()
+    assemble_Kt(torch.zeros((model.n_rows, 2), dtype=torch.float32))
+    assert seen == [tier]

@@ -8,6 +8,7 @@ marked `cuda` compare the kernels with their plain versions (and K6 with
 K3 and K4b) on the card; they skip where there is none."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -258,13 +259,11 @@ def _two_ranks():
                      backend="gloo")
 
 
-@pytest.mark.parametrize("case", ["mg_cell_partition", "coupled_n_devices",
-                                  "type_lin"])
+@pytest.mark.parametrize("case", ["mg_cell_partition", "type_lin"])
 def test_unported_variants_raise(case):
-    """What still raises on the Neo-Hookean model: MG under the cell
-    partition (the JAX package's own refusal), the coupled run on several
-    ranks (ROADMAP Queue 1 item 16) and a dense Direct tangent above its
-    cap (item 13)."""
+    """What raises on the Neo-Hookean model, as in the JAX package: MG
+    under the cell partition and a dense Direct tangent above its cap
+    (ValueError, the JAX package's wording)."""
     kw = dict(model="neo-Hookean", type_lin="CG", scenario="PF", dim=2,
               poly_degree=2, preconditioner="MG", solve_dtype="float32")
     if case == "mg_cell_partition":
@@ -272,16 +271,10 @@ def test_unported_variants_raise(case):
         with pytest.raises(NotImplementedError,
                            match="MG with the shard_map cell-partition backend"):
             NonlinearElasticity(params, device="cpu", device_mesh=_two_ranks())
-    elif case == "coupled_n_devices":
-        from dealii_adapter_tpu_torch.runner import coupled_run
-
-        model = NonlinearElasticity(AllParameters(**kw), device="cpu")
-        model.device_mesh = _two_ranks()
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
-            coupled_run(model, adapter=None)
     else:
         params = AllParameters(**dict(kw, type_lin="Direct", dim=3, poly_degree=5))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        with pytest.raises(ValueError, match=re.escape(
+                "capped at 16384 unknowns. Use type_lin='CG' for this size.")):
             NonlinearElasticity(params, device="cpu")
 
 
@@ -311,13 +304,12 @@ def test_models_run_on_the_card_unless_asked_for_the_cpu(model):
     assert state.displacement.device.type == "cpu"
 
 
-@pytest.mark.parametrize("case", ["mg_cell_partition", "cli_n_devices",
-                                  "direct_lattice"])
+@pytest.mark.parametrize("case", ["mg_cell_partition", "cli_n_devices"])
 def test_linear_unported_variants_raise(case, tmp_path):
-    """What still raises on the linear model: MG under the cell partition
-    (the JAX package's message), the CLI with `--devices 2` (the coupled
-    run on several ranks, ROADMAP Queue 1 item 16) and the dense Direct
-    solve on the lattice partition (item 17)."""
+    """What raises on the linear model: MG under the cell partition (the
+    JAX package's message), and the CLI with `--devices 2` outside a
+    process group and outside torchrun (RuntimeError, saying how to
+    launch)."""
     kw = dict(model="linear", type_lin="CG", scenario="PF", dim=2,
               poly_degree=2)
     if case == "mg_cell_partition":
@@ -325,19 +317,15 @@ def test_linear_unported_variants_raise(case, tmp_path):
         with pytest.raises(NotImplementedError,
                            match="MG with the shard_map cell-partition backend"):
             LinearElastodynamics(params, device="cpu", device_mesh=_two_ranks())
-    elif case == "cli_n_devices":
+    else:
         from dealii_adapter_tpu_torch import cli
 
         prm = tmp_path / "case.prm"
         prm.write_text("subsection Finite element system\n"
                        "  set Polynomial degree = 1\nend\n")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
             cli.main([str(prm), "--standalone", "--devices", "2", "--lenient",
                       "--device", "cpu"])
-    else:
-        params = AllParameters(**dict(kw, type_lin="Direct"))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-            LinearElastodynamics(params, device="cpu", device_mesh=_two_ranks())
 
 
 def test_build_binds_every_entry_point():

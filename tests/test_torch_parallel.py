@@ -18,15 +18,30 @@ running every case of its world once; the cases are parametrized here.
   configuration (MG, bf16 V-cycle, f32 CG, EW, predictor), and on 2 ranks
   also its Jacobi linear and f64 Neo-Hookean steps, against the JAX
   package's single-device steps, with its count rules and tolerances
-  (the port takes the JAX hierarchy's lam_max values).
+  (the port takes the JAX hierarchy's lam_max values); the dense Direct
+  solve of both models (whole on every rank) and a Neumann interface that
+  covers part of its lattice sides, each also against one device (1e-12).
+* The coupled run on 2 ranks, on both partitions (rank 0 holds the
+  participant): tests/test_torch_coupling.py's implicit linear and
+  Neo-Hookean runs, whose every window rolls back, against the JAX
+  package's one-device run (rtol 1e-9 and 1e-6); and the CLI with
+  `--devices 2` inside the world against one rank.
 
 This module imports jax only inside its fixtures: the spawned ranks
 import it by name and must not."""
+
+import contextlib
+import dataclasses
+import io
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from dealii_adapter_tpu_torch import cli
+from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
 from dealii_adapter_tpu_torch.config import AllParameters
 from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
 from dealii_adapter_tpu_torch.mesh.generator import (
@@ -50,6 +65,7 @@ from dealii_adapter_tpu_torch.parallel import (
     spawn,
 )
 from dealii_adapter_tpu_torch.parallel.lattice import SlabLayout, SlabOperator, split_axis
+from dealii_adapter_tpu_torch.runner import coupled_run
 
 torch.set_num_threads(1)
 
@@ -74,14 +90,63 @@ STEPS = {
     "nonlinear": (NL, 5000.0),
     "linear_mg": (LIN_MG, 1000.0),
     "production": (PRODUCTION, 1000.0),
+    "linear_direct": (dict(LIN, type_lin="Direct"), 1000.0),
+    "nonlinear_direct": (dict(NL, type_lin="Direct"), 5000.0),
+    # NL, Direct, on a mesh whose interface covers half of each of its
+    # sides
+    "nonlinear_partial": (dict(NL, type_lin="Direct"), 5000.0),
 }
 CELL_STEPS = ("linear_gather", "nonlinear_gather")
 # the lattice steps of each world: tests/test_sharding.py's MG linear and
 # production steps on 2 and 4 ranks, its Jacobi linear and f64 jvp
 # Neo-Hookean steps (the tangent through the halo fill and the interface
-# sum) on 2
-LATTICE_STEPS = {2: ("linear", "nonlinear", "linear_mg", "production"),
+# sum), the Direct steps of both models and the partial-side Neumann step
+# on 2
+LATTICE_STEPS = {2: ("linear", "nonlinear", "linear_mg", "production",
+                     "linear_direct", "nonlinear_direct", "nonlinear_partial"),
                  4: ("linear_mg", "production")}
+# the steps that must also equal one device's (1e-12)
+ONE_DEVICE_STEPS = ("linear_direct", "nonlinear_direct", "nonlinear_partial")
+# tests/test_torch_coupling.py's implicit runs, the linear one cut to two
+# windows of 2 iterations and the Neo-Hookean one on Direct solves (its jvp CG's
+# collectives cost ~10 ms an iteration on 2 gloo ranks; the steps above
+# run it): (configuration, implicit iterations a window); a `_gather`
+# case runs the cell partition
+COUPLED = {
+    "coupled_linear": (dict(model="linear", type_lin="CG", scenario="PF",
+                            delta_t=0.01, end_time=0.02, poly_degree=2,
+                            mu=0.5e6, nu=0.4, rho=1000.0, theta=0.5), 2),
+    "coupled_neo_hookean": (dict(model="neo-Hookean", type_lin="Direct",
+                                 scenario="PF", delta_t=0.01, end_time=0.02,
+                                 poly_degree=1, mu=0.5e6, nu=0.4, rho=1000.0,
+                                 theta=0.5, tol_lin=1e-8), 2),
+}
+COUPLED_CASES = ("coupled_linear", "coupled_neo_hookean",
+                 "coupled_linear_gather", "coupled_neo_hookean_gather")
+# tests/test_torch_cli.py's case
+CLI_PRM = """
+subsection Time
+  set End time = 0.02
+  set Time step size = 0.01
+  set Output interval = 1
+  set Output folder = {out}
+end
+subsection System properties
+  set Shear modulus = 0.5e6
+  set Poisson's ratio = 0.4
+  set rho = 1000
+end
+subsection Solver
+  set Model = neo-Hookean
+  set Solver type = CG
+end
+subsection Discretization
+  set Polynomial degree = 1
+end
+subsection precice configuration
+  set Scenario = PF
+end
+"""
 MATVECS = ("q3", "six_cells", "two_cells")
 # a bf16 hierarchy whose distributed level (19, 4) restricts across the
 # split axis into the replicated coarse level (10, 3)
@@ -107,16 +172,112 @@ def _interface_stress(model, magnitude):
     return torch.as_tensor(s)
 
 
+def _partial_interface(mesh, interface_id):
+    """The mesh with the interface faces of each side whose cell lies in
+    the upper half of the side's cells relabelled to another id, so that
+    the interface covers only part of its lattice sides
+    (tests/test_torch_gather_backend.py's)."""
+    faces = mesh.boundary_faces[interface_id]
+    keep = np.zeros(len(faces), dtype=bool)
+    for f in np.unique(faces[:, 1]):
+        idx = np.nonzero(faces[:, 1] == f)[0]
+        keep[idx[: len(idx) // 2]] = True
+    bf = dict(mesh.boundary_faces)
+    bf[interface_id] = faces[keep]
+    bf[99] = faces[~keep]
+    return dataclasses.replace(mesh, boundary_faces=bf)
+
+
+def _mesh_kw(name, kw, grid):
+    """The `mesh` and `tags` keywords of a step case (the partial-side
+    interface's), built with the package's `grid` (make_scenario_grid)."""
+    if not name.endswith("_partial"):
+        return {}
+    mesh, tags = grid(kw["scenario"], 2, kw["poly_degree"], solver=kw["model"])
+    return dict(mesh=_partial_interface(mesh, tags["interface"]), tags=tags)
+
+
 def _step(mesh, name, lam_max):
     kw, mag = STEPS[name]
     cls = LinearElastodynamics if kw["model"] == "linear" else NonlinearElasticity
     extra = {"mg_lam_max": lam_max[name]} if name in lam_max else {}
+    extra.update(_mesh_kw(name, kw, make_scenario_grid))
     model = cls(AllParameters(**kw), device="cpu", device_mesh=mesh, **extra)
     if mesh is not None:
         assert (model._lat is None) == name.endswith("_gather")
+    if name.endswith("_partial"):
+        assert model._neumann_sides is None  # the gather pull-back
     state, info = model.step(model.initial_state(),
                              model.local_rows(_interface_stress(model, mag)))
-    return model.global_rows(state.displacement).numpy(), tuple(info)
+    out = model.global_rows(state.displacement).numpy(), tuple(info)
+    if name.endswith("_partial"):  # the load at a seeded deformation
+        rng = np.random.default_rng(5)
+        n = model.space.n_nodes
+        u = torch.as_tensor(1e-3 * rng.standard_normal((n, 2)))
+        s = _interface_stress(model, 1.0) * torch.as_tensor(
+            1e3 * rng.standard_normal((n, 2)))
+        load = model.external_force(model.local_rows(u), model.local_rows(s))
+        out = out + (model.global_rows(load).numpy(),)
+    return out
+
+
+def _traction(t, xy):
+    return np.stack([np.full(len(xy), 1e3 * min(t, 0.02) / 0.02),
+                     np.zeros(len(xy))], axis=1)
+
+
+def _coupled(mesh, name):
+    """A coupled run of COUPLED's case `name` on `mesh` (None: one device):
+    (rank 0's write history (t, iteration, values), else None; the final
+    displacement, gathered; the output callback's times)."""
+    kw, its = COUPLED[name.removesuffix("_gather")]
+    if name.endswith("_gather"):
+        kw = dict(kw, element_backend="gather")
+    params = AllParameters(**kw)
+    cls = LinearElastodynamics if kw["model"] == "linear" else NonlinearElasticity
+    model = cls(params, device="cpu", device_mesh=mesh)
+    if mesh is not None:
+        assert (model._lat is None) == name.endswith("_gather")
+    fake = FakeParticipant(dim=2, window_dt=params.delta_t,
+                           end_time=params.end_time, read_fn=_traction,
+                           implicit_iterations=its)
+    ad = Adapter(params, model.interface_id, model.space, participant=fake,
+                 dtype=model.dtype, device="cpu", device_mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
+    assert (ad.precice is fake) == lead and (ad.precice is None) != lead
+    times = []
+    st = coupled_run(model, ad, output_cb=lambda s, t, i: times.append(t.current()))
+    u = model.global_rows(st.displacement).numpy()
+    if not lead:
+        assert fake.write_history == [] and not fake.finalized
+        return None, u, times
+    assert fake.finalized
+    return [(t, i, np.asarray(v)) for t, i, v in fake.write_history], u, times
+
+
+def _final_u2(text):
+    return float(re.search(r"final \|\|u\|\|\^2: (\S+)", text).group(1))
+
+
+def _cli(mesh, root):
+    """The CLI on CLI_PRM, on `mesh`'s world with `--devices` (one process
+    without): (its exit code, what it printed, the files of its output
+    folder)."""
+    tag = "ranks" if mesh is not None else "one"
+    out = os.path.join(root, f"out_{tag}")
+    prm = os.path.join(root, f"case_{tag}.prm")
+    if mesh is None or mesh.rank == 0:
+        with open(prm, "w") as f:
+            f.write(CLI_PRM.format(out=out))
+    argv = [prm, "--standalone", "--traction", "2000", "0", "--device", "cpu"]
+    if mesh is not None:
+        mesh.all_reduce(torch.zeros(1))  # rank 0 has written the file
+        argv += ["--devices", str(mesh.world)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    return rc, buf.getvalue(), files
 
 
 def _jvp_point(model):
@@ -167,8 +328,9 @@ def _vcycle_bf16(mesh, lam_max):
     return z, mg._restrict(li, g).float().numpy()
 
 
-def _world_cases(mesh, cells, lattice, lam_max):
-    """Every case of one world on one rank (the spawned function)."""
+def _world_cases(mesh, cells, lattice, lam_max, root):
+    """Every case of one world on one rank (the spawned function); `root`
+    is a directory for the CLI's files."""
     out = {}
     if cells:
         for case in MATVECS:
@@ -190,6 +352,10 @@ def _world_cases(mesh, cells, lattice, lam_max):
             out["vcycle_bf16"] = _vcycle_bf16(mesh, lam_max["vcycle_bf16"])
         for name in LATTICE_STEPS[mesh.world]:
             out[name] = _step(mesh, name, lam_max)
+    if cells and lattice:
+        for name in COUPLED_CASES:
+            out[name] = _coupled(mesh, name)
+        out["cli"] = _cli(mesh, root)
     out["calls"] = dict(mesh.calls)
     return out
 
@@ -201,8 +367,11 @@ def jax_refs():
     import jax
     import jax.numpy as jnp
 
+    from dealii_adapter_tpu.adapter import Adapter as JaxAdapter
+    from dealii_adapter_tpu.adapter import FakeParticipant as JaxFake
     from dealii_adapter_tpu.config import AllParameters as JaxParams
     from dealii_adapter_tpu.fem.dofspace import DofSpace as JaxSpace
+    from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jax_grid
     from dealii_adapter_tpu.mesh.generator import (
         subdivided_hyper_rectangle as jax_box,
     )
@@ -216,12 +385,13 @@ def jax_refs():
         ElementMatrices as JaxElementMatrices,
     )
     from dealii_adapter_tpu.ops.structured import make_structured_operator
+    from dealii_adapter_tpu.runner import coupled_run as jax_coupled_run
 
     jax.config.update("jax_enable_x64", True)
     refs, lam_max = {}, {}
     for name, (kw, mag) in STEPS.items():
         cls = JaxLinear if kw["model"] == "linear" else JaxNonlinear
-        m = cls(JaxParams(**kw))
+        m = cls(JaxParams(**kw), **_mesh_kw(name, kw, jax_grid))
         if kw.get("preconditioner") == "MG":
             lam_max[name] = [lv.lam_max for lv in m._precond.levels]
         s = np.zeros((m.space.n_nodes, m.space.dim))
@@ -233,6 +403,17 @@ def jax_refs():
     u = np.random.default_rng(0).standard_normal((space.n_nodes, 3))
     refs["structured"] = np.asarray(
         make_structured_operator(space, E, jnp.float64)(jnp.asarray(u)))
+    for name, (kw, its) in COUPLED.items():
+        jp = JaxParams(**kw)
+        m = (JaxLinear if kw["model"] == "linear" else JaxNonlinear)(jp)
+        fake = JaxFake(dim=2, window_dt=jp.delta_t, end_time=jp.end_time,
+                       read_fn=_traction, implicit_iterations=its)
+        ad = JaxAdapter(jp, m.interface_id, m.space, participant=fake,
+                        dtype=m.dtype)
+        times = []
+        st = jax_coupled_run(m, ad, output_cb=lambda s, t, i: times.append(
+            t.current()))
+        refs[name] = (fake.write_history, np.asarray(st.displacement), times)
     return refs, lam_max
 
 
@@ -248,8 +429,9 @@ def worlds(jax_refs, tmp_path_factory):
     lam_max = dict(jax_refs[1], vcycle_bf16=_vcycle_lam_max())
     out = {}
     for n, cells, lattice in ((2, True, True), (3, True, False), (4, False, True)):
+        root = tmp_path_factory.mktemp(f"world{n}")
         out[n] = spawn(_world_cases, n, "cpu", cells, lattice, lam_max,
-                       init_dir=tmp_path_factory.mktemp(f"world{n}"), threads=1)
+                       str(root), init_dir=root, threads=1)
     return out
 
 
@@ -294,7 +476,7 @@ def test_sharded_matvec_matches_unsharded(worlds, world, case):
 
 
 def _check_step(name, result, ref, world):
-    (u, info), (u_ref, info_ref) = result, ref
+    (u, info), (u_ref, info_ref) = result[:2], ref
     if STEPS[name][0]["model"] == "linear":
         assert abs(info[0] - int(info_ref.iterations)) <= 2, (world, info)
         np.testing.assert_allclose(u, u_ref, rtol=1e-9, atol=1e-14)
@@ -389,3 +571,67 @@ def test_bf16_vcycle_two_ranks_within_one_ulp(worlds):
     for rank in worlds[2]:
         got = rank["vcycle_bf16"][0]
         assert np.abs(got - ref).max() <= _bf16_ulp(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name", ONE_DEVICE_STEPS)
+def test_lattice_step_equals_one_device(worlds, name):
+    """The dense Direct steps of both models (the gathered right-hand side
+    solved whole on every rank) and the Neo-Hookean step on an interface
+    that covers part of its lattice sides (the gather pull-back on the
+    gathered fields) on 2 ranks against one device: displacement within
+    1e-12, the same counts; the partial-side load at a seeded deformation
+    and traction within f64 roundoff (1e-12)."""
+    ref = _step(None, name, {})
+    for rank in worlds[2]:
+        got = rank[name]
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-12,
+                                   atol=1e-12 * np.abs(ref[0]).max())
+        assert got[1][0] == ref[1][0]  # converged / CG iterations
+        if STEPS[name][0]["model"] != "linear":
+            assert got[1][1] == ref[1][1] and got[1][6] == ref[1][6]
+        if name.endswith("_partial"):
+            np.testing.assert_allclose(got[2], ref[2], rtol=1e-12,
+                                       atol=1e-12 * np.abs(ref[2]).max())
+            assert np.abs(ref[2]).max() > 0
+    assert np.abs(ref[0]).max() > 0
+
+
+@pytest.mark.parametrize("name", COUPLED_CASES)
+def test_coupled_run_two_ranks_matches_jax(worlds, jax_refs, name):
+    """The coupled run on 2 ranks (lattice partition, and `_gather`: the
+    cell partition), implicit coupling with a rollback in every window,
+    against the JAX package's one-device run: rank 0's participant wrote
+    the JAX write history (same times and iterations; values within rtol
+    1e-9 linear, 1e-6 Neo-Hookean), rank 1 holds no participant, the
+    output times agree and the final displacement matches on every
+    rank."""
+    hist_ref, u_ref, times_ref = jax_refs[0][name.removesuffix("_gather")]
+    rtol = 1e-9 if "linear" in name else 1e-6
+    ranks = worlds[2]
+    hist = ranks[0][name][0]
+    assert len(hist) == len(hist_ref) > 0 and ranks[1][name][0] is None
+    assert max(i for _, i, _ in hist) >= 1  # windows were repeated
+    for (t1, i1, x), (t2, i2, y) in zip(hist_ref, hist):
+        assert i1 == i2 and t1 == pytest.approx(t2)
+        np.testing.assert_allclose(y, x, rtol=rtol, atol=rtol * np.abs(x).max())
+    for rank in ranks:
+        _, u, times = rank[name]
+        assert times == pytest.approx(times_ref)
+        np.testing.assert_allclose(u, u_ref, rtol=rtol,
+                                   atol=rtol * np.abs(u_ref).max())
+
+
+def test_cli_two_ranks_equals_one(worlds, tmp_path):
+    """`cli.main([..., "--devices", "2", "--device", "cpu"])` on the
+    world's ranks: exit 0 on both, rank 0 alone prints (a banner naming
+    the 2 ranks) and writes each VTU file once, and the final ||u||^2
+    equals one rank's run within 1e-9."""
+    rc, text, files = _cli(None, str(tmp_path))
+    assert rc == 0
+    (rc0, text0, files0), (rc1, text1, _) = (r["cli"] for r in worlds[2])
+    assert rc0 == rc1 == 0 and text1 == ""
+    assert "2 ranks over gloo; CG loop: graphs" in text0
+    assert files0 == files == ["solution-2d-1.vtu", "solution-2d-2.vtu"]
+    assert "2 VTU files" in text0
+    assert _final_u2(text0) == pytest.approx(_final_u2(text), rel=1e-9)
+    assert _final_u2(text) > 0
