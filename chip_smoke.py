@@ -220,6 +220,26 @@ script exits non-zero without printing a result):
      configuration), 20 steps each, every step converged and the tip
      within rtol 1e-7 of tests/golden_trajectories.json; C1/C2 and no
      other kernel launched.
+15. linear_loops (run after linear2d) — the linear step on the device
+   (`cg_loop="graphs"`, the default of every linear path: its right-hand
+   side, the defect-correction loop around the CG chunks and the update
+   replayed from CUDA graphs, the refinement decisions on the card)
+   against its host loops (`cg_loop="host"`: `ir_cg_solve` around the
+   host CG) on each of `LINEAR_CELLS` (bench_linear_q2, bench_linear_q3,
+   linear2d) at full size, two models on one mesh: 1 warmup and 3 timed
+   steps each, then one profiled step of each (`profile_timeline`: device
+   time by kernel group, launches, busy share, read-backs and the idle
+   gaps after them): the same `StepInfo` in every step, ||u||^2 within
+   `LOOPS_RTOL` (and whether bitwise), every residual <= 1e-10, the
+   device loop's read-backs at most its CG iterations + 2 a step (one a
+   chunk of 1 iteration, plus at most one masked chunk where the host
+   guessed that the refinements go on and they ended, plus at most one
+   read after a refinement where it guessed the end; CG + 1 where the
+   guess is right) and the launches beyond the host loop's (the masked
+   start and chunk of a wrong guess); each
+   loop's step times and read-backs; then one step of the device model's
+   subcycling clone (half the step), with the peak device memory before
+   and after it.
 
 Every path but `main3d host`, shard3d, shard_cells, dryrun,
 coupled_shard and cli_ranks (the host CG and Newton loops; all but the
@@ -248,6 +268,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -366,6 +387,14 @@ BENCH_CELLS = {
     "bench_linear_q2": ("linear", 2, 4),
     "bench_linear_q3": ("linear", 3, 3),
 }
+# the linear model's cells of the linear_loops phase and of
+# tools/linear_step_profile.py: bench_torch.py's two linear cells and
+# linear2d's configuration, name -> (dim, degree, scale)
+LINEAR_CELLS = {
+    "bench_linear_q2": (3, 2, 4),
+    "bench_linear_q3": (3, 3, 3),
+    "linear2d": (2, 2, SCALE_2D),
+}
 PATH_KERNELS.update({
     "bench_q4": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
     "bench_linear_q2": _HEALTH + _MG3D,
@@ -383,6 +412,9 @@ PATH_KERNELS.update({
     "coupled_nccl1": _STENCIL3D,
     "cli_ranks": _HEALTH + ("K4b q1_structured_2d",),
     "golden_nl": _HEALTH,
+    "linear_loops bench_linear_q2": _HEALTH + _MG3D,
+    "linear_loops bench_linear_q3": _HEALTH + ("K3 q1_structured",),
+    "linear_loops linear2d": _HEALTH + ("K4b q1_structured_2d",),
 })
 # kernels a path must NOT launch: the stencil paths replace K3 with K6, the
 # jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
@@ -404,7 +436,10 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                  "coupled_shard": ("K3 q1_structured",),
                  "coupled_nccl1": ("K3 q1_structured",),
                  "golden_nl": ("K1 tangent_matvec", "K3 q1_structured",
-                               "K5 q2_structured", "K4b q1_structured_2d")}
+                               "K5 q2_structured", "K4b q1_structured_2d"),
+                 "linear_loops bench_linear_q2": ("K1 tangent_matvec",),
+                 "linear_loops bench_linear_q3": ("K1 tangent_matvec",
+                                                  "K5 q2_structured")}
 # ||u||^2 after cli_nl's 3 steps, the JAX package on the CPU:
 #   JAX_PLATFORMS=cpu python tools/jax_reference_nl_default.py
 NL_DEFAULT_REF = 0.10160554980143784
@@ -1239,6 +1274,17 @@ def build_linear_model(device, scale=None, cg_loop=None, **overrides):
         overrides=dict(LINEAR_2D, **overrides), **loop)
 
 
+def build_linear_cell(name, device, scale=None, mesh_tags=None, **model_kw):
+    """The linear cell `name` of `LINEAR_CELLS` (at its full scale unless
+    given), `bench_torch.py:build_linear_model` with `model_kw` for the
+    constructor (`cg_loop`, `mg_lam_max`, ...)."""
+    dim, degree, full = LINEAR_CELLS[name]
+    return bench_torch.build_linear_model(
+        full if scale is None else scale, LINEAR["dtype"], degree,
+        device=device, mesh_tags=mesh_tags,
+        overrides=LINEAR_2D if dim == 2 else None, **model_kw)
+
+
 # traction 1000 in x on the interface, as bench_torch.py loads its cells
 interface_traction = bench_torch.interface_traction
 
@@ -1337,6 +1383,111 @@ def profile_step(tag, model, state, stress, table=True):
         f"{dev_us / 1e3:.1f} ms = {dev_us / 1e4 / wall:.1f}% of the wall; the "
         f"session with its key_averages took {t_session:.2f} s")
     return dev_us / 1e6 / wall
+
+
+_HAND_KERNEL = re.compile(
+    r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?"
+    r"(?:void\s+)?(\w+)\s*\(")
+
+
+def hand_kernel_names():
+    """The `__global__` functions of the package's CUDA sources."""
+    import glob
+
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "dealii_adapter_tpu_torch", "csrc")
+    names = set()
+    for path in glob.glob(os.path.join(csrc, "*.cu*")):
+        with open(path) as fh:
+            names.update(_HAND_KERNEL.findall(fh.read()))
+    return names
+
+
+def kernel_group(name, hand):
+    """The device-time group of a profiled kernel or copy: `hand` (this
+    package's kernels), `trsv` (the coarse triangular pair), `cublas`
+    (the other cuBLAS kernels), `elementwise` (PyTorch's elementwise
+    kernels), `reduce` (its reductions), `memcpy`, `memset` or `other`."""
+    if name.startswith("Memcpy"):
+        return "memcpy"
+    if name.startswith("Memset"):
+        return "memset"
+    if any(h in name for h in hand):
+        return "hand"
+    low = name.lower()
+    if "trsv" in low or "trsm" in low:
+        return "trsv"
+    if any(s in low for s in ("gemm", "gemv", "cublas", "xmma", "cutlass")):
+        return "cublas"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def profile_timeline(tag, model, state, stress):
+    """One step under torch.profiler tracing the card's activity only:
+    (state, summary). The summary holds the step's wall time (host clock,
+    ending in a synchronize), device time by `kernel_group`, the kernel
+    launches, the busy share (the union of the device's kernel and copy
+    intervals over the wall), the read-backs (device-to-host copies) and
+    the idle gaps on the device: after each read-back (until the next
+    device work: the host's turn-around) and the others. Prints one line
+    and the ten kernels with most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    hand = hand_kernel_names()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        ts = time.perf_counter()
+        state, _ = model.step(state, stress)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - ts) * 1e6
+    events = sorted(
+        ((e.time_range.start, e.time_range.end, e.name) for e in p.events()
+         if e.device_type == DeviceType.CUDA), key=lambda e: e[0])
+    groups, by_name = {}, {}
+    for t0, t1, name in events:
+        g = kernel_group(name, hand)
+        groups[g] = groups.get(g, 0.0) + (t1 - t0) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
+    busy_us, end, last = 0.0, None, None
+    after_readback, other_gaps = [], []
+    for t0, t1, name in events:
+        if end is not None and t0 > end:
+            (after_readback if last.startswith("Memcpy DtoH") else
+             other_gaps).append(t0 - end)
+        if end is None or t0 > end:
+            busy_us += t1 - t0
+            end, last = t1, name
+        elif t1 > end:
+            busy_us += t1 - end
+            end, last = t1, name
+    launches = sum(1 for *_, n in events
+                   if kernel_group(n, hand) not in ("memcpy", "memset"))
+    readbacks = sum(1 for *_, n in events if n.startswith("Memcpy DtoH"))
+    out = dict(
+        wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+        busy_share=busy_us / wall_us,
+        device_ms={g: groups[g] for g in sorted(groups)},
+        launches=launches, readbacks=readbacks,
+        gaps_after_readback_ms=sum(after_readback) / 1e3,
+        gap_after_readback_median_us=(statistics.median(after_readback)
+                                      if after_readback else 0.0),
+        other_gaps_ms=sum(other_gaps) / 1e3, other_gaps=len(other_gaps))
+    log(f"{tag} profile: " + json.dumps(out))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"{tag} profile top kernels (ms): " + "; ".join(
+        f"{n[:90]} {ms:.3f}" for n, ms in top))
+    return state, out
+
+
+def linear_fmt(info):
+    return (f"cg {info.iterations} residual {info.residual!r} "
+            f"linf_velocity {info.linf_velocity!r}")
 
 
 def newton_fmt(info):
@@ -2335,11 +2486,8 @@ def phase_linear2d(profile):
     torch.cuda.reset_peak_memory_stats()
     stress = interface_traction(model)
     start_counts()
-    state, infos, _, checksum = run_steps(
-        "linear2d", model, stress,
-        lambda i: f"cg {i.iterations} residual {i.residual!r} "
-                  f"linf_velocity {i.linf_velocity!r}",
-    )
+    state, infos, _, checksum = run_steps("linear2d", model, stress,
+                                          linear_fmt)
     launches = read_counts("linear2d")
     log(f"linear2d: launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2353,6 +2501,99 @@ def phase_linear2d(profile):
     del model
     golden_linear_pf_q2(dev)
     return launches
+
+
+def phase_linear_loops():
+    """The linear step on the device (`cg_loop="graphs"`, the default: its
+    right-hand side, defect-correction loop, CG chunks and update replayed
+    from CUDA graphs) against its host loops (`cg_loop="host"`) on each of
+    `LINEAR_CELLS` at full size, two models on one mesh with the same
+    lam_max values: 1 warmup and 3 timed steps from rest each (host first),
+    then one profiled step of each (`profile_timeline`). The same
+    `StepInfo` in every step, ||u||^2 within `LOOPS_RTOL` (and whether
+    bitwise), every residual <= 1e-10, and the device loop's read-backs at
+    most its CG iterations + 2 a step (module docstring); each loop's step
+    times and read-backs. Then one step of the device model's subcycling clone
+    (half the step) from its state, with the peak device memory before and
+    after it. Returns {path: the device loop's launches}."""
+    import torch
+
+    from dealii_adapter_tpu_torch.kernels import counters
+
+    dev = torch.device("cuda")
+    by_path = {}
+    for cell in LINEAR_CELLS:
+        runs, mesh_tags, lam_max = {}, None, None
+        for loop in ("graphs", "host"):
+            t0 = time.perf_counter()
+            model = build_linear_cell(cell, dev, mesh_tags=mesh_tags,
+                                      mg_lam_max=lam_max, cg_loop=loop)
+            torch.cuda.synchronize()
+            log(f"linear_loops {cell}: cg_loop={loop} built in "
+                f"{time.perf_counter() - t0:.1f} s, {model.space.n_dofs} DoF")
+            if mesh_tags is None:
+                mesh_tags = (model.mesh, model.tags)
+                lam_max = [lv.lam_max for lv in model._precond.levels]
+            runs[loop] = model
+        stress = interface_traction(runs["host"])
+        out, path = {}, f"linear_loops {cell}"
+        for loop in ("host", "graphs"):
+            model = runs[loop]
+            torch.cuda.reset_peak_memory_stats()
+            start_counts()
+            state, infos, steps, checksum = run_steps(
+                f"{path} {loop}", model, stress, linear_fmt)
+            launches = (read_counts(path) if loop == "graphs"
+                        else counters.launch_counts())
+            out[loop] = dict(state=state, infos=infos, steps=steps,
+                             checksum=checksum, launches=launches,
+                             peak=torch.cuda.max_memory_allocated() / 2**30)
+            require(all(i.residual <= 1e-10 for i in infos),
+                    f"{path} {loop}: every step's residual <= 1e-10")
+        for loop in ("host", "graphs"):
+            out[loop]["state"], out[loop]["profile"] = profile_timeline(
+                f"{path} {loop}", runs[loop], out[loop]["state"], stress)
+        g, h = out["graphs"], out["host"]
+        rel = abs(g["checksum"] - h["checksum"]) / h["checksum"]
+        for loop, r in out.items():
+            st = r["steps"]
+            log(f"{path} {loop}: step times {st['times']} s (timed mean "
+                f"{statistics.mean(st['times'][1:])!r} s), CG "
+                f"{[i.iterations for i in r['infos']]}, read-backs "
+                f"{st['syncs']}, kernel launches {st['launches']}, peak "
+                f"device memory {r['peak']:.3f} GiB; launches "
+                f"{r['launches']}")
+        log(f"{path}: checksums graphs {g['checksum']!r} host "
+            f"{h['checksum']!r}, rel. difference {rel:.3e} (limit "
+            f"{LOOPS_RTOL}); bitwise {g['checksum'] == h['checksum']}; "
+            f"StepInfo equal {g['infos'] == h['infos']}")
+        require(g["infos"] == h["infos"],
+                f"{path}: the device loop's StepInfo equals the host loop's")
+        require(rel <= LOOPS_RTOL,
+                f"{path}: the device loop's checksum against the host loop's")
+        extra = [y - i.iterations for y, i in zip(g["steps"]["syncs"],
+                                                  g["infos"])]
+        log(f"{path}: the device loop's read-backs less its CG iterations "
+            f"{extra} a step; launches beyond the host loop's "
+            f"{[a - b for a, b in zip(g['steps']['launches'], h['steps']['launches'])]}")
+        require(max(extra) <= 2,
+                f"{path}: the device loop reads back at most its CG "
+                "iterations + 2 a step")
+        model = runs["graphs"]
+        del runs
+        peak0 = torch.cuda.max_memory_allocated() / 2**30
+        clone = model.with_delta_t(model.params.delta_t / 2)
+        _, info = clone.step(g["state"], stress)
+        torch.cuda.synchronize()
+        log(f"{path}: subcycling clone (dt {clone.params.delta_t}): "
+            f"{linear_fmt(info)}; peak device memory {peak0:.3f} GiB before "
+            f"its step, {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"after")
+        require(info.residual <= 1e-10, f"{path}: the clone's residual")
+        by_path[path] = g["launches"]
+        del model, clone, out, g, h
+        torch.cuda.empty_cache()
+    return by_path
 
 
 def phase_nonlinear2d(profile):
@@ -2733,6 +2974,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
+    by_path.update(timed("linear_loops", phase_linear_loops))
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"], cli_u2 = timed("cli", phase_cli)

@@ -31,22 +31,29 @@ Cholesky (`type_lin="Direct"`, up to 16,384 unknowns). The MG
 preconditioner's fine proxy is kernel K5 in 3D Q2 (the plain structured
 operator in 2D), its Q1 levels kernels K3 (3D) or K4b (2D).
 
-The CG runs as `cg_loop` says: "graphs" (the default) runs
-`solvers/cg.py:ChunkedCG`, chunks of guarded CG iterations captured once
-per model in CUDA graphs on the card (run eagerly on the CPU), one
-read-back per chunk, the inner tolerance of each refinement written to
-the solver's tolerance tensor; "host" the host-loop `cg_solve`, one
-read-back per iteration. Both give the same bits.
-
-Differences from the JAX package: the step is eager PyTorch with host
-loops (the refinement loop, one read-back per refinement; the CG's
-read-backs; all counted in `host_syncs`) where JAX jits one step
-function.
+The step runs as `cg_loop` says. "graphs" (the default) keeps the step
+on the device, as the JAX package's one jitted step function: the
+right-hand side (load, M and K applications), the solve and the update
+run through one `solvers/graphs.py:GraphRunner` (CUDA graphs on the card,
+captured at the first step and replayed after it, in one memory pool
+with the CG's; eager on the CPU), the CG in chunks of guarded iterations
+(`solvers/cg.py:ChunkedCG`, `cg_chunk` iterations a chunk, one read-back
+a chunk) and, in f32, inside the defect-correction loop on the device
+(`ChunkedIRCG`), whose decisions, final residual, iterations and the
+velocity's max norm come back in the status the host reads after each
+chunk: a step reads back once a chunk, plus at most once (where the loop
+was expected to end, or the f64 CG's max norm). "host" runs the same
+lines eagerly with the host loops (`ir_cg_solve` around the host-loop
+`cg_solve`, one read-back per CG iteration and per refinement, and one
+for the max norm), the oracle of the device loop. Both give the same
+bits; `host_syncs` counts the read-backs. The Direct solve is the same
+eager code under both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,6 +80,8 @@ from ..parallel.spmd import (
 )
 from ..solvers.cg import (
     CG_CHUNK,
+    CG_LOOPS,
+    ChunkedIRCG,
     _dot,
     chebyshev_preconditioner,
     ir_cg_solve,
@@ -81,9 +90,25 @@ from ..solvers.cg import (
     make_cg,
 )
 from ..solvers.direct import DenseCholesky
+from ..solvers.graphs import GraphRunner
 
 CG_TOL = 1e-10  # absolute, hardcoded in the reference (`linear_elasticity.cc:542-543`)
 DIRECT_MAX_UNKNOWNS = 16384  # dense Direct stepping matrix cap (as in JAX)
+
+
+def _max_norm(lattice):
+    """v -> max |v| over every rank, a 0-dim tensor. Refers to the
+    lattice, never to the model: the refinement loop keeps it, and a
+    reference to the model would make the model and its CUDA graphs a
+    cycle that outlives `del model`."""
+
+    def vmax(v: torch.Tensor) -> torch.Tensor:
+        m = v.abs().max()
+        if lattice is not None:
+            m = lattice.mesh.all_reduce(m, "max")
+        return m
+
+    return vmax
 
 
 class LinearState(NamedTuple):
@@ -105,10 +130,12 @@ class LinearElastodynamics:
     """Builds mesh, space, operators and preconditioner once on `device`
     (default: the CUDA card); `step(state, interface_data) -> (state,
     StepInfo)`. `cg_loop` ("graphs", the default, or "host") chooses the
-    Krylov loop (module docstring); it exists so that both loops can be
+    step's loops (module docstring); it exists so that both can be
     measured side by side, and the model never switches between them
-    itself. With a `device_mesh`, states and interface data are this
-    rank's rows (`local_rows`, `global_rows`)."""
+    itself. `cg_chunk` (CG iterations a chunk under "graphs") exists for
+    `tools/cg_chunk_sweep.py`, which measures the lengths. With a
+    `device_mesh`, states and interface data are this rank's rows
+    (`local_rows`, `global_rows`)."""
 
     def __init__(
         self,
@@ -120,6 +147,7 @@ class LinearElastodynamics:
         mg_lam_max: Optional[Sequence[float]] = None,
         cg_loop: str = "graphs",
         device_mesh=None,
+        cg_chunk: int = CG_CHUNK,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
         hierarchy's power-iteration estimates."""
@@ -130,8 +158,17 @@ class LinearElastodynamics:
         self.device = resolve_device(
             device if device is not None or device_mesh is None
             else device_mesh.device)
+        if cg_loop not in CG_LOOPS:
+            raise ValueError(
+                f"unknown cg_loop {cg_loop!r}; expected one of {CG_LOOPS}")
         self.cg_loop = cg_loop
+        self.cg_chunk = int(cg_chunk)
         check_collective_loop(device_mesh, self.device, cg_loop)
+        # the step's CUDA graphs share the CG graphs' memory pool
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._graphs = GraphRunner(self.device, self._pool)
+        self._sb = None  # the device step's buffers, at its first step
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -238,8 +275,19 @@ class LinearElastodynamics:
         self._A_bc = self._masked(self.A, self.mask)
         cg_op = (self._masked(self.A_lo, self.mask_lo) if self._mixed
                  else self._A_bc)
-        self._cg = make_cg(self.cg_loop, cg_op, self._precond, CG_CHUNK,
-                           self._dot)
+        self._vmax = _max_norm(lat)
+        # under "graphs" in f32 the refinement loop on the device, and its
+        # inner ChunkedCG as the CG solve
+        self._ir = None
+        if self._mixed and self.cg_loop == "graphs":
+            self._ir = ChunkedIRCG(
+                self._A_bc, cg_op, self._precond, self.solve_dtype,
+                chunk=self.cg_chunk, dot=self._dot, pool=self._pool,
+                runner=self._graphs, x_stat=self._vmax)
+            self._cg = self._ir.inner
+        else:
+            self._cg = make_cg(self.cg_loop, cg_op, self._precond,
+                               self.cg_chunk, self._dot, self._pool)
         self._cg_op = cg_op
 
     # ------------------------------------------------------------------
@@ -280,24 +328,37 @@ class LinearElastodynamics:
             F = F + self._body_vec
         return F
 
+    def _rhs(self, disp, vel, old_load, F_new) -> torch.Tensor:
+        """The step's right-hand side (`linear_elasticity.cc:398-420`),
+        zero on the Dirichlet rows."""
+        dt, theta = self.params.delta_t, self.params.theta
+        K, M = self.K, self.M
+        rhs = (
+            dt * theta * F_new
+            + dt * (1.0 - theta) * old_load
+            + M(vel)
+            - (theta * (1.0 - theta) * dt * dt) * K(vel)
+            - dt * K(disp)
+        )
+        return self.mask * rhs
+
+    def _update(self, disp, vel, v_new) -> torch.Tensor:
+        """D_{n+1} = D_n + dt theta V_{n+1} + dt (1-theta) V_n."""
+        dt, theta = self.params.delta_t, self.params.theta
+        return disp + dt * theta * v_new + dt * (1.0 - theta) * vel
+
+
     def step(
         self, state: LinearState, interface_data: torch.Tensor
     ) -> Tuple[LinearState, StepInfo]:
         """One theta-step. `interface_data` is the (n_nodes, dim) nodal
         coupling field (stress for consistent, forces for conservative
         reads), zero off the interface."""
-        params = self.params
-        dt, theta = params.delta_t, params.theta
-        K, M, mask = self.K, self.M, self.mask
+        if self.cg_loop == "graphs" and self._direct is None:
+            return self._step_device(state, interface_data)
         F_new = self.assemble_load(interface_data)
-        rhs = (
-            dt * theta * F_new
-            + dt * (1.0 - theta) * state.old_load
-            + M(state.velocity)
-            - (theta * (1.0 - theta) * dt * dt) * K(state.velocity)
-            - dt * K(state.displacement)
-        )
-        rhs = mask * rhs  # zero-valued Dirichlet rows
+        rhs = self._rhs(state.displacement, state.velocity, state.old_load,
+                        F_new)
         if self._direct is not None:
             # the whole system on every rank (one factor each): the gathered
             # right-hand side, this rank's rows of the solution
@@ -307,28 +368,85 @@ class LinearElastodynamics:
             if self._mixed:
                 res = ir_cg_solve(
                     self._A_bc, self._cg_op, rhs,
-                    mask * state.velocity, tol=CG_TOL,
+                    self.mask * state.velocity, tol=CG_TOL,
                     max_iter=self._max_cg_iter, lo_dtype=self.solve_dtype,
-                    preconditioner=self._precond, inner_solve=self._cg,
-                    dot=self._dot,
+                    preconditioner=self._precond, dot=self._dot,
                 )
             else:
-                res = self._cg(rhs, mask * state.velocity, CG_TOL,
+                res = self._cg(rhs, self.mask * state.velocity, CG_TOL,
                                self._max_cg_iter)
             self.host_syncs += res.host_syncs
             v_new, iters, resn = res.x, res.iterations, res.residual_norm
-        d_new = (
-            state.displacement
-            + dt * theta * v_new
-            + dt * (1.0 - theta) * state.velocity
-        )
+        d_new = self._update(state.displacement, state.velocity, v_new)
         self.host_syncs += 1
-        vmax = v_new.abs().max()
-        if self._lat is not None:
-            vmax = self._lat.mesh.all_reduce(vmax, "max")
         info = StepInfo(iterations=iters, residual=resn,
-                        linf_velocity=float(vmax))
+                        linf_velocity=float(self._vmax(v_new)))
         return LinearState(d_new, v_new, F_new), info
+
+    def _step_buffers(self, state: LinearState, interface_data):
+        """The device step's static buffers (allocated at the first step;
+        later steps must bring the same shapes and dtypes), with the
+        step's inputs copied in."""
+        ins = (*state, interface_data)
+        b = self._sb
+        if b is None:
+            consistent = self.params.data_consistent or self.body_force_enabled
+            f_dtype = (torch.promote_types(interface_data.dtype, self.dtype)
+                       if consistent else interface_data.dtype)
+            b = self._sb = types.SimpleNamespace(
+                inputs=[torch.empty_like(t) for t in ins],
+                F=torch.empty_like(interface_data, dtype=f_dtype),
+                rhs=torch.empty_like(state.displacement),
+                x0=torch.empty_like(state.displacement),
+                d_new=torch.empty_like(state.displacement),
+                status=torch.zeros((), dtype=torch.float64,
+                                   device=self.device),
+            )
+        for buf, t in zip(b.inputs, ins):
+            if (buf.shape, buf.dtype, buf.device) != (t.shape, t.dtype,
+                                                      t.device):
+                raise ValueError(
+                    f"step: an input {tuple(t.shape)} {t.dtype} on {t.device}"
+                    f"; the device step's buffers are {tuple(buf.shape)} "
+                    f"{buf.dtype} on {buf.device}")
+            buf.copy_(t)
+        return b
+
+    def _device_rhs(self, b):
+        disp, vel, old, data = b.inputs
+        b.F.copy_(self.assemble_load(data))
+        b.rhs.copy_(self._rhs(disp, vel, old, b.F))
+        b.x0.copy_(self.mask * vel)
+
+    def _device_update(self, b, v_new, with_vmax):
+        disp, vel = b.inputs[:2]
+        b.d_new.copy_(self._update(disp, vel, v_new))
+        if with_vmax:
+            b.status.copy_(self._vmax(v_new))
+
+    def _step_device(self, state: LinearState, interface_data):
+        """`step` under `cg_loop="graphs"` (module docstring): the same
+        lines through the graph runner, the solve's loops on the device;
+        `StepInfo` from the solve's last status read-back (the f64 CG
+        reads the max norm once after it)."""
+        b = self._step_buffers(state, interface_data)
+        run = self._graphs
+        run("rhs", lambda: self._device_rhs(b))
+        solve = self._ir if self._mixed else self._cg
+        res = solve(b.rhs, b.x0, CG_TOL, self._max_cg_iter)
+        self.host_syncs += res.host_syncs
+        v_new = solve._x
+        with_vmax = not self._mixed
+        run(("update", with_vmax),
+            lambda: self._device_update(b, v_new, with_vmax))
+        if with_vmax:
+            self.host_syncs += 1
+            vmax = b.status.item()
+        else:
+            vmax = res.x_stat
+        info = StepInfo(iterations=res.iterations, residual=res.residual_norm,
+                        linf_velocity=vmax)
+        return LinearState(b.d_new.clone(), res.x, b.F.clone()), info
 
     def with_delta_t(self, delta_t: float) -> "LinearElastodynamics":
         """A solver clone stepping with a different dt on the same mesh and
@@ -346,5 +464,6 @@ class LinearElastodynamics:
                 dataclasses.replace(self.params, delta_t=key),
                 mesh=self.mesh, tags=self.tags, device=self.device,
                 cg_loop=self.cg_loop, device_mesh=self.device_mesh,
+                cg_chunk=self.cg_chunk,
             )
         return cache[key]

@@ -32,11 +32,14 @@ local sum plus one all-reduce (`parallel/partition.py:RankGroup.dot`).
 Convergence follows deal.II's SolverControl: iterate until the l2 norm of
 the residual drops below an absolute tolerance or the cap is hit.
 `ir_cg_solve` wraps a low-precision CG in high-precision defect
-correction as a host loop (one read-back per refinement).
+correction as a host loop (one read-back per refinement), the oracle of
+`ChunkedIRCG`, which keeps that loop on the device around a `ChunkedCG`
+(its decisions in the CG's status, no read-back of their own).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -48,6 +51,7 @@ class CGResult(NamedTuple):
     residual_norm: float
     converged: bool
     host_syncs: int = 0  # device-to-host read-backs the solve made
+    x_stat: Optional[float] = None  # `ChunkedIRCG`'s x_stat of the result
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -176,8 +180,7 @@ def ir_cg_solve(
     operator_hi: Callable, operator_lo: Callable, b: torch.Tensor,
     x0: torch.Tensor, tol: float, max_iter: int, lo_dtype=torch.float32,
     preconditioner: Optional[Callable] = None, inner_rtol: float = 1e-6,
-    max_refinements: int = 6, inner_solve: Optional[Callable] = None,
-    dot: Callable = _dot,
+    max_refinements: int = 6, dot: Callable = _dot,
 ) -> CGResult:
     """Mixed-precision iterative refinement (defect correction): each round
     solves the defect equation with a preconditioned CG in `lo_dtype` to
@@ -186,14 +189,8 @@ def ir_cg_solve(
     absolute tolerance (the reference's 1e-10,
     `linear_elasticity.cc:542-543`). `operator_hi`/`operator_lo` are the
     same SPD action in high/low precision; `preconditioner` maps lo -> lo.
-    `inner_solve(b, x0, tol, max_iter)` runs the inner solves (a
-    `ChunkedCG` over `operator_lo` and `preconditioner`; by default the
-    host-loop `cg_solve`). `iterations` is the total of the inner CG
-    iterations."""
-    if inner_solve is None:
-        def inner_solve(b_lo, x0_lo, tol, max_iter):
-            return cg_solve(operator_lo, b_lo, x0_lo, tol, max_iter,
-                            preconditioner, dot)
+    The inner solves are the host-loop `cg_solve`; `iterations` is their
+    total. `ChunkedIRCG` runs the same loop on the device."""
     tol = torch.tensor(float(tol), dtype=b.dtype).item()
     x = x0
     r = b - operator_hi(x0)
@@ -201,9 +198,9 @@ def ir_cg_solve(
     k = refinements = 0
     syncs = 1
     while resn > tol and refinements < max_refinements:
-        inner = inner_solve(
-            r.to(lo_dtype), torch.zeros_like(r, dtype=lo_dtype),
-            inner_rtol * resn, max_iter,
+        inner = cg_solve(
+            operator_lo, r.to(lo_dtype), torch.zeros_like(r, dtype=lo_dtype),
+            inner_rtol * resn, max_iter, preconditioner, dot,
         )
         x = x + inner.x.to(b.dtype)
         r = b - operator_hi(x)
@@ -247,7 +244,8 @@ class ChunkedCG:
 
     def __init__(self, operator: Callable,
                  preconditioner: Optional[Callable] = None,
-                 chunk: int = CG_CHUNK, dot: Callable = _dot, pool=None):
+                 chunk: int = CG_CHUNK, dot: Callable = _dot, pool=None,
+                 status_slots: int = 0):
         if int(chunk) < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.operator = operator
@@ -255,6 +253,10 @@ class ChunkedCG:
         self.pool = pool  # a CUDA-graph memory pool to capture into
         self.M = preconditioner if preconditioner is not None else (lambda r: r)
         self.chunk = int(chunk)
+        # slots after (k, resn, tol) in the status read after every chunk,
+        # for the code that runs the solves to publish its own scalars in
+        # (`ChunkedIRCG`), so that they cost no read-back of their own
+        self.status_slots = int(status_slots)
         self._like = None  # (shape, dtype, device) of b, fixed at the first call
         self._graphs = None  # [(CUDAGraph, launches per replay)] once captured
 
@@ -265,8 +267,9 @@ class ChunkedCG:
         self._b, self._x0, self._x, self._r, self._p = (vec() for _ in range(5))
         self._rz, self._resn, self._tol = (scalar(b.dtype) for _ in range(3))
         self._k, self._max_iter = scalar(torch.int32), scalar(torch.int32)
-        # (k, resn, tol) after a chunk, the one tensor read back
-        self._status = torch.zeros(3, dtype=torch.float64, device=b.device)
+        # (k, resn, tol, *slots) after a chunk, the one tensor read back
+        self._status = torch.zeros(3 + self.status_slots, dtype=torch.float64,
+                                   device=b.device)
 
     def _start(self):
         """cg_solve's lines before the loop, into the static state."""
@@ -338,11 +341,9 @@ class ChunkedCG:
         graph.replay()
         counters.add(per_replay)
 
-    def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol,
-                 max_iter: int) -> CGResult:
-        """`tol` a float, or a 0-dim tensor on b's device, copied into the
-        solver's tolerance on the device (no read-back; the Newton loop on
-        the device computes it there)."""
+    def bind(self, b: torch.Tensor, max_iter: int) -> None:
+        """Fix (at the first call) or check b's shape, dtype and device,
+        write the cap, and on a CUDA device capture the graphs once."""
         if self._like is None:
             self._allocate(b)
         elif (b.shape, b.dtype, b.device) != self._like:
@@ -351,26 +352,212 @@ class ChunkedCG:
                 f"solver's buffers are {tuple(self._like[0])} {self._like[1]} "
                 f"on {self._like[2]}"
             )
+        self._max_iter.fill_(min(int(max_iter), _INT32_MAX))
+        if b.is_cuda and self._graphs is None:
+            self._capture()
+
+    def read_status(self) -> list:
+        """The status as floats: the one read-back after a chunk."""
+        return self._status.tolist()
+
+    def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol,
+                 max_iter: int) -> CGResult:
+        """`tol` a float, or a 0-dim tensor on b's device, copied into the
+        solver's tolerance on the device (no read-back; the Newton loop on
+        the device computes it there)."""
+        self.bind(b, max_iter)
         self._b.copy_(b)
         self._x0.copy_(x0)
         if isinstance(tol, torch.Tensor):
             self._tol.copy_(tol)  # rounds to b's dtype, as the float path
         else:
             self._tol.fill_(torch.tensor(float(tol), dtype=b.dtype).item())
-        self._max_iter.fill_(min(int(max_iter), _INT32_MAX))
-        if b.is_cuda and self._graphs is None:
-            self._capture()
         self._run(0)
         syncs = 0
         while True:
             self._run(1)
-            k, resn, tol = self._status.tolist()
+            k, resn, tol = self.read_status()[:3]
             syncs += 1
             k = int(k)
             if not (resn > tol and k < max_iter):
                 break
         return CGResult(x=self._x.clone(), iterations=k, residual_norm=resn,
                         converged=resn <= tol, host_syncs=syncs)
+
+
+class ChunkedIRCG:
+    """`ir_cg_solve(operator_hi, operator_lo, b, x0, tol, max_iter,
+    lo_dtype, preconditioner, inner_rtol, max_refinements)` with the
+    defect-correction loop on the device: the counterpart of the JAX
+    package's `lax.while_loop` (`dealii_adapter_tpu/solvers/cg.py:206`).
+
+    `solve = ChunkedIRCG(...)`; `solve(b, x0, tol, max_iter) -> CGResult`.
+    The state (x, resn, the inner iterations k and the refinement count)
+    lies in device tensors. The start and each refinement (the JAX
+    `body` after its inner solve: `x += inner.x`, `r = b - A_hi(x)`, its
+    norm, k and the count advanced) run through `runner`
+    (`graphs.py:GraphRunner`: replayed from CUDA graphs on a card, eager
+    on the CPU), and each ends with the JAX `cond` (`resn > tol` and the
+    count below `max_refinements`) computed on the device. The next inner
+    solve's right-hand side r and tolerance `inner_rtol * resn` are
+    written into the inner `ChunkedCG`'s buffers there, so the inner
+    solve starts without a read-back; where the loop has ended, its
+    tolerance is +inf, and the start and one chunk then change nothing
+    but cost their device time. The decision, resn, k, the count and
+    `x_stat(x)` (a 0-dim function of the iterate, if given) go into the
+    spare slots of the inner solver's status, which the host reads after
+    every chunk (`ChunkedCG.status_slots`), so a refinement reads back
+    nothing of its own: after an inner solve ends, the host runs the
+    refinement and, unless it expects the loop to end there
+    (`_expect_end`), the next inner start and chunk before it reads.
+    Where it expects the end, it reads the status after the refinement
+    alone, which saves the masked start and chunk; it does so at most
+    once a solve (after a wrong guess every later refinement goes on to
+    the next start and chunk), so `host_syncs`, the read-backs, are at
+    most one per chunk plus one. A wrong guess costs that one read-back,
+    or the masked start and chunk. The iterate, iterations and residual
+    equal `ir_cg_solve`'s bit for bit (same operations, order and
+    dtypes). On the CPU the same code runs eagerly."""
+
+    # the refinement loop's slots in the inner solver's status
+    SLOTS = ("refine", "resn", "iterations", "refinements", "x_stat")
+
+    def __init__(self, operator_hi: Callable, operator_lo: Callable,
+                 preconditioner: Optional[Callable] = None,
+                 lo_dtype=torch.float32, inner_rtol: float = 1e-6,
+                 max_refinements: int = 6, chunk: int = CG_CHUNK,
+                 dot: Callable = _dot, pool=None, runner=None,
+                 x_stat: Optional[Callable] = None):
+        self.operator_hi = operator_hi
+        self.lo_dtype = lo_dtype
+        self.inner_rtol = float(inner_rtol)
+        self.max_refinements = int(max_refinements)
+        self.dot = dot
+        self.pool = pool
+        self.runner = runner  # a GraphRunner (default: one of its own)
+        self.x_stat = x_stat
+        self.inner = ChunkedCG(operator_lo, preconditioner, chunk, dot, pool,
+                               status_slots=len(self.SLOTS))
+        self._like = None
+
+    def _allocate(self, b: torch.Tensor):
+        from .graphs import GraphRunner
+
+        self._like = (b.shape, b.dtype, b.device)
+        self._b, self._x0, self._x = (torch.zeros_like(b) for _ in range(3))
+        self._resn, self._tol = (torch.zeros((), dtype=b.dtype, device=b.device)
+                                 for _ in range(2))
+        self._k, self._i = (torch.zeros((), dtype=torch.int32, device=b.device)
+                            for _ in range(2))
+        self._refine = torch.zeros((), dtype=torch.bool, device=b.device)
+        self._inf = torch.full((), math.inf, dtype=b.dtype, device=b.device)
+        if self.runner is None:
+            self.runner = GraphRunner(b.device, self.pool)
+
+    def _decide(self, r: torch.Tensor):
+        """The JAX `cond`; the next inner solve's b and tolerance; the
+        status slots."""
+        inner = self.inner
+        torch.logical_and(self._resn > self._tol,
+                          self._i < self.max_refinements, out=self._refine)
+        inner._b.copy_(r.to(self.lo_dtype))
+        # rounds to the inner dtype, as `ir_cg_solve`'s float tolerance
+        inner._tol.copy_(torch.where(self._refine,
+                                     self.inner_rtol * self._resn, self._inf))
+        slots = [self._refine, self._resn, self._k, self._i]
+        if self.x_stat is not None:
+            slots.append(self.x_stat(self._x))
+        for j, v in enumerate(slots):
+            inner._status[3 + j].copy_(v)
+
+    def _start(self):
+        """`ir_cg_solve`'s lines before the loop."""
+        r = self._b - self.operator_hi(self._x0)
+        self._x.copy_(self._x0)
+        self._resn.copy_(torch.sqrt(self.dot(r, r)))
+        self._k.zero_()
+        self._i.zero_()
+        self._decide(r)
+
+    def _refinement(self):
+        """The loop body after its inner solve."""
+        inner = self.inner
+        self._x.add_(inner._x.to(self._x.dtype))
+        r = self._b - self.operator_hi(self._x)
+        self._resn.copy_(torch.sqrt(self.dot(r, r)))
+        self._k.add_(inner._k)
+        self._i.add_(1)
+        self._decide(r)
+
+    # the estimate of `_expect_end` may exceed `tol` by this factor
+    END_MARGIN = 4.0
+
+    def _expect_end(self, resn_in, resn, resn_prev, i, tol) -> bool:
+        """Whether the refinement just run (the `i`-th) should end the
+        loop: the cap, or the new residual estimated at or below
+        `END_MARGIN * tol`. The estimate is the larger of the inner
+        solve's own residual and the current residual times the last
+        refinement's reduction: the rounding of the f32 solves bounds
+        the reduction well above `inner_rtol` (1e-5 to 5e-4 a refinement
+        on the linear cells), so the inner residual alone promises too
+        much. The last refinement of the linear Q2 cell reduces up to 4x
+        more than the one before it, and far from the end the estimate
+        exceeds `tol` a hundredfold or more (the linear cells on a CPU,
+        `tools/linear_step_profile.py`'s configurations), hence the
+        margin."""
+        if i + 1 >= self.max_refinements:
+            return True
+        est = resn_in
+        if resn_prev:
+            est = max(est, resn * (resn / resn_prev))
+        return est <= self.END_MARGIN * tol
+
+    def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol,
+                 max_iter: int) -> CGResult:
+        if self._like is None:
+            self._allocate(b)
+        elif (b.shape, b.dtype, b.device) != self._like:
+            raise ValueError(
+                f"ChunkedIRCG: b {tuple(b.shape)} {b.dtype} on {b.device}; "
+                f"this solver's buffers are {tuple(self._like[0])} "
+                f"{self._like[1]} on {self._like[2]}")
+        inner = self.inner
+        first = inner._like is None
+        inner.bind(torch.empty_like(b, dtype=self.lo_dtype), max_iter)
+        if first:
+            inner._x0.zero_()
+        self._b.copy_(b)
+        self._x0.copy_(x0)
+        tol = torch.tensor(float(tol), dtype=b.dtype).item()
+        self._tol.fill_(tol)
+        self.runner(("ir", "start"), self._start)
+        syncs, launch, spent = 0, "inner", False
+        outer = {}  # the true residual norm at each refinement count
+        while True:
+            if launch == "inner":  # the next inner solve's start and chunk
+                inner._run(0)
+            if launch != "none":
+                inner._run(1)
+            k_in, resn_in, tol_in, refine, resn, k, i, stat = (
+                inner.read_status())
+            syncs += 1
+            outer[int(i)] = resn
+            if not refine:
+                break
+            if launch == "none":  # read after the refinement: go on
+                launch = "inner"
+            elif resn_in > tol_in and k_in < max_iter:
+                launch = "chunk"
+            else:
+                self.runner(("ir", "refine"), self._refinement)
+                launch = ("none" if not spent and self._expect_end(
+                    resn_in, resn, outer.get(int(i) - 1), int(i), tol)
+                          else "inner")
+                spent = launch == "none"
+        return CGResult(x=self._x.clone(), iterations=int(k),
+                        residual_norm=resn, converged=resn <= tol,
+                        host_syncs=syncs,
+                        x_stat=stat if self.x_stat is not None else None)
 
 
 def make_cg(loop: str, operator: Callable,

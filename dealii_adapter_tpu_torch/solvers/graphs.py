@@ -17,7 +17,9 @@ The Neo-Hookean model's Newton loop on the device (`newton_loop=
 "graphs"`) runs its residuals, tangent refills, decisions and updates
 through one runner that shares its pool with the model's CG graphs
 (`cg.py:ChunkedCG`, which warms both its bodies up before it captures
-either; both capture through `capture`).
+either; both capture through `capture`), and the linear model's device
+step its right-hand side, update and defect-correction loop
+(`cg.py:ChunkedIRCG`) the same way.
 """
 
 from __future__ import annotations

@@ -873,3 +873,71 @@ def test_newton_graphs_replay_as_the_host_loop_on_card(overrides):
         assert ig.converged and ig == ih
         assert all(torch.equal(a, b) for a, b in zip(sg, sh))
         assert og <= ig.iterations + 1 < oh
+
+
+# bench.py's linear parameters (bench_torch.py:linear_config): 3D Q2, the
+# bf16 V-cycle (K5 on the fine level, K3 on the Q1 levels), f32 CG inside
+# f64 defect correction
+LINEAR_3D = dict(
+    model="linear", type_lin="CG", scenario="PF", dim=3, poly_degree=2,
+    delta_t=0.005, theta=0.5, mu=0.5e6, nu=0.4, rho=1000.0,
+    dtype="float64", preconditioner="MG", precond_dtype="bfloat16",
+    solve_dtype="float32", mg_smooth_degree=3, mg_fine_smooth_degree=2,
+)
+
+
+@pytest.mark.cuda
+def test_linear_step_graphs_equal_the_eager_device_loop_on_card(monkeypatch):
+    """Run on the card (see above). The 3D linear bench configuration at
+    scale 1 (2,331 DoF): three steps with the step on the device
+    (`cg_loop="graphs"`: its right-hand side, refinements, update and CG
+    chunks replayed from CUDA graphs) give bit for bit the `StepInfo` and
+    states of the same device loop run eagerly on the card (no graph
+    captured) and of the host loops, with at most CG + 2 read-backs a
+    step (`chip_smoke.py`'s linear_loops) and fewer than the host loops';
+    after the first step (the captures' warm-up) each step launches as
+    many kernels by the counts as the eager loop does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
+    from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG
+
+    dev = torch.device("cuda")
+    params = AllParameters(**LINEAR_3D)
+    mesh, tags = make_scenario_grid("PF", 3, 2, scale=1, solver="linear")
+    host = LinearElastodynamics(params, mesh=mesh, tags=tags, device=dev,
+                                cg_loop="host")
+    lam = [lv.lam_max for lv in host._precond.levels]
+    graphs, eager = (LinearElastodynamics(params, mesh=mesh, tags=tags,
+                                          device=dev, mg_lam_max=lam)
+                     for _ in range(2))
+    # the eager twin: its runner runs every body and its CG captures nothing
+    monkeypatch.setattr(eager._graphs, "device", torch.device("cpu"))
+    monkeypatch.setattr(eager._cg, "_capture", lambda: None)
+    stress = torch.zeros((host.space.n_nodes, 3), dtype=torch.float64,
+                         device=dev)
+    stress[torch.as_tensor(host.space.boundary_nodes[host.interface_id],
+                           device=dev), 0] = 1000.0
+    runs = {}
+    for name, model in (("host", host), ("graphs", graphs), ("eager", eager)):
+        state, out = model.initial_state(), []
+        for _ in range(3):
+            syncs = model.host_syncs
+            counters.reset()
+            state, info = model.step(state, stress)
+            torch.cuda.synchronize()
+            out.append((info, [t.clone() for t in state],
+                        model.host_syncs - syncs,
+                        sum(counters.launch_counts().values())))
+        runs[name] = out
+    assert isinstance(graphs._cg, ChunkedCG) and graphs._cg._graphs
+    assert eager._cg._graphs is None and len(eager._graphs) == 0
+    assert len(graphs._graphs) >= 4  # rhs, start, refinement, update
+    for i, ((ig, sg, yg, lg), (ie, se, ye, le), (ih, sh, yh, _)) in enumerate(
+            zip(runs["graphs"], runs["eager"], runs["host"])):
+        assert ig == ie == ih and ig.residual <= 1e-10
+        assert all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(sg, se, sh))
+        assert yg == ye <= ig.iterations + 2 and yg < yh
+        if i:
+            assert lg == le > 0
