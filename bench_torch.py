@@ -165,7 +165,7 @@ def build_model(scale, dtype="float64", degree=2, device=None,
     """`NonlinearElasticity` of the cell (`nonlinear_config` with
     `overrides`) on the PF flap from `make_scenario_grid("PF", dim,
     degree, scale=scale)` (`mesh_tags` reuses a mesh); `model_kw` go to the
-    constructor (`mg_lam_max`, `cg_loop`, `newton_loop`, ...)."""
+    constructor (`mg_lam_max`, `cg_loop`, ...)."""
     from dealii_adapter_tpu_torch.config import AllParameters
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (

@@ -47,28 +47,30 @@ script exits non-zero without printing a result):
 4. main    — `NonlinearElasticity` with the benchmark configuration
    (`bench_torch.py:build_model`, bench.py's: 3D Neo-Hookean perpendicular
    flap, Q2, scale 9: 1,018,875 DoF), traction 1000 in x on the
-   interface, its CG in CUDA graphs, on one model with its Newton loop on
-   the host (`newton_loop="host"`, path `main3d newton host`: the parent's
-   loop) and on the device (`newton_loop="graphs"`, the default: its
-   residuals, tangent assembly, decisions and update replayed from CUDA
-   graphs, one read-back a Newton pass), in turns: 1 warmup and 3 timed
-   Newmark steps from rest with each (host, then graphs), then 3 more
+   interface, its CG in CUDA graphs, on one model with the bodies of its
+   one Newton loop (residuals, tangent assembly, decisions and update;
+   one read-back a Newton pass) replayed from CUDA graphs (path main3d)
+   and run eagerly (path `main3d newton eager`: the runner's `eager`
+   switch, the CG still in its graphs), in turns: 1 warmup and 3 timed
+   Newmark steps from rest with each (eager, then graphs), then 3 more
    timed steps of each in the reverse order.
    Every step must converge and the checksum ||u||^2 after step 3 must
    lie within rtol 1e-4 of the JAX package's 49.05486138743322 (Newton's
-   tol_u of 1e-6 bounds the spread near 1e-5); the two loops must give the
+   tol_u of 1e-6 bounds the spread near 1e-5); the two must give the
    same `NewtonInfo` in every step and their checksums after steps 3 and
-   6 agree within 1e-12 relative (`LOOPS_RTOL`), and the device loop must
-   read back at most its Newton iterations + 1 a step outside the CG. For
-   each loop: every step's time (unrounded), host syncs (the CG's apart)
-   and kernel launches, the peak device memory of its first 4 steps, and,
-   after all timed steps, the device busy share of one more step under
+   6 agree within 1e-12 relative (`LOOPS_RTOL`), and both must read back
+   at most their Newton iterations + 1 a step outside the CG. For each:
+   every step's time (unrounded), host syncs (the CG's apart) and kernel
+   launches, the peak device memory of its first 4 steps, and, after all
+   timed steps, the device busy share of one more step under
    torch.profiler tracing the card only (`--profile` prints its kernel
    table). Then a model of its own with the host CG loop (`cg_loop=
-   "host"`, and so the host Newton loop: path `main3d host`), on the same
-   mesh and lam_max values, 1 warmup and 1 timed step from rest
-   (`MAIN_HOST_STEPS`): the same `NewtonInfo` as main3d's in both steps
-   and ||u||^2 within `LOOPS_RTOL` of main3d's after step 1.
+   "host"`: the Newton loop's bodies eager, the CG `cg_solve`; path
+   `main3d host`), on the same mesh and lam_max values, 1 warmup and 1
+   timed step from rest (`MAIN_HOST_STEPS`): the same `NewtonInfo` as
+   main3d's in both steps, ||u||^2 within `LOOPS_RTOL` of main3d's after
+   step 1, and at most Newton iterations + 2 read-backs a step outside
+   the CG (`host_outside`).
    bench — `bench_torch.py`'s other cells (`BENCH_CELLS`: the Neo-Hookean
    Q4 model at scale 4, 722,211 DoF; the linear model at Q2 scale 4,
    97,875 DoF, and Q3 scale 3, 136,920 DoF) through its functions, 1
@@ -204,7 +206,8 @@ script exits non-zero without printing a result):
      norms and ||u||^2 within `SHARD_RTOL` of it; each rank's launches,
      collectives and seconds a window;
    - coupled_nccl1 — the same window on a world of one over NCCL in the
-     script's own process, with the CG graphs and the device Newton loop:
+     script's own process, with the CG and the Newton loop's bodies in
+     CUDA graphs:
      the write history and ||u||^2 bit for bit phase 10's first window;
    - cli_ranks — `torchrun --standalone --nproc-per-node 2 -m
      dealii_adapter_tpu_torch` on `CLI_PRM` with `--devices 2` in a
@@ -242,12 +245,16 @@ script exits non-zero without printing a result):
    and after it.
 
 Every path but `main3d host`, shard3d, shard_cells, dryrun,
-coupled_shard and cli_ranks (the host CG and Newton loops; all but the
-first on gloo ranks) runs its CG in CUDA
-graphs and its Newton loop on the device (`newton_loop="graphs"`); f64jvp3d, jvp3d, reuse_fine3d and
-gather3d then run their 4 steps again from rest on the host Newton loop
-(`newton_host_twin`): the same `NewtonInfo` in every step, ||u||^2 within
-`LOOPS_RTOL`. A graph replay adds the launches its capture recorded to
+coupled_shard and cli_ranks (the host CG loop, and the Newton loop's
+bodies run eagerly; all but the first on gloo ranks) runs its CG in CUDA
+graphs and its Newton loop's bodies replayed from CUDA graphs; f64jvp3d,
+jvp3d, reuse_fine3d and gather3d then run their 4 steps again from rest
+with the Newton loop's bodies run eagerly on the same model and CG graphs
+(`newton_eager_twin`): the same `NewtonInfo` in every step, ||u||^2
+within `LOOPS_RTOL`. On the host CG paths the Neo-Hookean steps read
+back at most Newton iterations + 2 times a step outside the CG (one a
+pass, one more where an f32 residual stalls), logged a step with the
+step times (shard3d, shard_cells, coupled_shard per rank). A graph replay adds the launches its capture recorded to
 the counts (`kernels/counters.py`), so the counts are device launches,
 the masked iterations of each solve's last chunk included.
 In phases 4-12 the kernel launch counts are set to 0 after the model is
@@ -354,7 +361,7 @@ _STENCIL3D = _HEALTH + ("K1 tangent_matvec", "K5 q2_structured", "K6 q1_stencil"
 # which kernels each path must launch
 PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
-    "main3d newton host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "main3d newton eager": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "main3d host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     **{f"tangent3d {sym} {kind}": _HEALTH + (kern,) + _MG3D
        for sym, kind, kern in TANGENT_VARIANTS},
@@ -453,6 +460,9 @@ LOOPS_RTOL = 1e-12
 # the steps of `main3d host` (the host CG loop), 1 warmup included: cut
 # from main3d's 7 to keep the script's time
 MAIN_HOST_STEPS = 2
+# read-backs a Neo-Hookean step outside the CG beyond its Newton
+# iterations: one a pass, one more where an f32 residual stalls
+NEWTON_SYNC_SLACK = 2
 # the multi-rank phases (13): ranks sharing the card; shard3d's CG may
 # differ from phase 4's by this many a step (tests/test_sharding.py:109);
 # ||u||^2 against phase 4's within tests/test_sharding.py's field rtol;
@@ -1243,19 +1253,18 @@ def read_counts(path, launches=None):
 
 
 def build_model(device, dim=3, scale=None, mesh_tags=None, mg_lam_max=None,
-                cg_loop=None, cg_chunk=None, device_mesh=None,
-                newton_loop=None, **overrides):
+                cg_loop=None, cg_chunk=None, device_mesh=None, **overrides):
     """`NonlinearElasticity` on the port: `bench_torch.py:build_model`
     (the benchmark configuration of bench.py's build_model) in 3D,
     `NONLINEAR_2D` in 2D, with `overrides`; `mesh_tags` reuses a mesh (and
     the multigrid geometry cached on it), `mg_lam_max` a hierarchy's
-    lam_max values; `cg_loop`, `cg_chunk` and `newton_loop`, when given,
-    the model's Krylov and Newton loops; `device_mesh` this rank's
-    `RankGroup` (several ranks)."""
+    lam_max values; `cg_loop` and `cg_chunk`, when given, the model's
+    Krylov loop (and with it how the Newton loop's bodies run);
+    `device_mesh` this rank's `RankGroup` (several ranks)."""
     if dim == 2:
         overrides = dict(NONLINEAR_2D, **overrides)
-    kw = {k: v for k, v in (("cg_loop", cg_loop), ("cg_chunk", cg_chunk),
-                            ("newton_loop", newton_loop)) if v is not None}
+    kw = {k: v for k, v in (("cg_loop", cg_loop), ("cg_chunk", cg_chunk))
+          if v is not None}
     return bench_torch.build_model(
         SCALE if scale is None else scale,
         NONLINEAR["dtype"], NONLINEAR["poly_degree"], device=device,
@@ -1345,6 +1354,14 @@ def run_steps(tag, model, stress, fmt, state=None, first=0, n=4):
         f"MDoF*steps/s; host syncs {model.host_syncs} over {first + n} steps; max_u "
         f"{u.abs().max().item()!r} checksum {checksum!r}")
     return state, infos, steps, checksum
+
+
+def require_newton_syncs(tag, outside, newton):
+    """At most Newton iterations + `NEWTON_SYNC_SLACK` read-backs outside
+    the CG in each step (`outside`, `newton`: per step)."""
+    require(all(o <= n + NEWTON_SYNC_SLACK for o, n in zip(outside, newton)),
+            f"{tag}: read-backs outside the CG {outside} a step, at most "
+            f"Newton {newton} + {NEWTON_SYNC_SLACK}")
 
 
 def check_checksum(tag, checksum, ref, rtol):
@@ -1496,14 +1513,26 @@ def newton_fmt(info):
             f"{info.tangent_assemblies} converged {info.converged}")
 
 
-def main_run(tag, path, model, loop, stress):
-    """`run_steps` of the main-configuration model with its Newton loop
-    `loop` (1 warmup + 3 timed steps from rest); returns (launches, {state,
-    NewtonInfo per step, checksum, per-step times, syncs and launches, peak
-    memory})."""
+def newton_bodies(model, how):
+    """From `model`'s next step on, run its Newton loop's bodies replayed
+    from their CUDA graphs (`how="graphs"`) or eagerly ("eager": the graph
+    runner's switch); the CG stays as `cg_loop` says."""
+    model._graphs.eager = how == "eager"
+
+
+def outside_cg(steps):
+    """Read-backs outside the CG in each step of `run_steps`' record."""
+    return [a - b for a, b in zip(steps["syncs"], steps["cg_syncs"])]
+
+
+def main_run(tag, path, model, how, stress):
+    """`run_steps` of the main-configuration model with its Newton loop's
+    bodies run as `how` says (`newton_bodies`; 1 warmup + 3 timed steps
+    from rest); returns (launches, {state, NewtonInfo per step, checksum,
+    per-step times, syncs and launches, peak memory})."""
     import torch
 
-    model.newton_loop = loop
+    newton_bodies(model, how)
     torch.cuda.reset_peak_memory_stats()
     start_counts()
     state, infos, steps, checksum = run_steps(tag, model, stress, newton_fmt)
@@ -1518,17 +1547,17 @@ def main_run(tag, path, model, loop, stress):
 
 
 def phase_main(profile):
-    """The main configuration, its CG in CUDA graphs, with its Newton loop
-    on the device (`newton_loop="graphs"`, the default) and on the host
-    (`"host"`, the parent's loop), both on one model and so on the same CG
-    graphs, in turns: round 1 host then graphs (1 warmup + 3 timed steps
-    from rest each), round 2 graphs then host (3 more timed steps each,
-    from each loop's state); one profiled step of each only after both
-    rounds. The same `NewtonInfo` in every step, checksums within
-    `LOOPS_RTOL` after each round; the device loop's read-backs outside
-    the CG at most its Newton iterations + 1 a step; every step's time,
-    host syncs (the CG's apart) and launches, the peak memory of each
-    loop's round 1 and the busy share of its profiled step."""
+    """The main configuration, its CG in CUDA graphs, with its Newton
+    loop's bodies replayed from CUDA graphs (the default) and run eagerly
+    (`newton_bodies`), both on one model and so on the same CG graphs, in
+    turns: round 1 eager then graphs (1 warmup + 3 timed steps from rest
+    each), round 2 graphs then eager (3 more timed steps each, from each
+    one's state); one profiled step of each only after both rounds. The
+    same `NewtonInfo` in every step, checksums within `LOOPS_RTOL` after
+    each round; read-backs outside the CG at most the Newton iterations +
+    1 a step; every step's time, host syncs (the CG's apart) and
+    launches, the peak memory of each one's round 1 and the busy share of
+    its profiled step."""
     import torch
 
     dev = torch.device("cuda")
@@ -1536,37 +1565,36 @@ def phase_main(profile):
     model = build_model(dev)
     torch.cuda.synchronize()
     describe("main", model, time.perf_counter() - t0)
-    require(model.cg_loop == "graphs" and model.newton_loop == "graphs",
-            "main: the CG and the Newton loop run in CUDA graphs")
+    require(model.cg_loop == "graphs" and not model._graphs.eager,
+            "main: the CG and the Newton loop's bodies run in CUDA graphs")
     stress = interface_traction(model)
     tags = {"graphs": ("main", "main3d"),
-            "host": ("main newton host", "main3d newton host")}
+            "eager": ("main newton eager", "main3d newton eager")}
     runs, launches = {}, {}
-    for loop in ("host", "graphs"):  # round 1
-        tag, path = tags[loop]
-        launches[path], runs[loop] = main_run(tag, path, model, loop, stress)
-    for loop in ("graphs", "host"):  # round 2
-        r = runs[loop]
-        model.newton_loop = loop
+    for how in ("eager", "graphs"):  # round 1
+        tag, path = tags[how]
+        launches[path], runs[how] = main_run(tag, path, model, how, stress)
+    for how in ("graphs", "eager"):  # round 2
+        r = runs[how]
+        newton_bodies(model, how)
         r["state"], infos, r["steps2"], r["checksum2"] = run_steps(
-            tags[loop][0], model, stress, newton_fmt, state=r["state"],
+            tags[how][0], model, stress, newton_fmt, state=r["state"],
             first=4, n=3)
         r["infos"] += infos
         require(all(i.converged for i in infos),
-                f"{tags[loop][0]}: every step converged")
-    for loop in ("graphs", "host"):
-        model.newton_loop = loop
-        r = runs[loop]
-        r["busy"] = profile_step(tags[loop][0], model, r["state"], stress,
+                f"{tags[how][0]}: every step converged")
+    for how in ("graphs", "eager"):
+        newton_bodies(model, how)
+        r = runs[how]
+        r["busy"] = profile_step(tags[how][0], model, r["state"], stress,
                                  table=profile)
-    model.newton_loop = "graphs"
-    graphs, host = runs["graphs"], runs["host"]
-    for loop, r in runs.items():
+    newton_bodies(model, "graphs")
+    graphs, eager = runs["graphs"], runs["eager"]
+    for how, r in runs.items():
         st, st2 = r["steps"], r["steps2"]
-        outside = [a - b for a, b in zip(st["syncs"] + st2["syncs"],
-                                         st["cg_syncs"] + st2["cg_syncs"])]
+        outside = outside_cg(st) + outside_cg(st2)
         r["outside"] = outside
-        log(f"main A/B newton {loop}: step times round 1 {st['times']} s, "
+        log(f"main A/B newton bodies {how}: step times round 1 {st['times']} s, "
             f"round 2 {st2['times']} s (timed means "
             f"{statistics.mean(st['times'][1:])!r} / "
             f"{statistics.mean(st2['times'])!r} s), CG "
@@ -1576,25 +1604,26 @@ def phase_main(profile):
             f"{outside}, kernel launches {st['launches'] + st2['launches']} "
             f"per step, peak device memory {r['peak_gib']:.3f} GiB, busy "
             f"{r['busy']:.1%} of a profiled step")
-    rels = [abs(graphs[k] - host[k]) / host[k] for k in ("checksum", "checksum2")]
-    log(f"main A/B: checksums newton graphs {graphs['checksum']!r} / "
-        f"{graphs['checksum2']!r} host {host['checksum']!r} / "
-        f"{host['checksum2']!r} after steps 3 / 6, rel. differences "
+    rels = [abs(graphs[k] - eager[k]) / eager[k] for k in ("checksum", "checksum2")]
+    log(f"main A/B: checksums newton bodies graphs {graphs['checksum']!r} / "
+        f"{graphs['checksum2']!r} eager {eager['checksum']!r} / "
+        f"{eager['checksum2']!r} after steps 3 / 6, rel. differences "
         f"{rels[0]:.3e} / {rels[1]:.3e} (limit {LOOPS_RTOL}); bitwise "
-        f"{graphs['checksum'] == host['checksum'] and graphs['checksum2'] == host['checksum2']}")
-    require(graphs["infos"] == host["infos"],
-            "main: the device Newton loop's NewtonInfo equals the host loop's")
+        f"{graphs['checksum'] == eager['checksum'] and graphs['checksum2'] == eager['checksum2']}")
+    require(graphs["infos"] == eager["infos"],
+            "main: the replayed Newton loop's NewtonInfo equals the eager one's")
     require(max(rels) <= LOOPS_RTOL,
-            "main: the device Newton loop's checksums against the host loop's")
-    require(all(o <= i.iterations + 1 for o, i in zip(graphs["outside"],
-                                                      graphs["infos"])),
-            "main: the device Newton loop reads back at most its Newton "
-            "iterations + 1 a step outside the CG")
+            "main: the replayed Newton loop's checksums against the eager one's")
+    for r in runs.values():
+        require(all(o <= i.iterations + 1
+                    for o, i in zip(r["outside"], r["infos"])),
+                "main: the Newton loop reads back at most its Newton "
+                "iterations + 1 a step outside the CG")
     infos, checksum = graphs["infos"][:4], graphs["checksum"]
     checksums = graphs["steps"]["checksums"]
     mesh_tags = (model.mesh, model.tags)
     lam_max = [lv.lam_max for lv in model._precond.levels]
-    del model, runs, graphs, host
+    del model, runs, graphs, eager
     torch.cuda.empty_cache()
     launches["main3d host"] = main_host_cg(mesh_tags, lam_max, infos,
                                            checksums)
@@ -1607,12 +1636,13 @@ def phase_main(profile):
 
 def main_host_cg(mesh_tags, lam_max, infos, checksums):
     """The main configuration with its CG loop on the host (`cg_loop=
-    "host"`, and so the host Newton loop: path `main3d host`), on main3d's
-    mesh and lam_max values, `MAIN_HOST_STEPS` steps from rest (1 warmup):
-    the same `NewtonInfo` as main3d's (`infos`) in every step and ||u||^2
-    within `LOOPS_RTOL` of main3d's after the same step (`checksums`), so
-    that the CG graphs stay held against their plain loop at full size;
-    returns the path's launches."""
+    "host"`, and so the Newton loop's bodies eager: path `main3d host`),
+    on main3d's mesh and lam_max values, `MAIN_HOST_STEPS` steps from rest
+    (1 warmup): the same `NewtonInfo` as main3d's (`infos`) in every step,
+    ||u||^2 within `LOOPS_RTOL` of main3d's after the same step
+    (`checksums`), so that the CG graphs stay held against their plain
+    loop at full size, and at most Newton iterations + `NEWTON_SYNC_SLACK`
+    read-backs a step outside the CG; returns the path's launches."""
     import torch
 
     dev = torch.device("cuda")
@@ -1621,8 +1651,9 @@ def main_host_cg(mesh_tags, lam_max, infos, checksums):
                         cg_loop="host")
     torch.cuda.synchronize()
     describe("main host", model, time.perf_counter() - t0)
-    require(model.cg_loop == "host" and model.newton_loop == "host",
-            "main host: the CG and the Newton loop run on the host")
+    require(model.cg_loop == "host" and model._graphs.eager,
+            "main host: the CG loop on the host, the Newton loop's bodies "
+            "eager")
     stress = interface_traction(model)
     start_counts()
     _, host_infos, steps, checksum = run_steps(
@@ -1630,10 +1661,18 @@ def main_host_cg(mesh_tags, lam_max, infos, checksums):
     launches = read_counts("main3d host")
     ref = checksums[MAIN_HOST_STEPS - 1]
     rel = abs(checksum - ref) / ref
+    outside = outside_cg(steps)
     log(f"main host: launches {launches}; NewtonInfo equal main3d's "
         f"{host_infos == infos[:MAIN_HOST_STEPS]}; checksum {checksum!r} "
         f"against main3d's {ref!r} after step {MAIN_HOST_STEPS - 1}: rel. "
-        f"difference {rel:.3e} (limit {LOOPS_RTOL}), bitwise {checksum == ref}")
+        f"difference {rel:.3e} (limit {LOOPS_RTOL}), bitwise {checksum == ref}"
+        f"; step times {steps['times']} s, Newton "
+        f"{[i.iterations for i in host_infos]}, read-backs outside the CG "
+        f"{outside} a step (the CG's {steps['cg_syncs']})")
+    require(all(o <= i.iterations + NEWTON_SYNC_SLACK
+                for o, i in zip(outside, host_infos)),
+            f"main host: at most Newton iterations + {NEWTON_SYNC_SLACK} "
+            "read-backs a step outside the CG")
     require(all(i.converged for i in host_infos),
             "main host: every step converged")
     require(host_infos == infos[:MAIN_HOST_STEPS],
@@ -1683,22 +1722,25 @@ def phase_bench():
     return by_path
 
 
-def newton_host_twin(tag, model, stress, infos, checksum):
-    """The path's 4 steps again from rest with the Newton loop on the host
-    (`newton_loop="host"`, on the same model and CG graphs): the same
-    `NewtonInfo` in every step, ||u||^2 within `LOOPS_RTOL`."""
-    model.newton_loop = "host"
-    _, host_infos, steps, host_checksum = run_steps(
-        f"{tag} newton host", model, stress, newton_fmt)
-    model.newton_loop = "graphs"
-    rel = abs(checksum - host_checksum) / host_checksum
-    log(f"{tag}: newton graphs against host: NewtonInfo equal "
-        f"{host_infos == infos}, checksum rel. difference {rel:.3e} (limit "
-        f"{LOOPS_RTOL}); the host loop's syncs outside the CG a step "
-        f"{[a - b for a, b in zip(steps['syncs'], steps['cg_syncs'])]}")
-    require(host_infos == infos,
-            f"{tag}: the device Newton loop's NewtonInfo equals the host loop's")
-    require(rel <= LOOPS_RTOL, f"{tag}: checksum against the host Newton loop's")
+def newton_eager_twin(tag, model, stress, infos, checksum):
+    """The path's 4 steps again from rest with the Newton loop's bodies run
+    eagerly (`newton_bodies`, on the same model and CG graphs): the same
+    `NewtonInfo` in every step as the replayed loop's, ||u||^2 within
+    `LOOPS_RTOL`."""
+    newton_bodies(model, "eager")
+    _, eager_infos, steps, eager_checksum = run_steps(
+        f"{tag} newton eager", model, stress, newton_fmt)
+    newton_bodies(model, "graphs")
+    rel = abs(checksum - eager_checksum) / eager_checksum
+    log(f"{tag}: newton bodies replayed against eager: NewtonInfo equal "
+        f"{eager_infos == infos}, checksum rel. difference {rel:.3e} (limit "
+        f"{LOOPS_RTOL}); the eager loop's syncs outside the CG a step "
+        f"{outside_cg(steps)}")
+    require(eager_infos == infos,
+            f"{tag}: the replayed Newton loop's NewtonInfo equals the eager "
+            "one's")
+    require(rel <= LOOPS_RTOL, f"{tag}: checksum against the eager Newton "
+            "loop's")
 
 
 def phase_tangent3d(main):
@@ -1992,8 +2034,25 @@ def _coupled_shard_rank(mesh, lam_max):
                         device_mesh=mesh, mg_level_backend="stencil_vmem",
                         end_time=COUPLED_END)
     build_s = time.perf_counter() - t0
+    steps, step = [], model.step
+
+    def recorded(state, data):  # each step's time and read-backs
+        import torch
+
+        torch.cuda.synchronize()
+        outside0 = model.host_syncs - model.cg_host_syncs
+        ts = time.perf_counter()
+        out = step(state, data)
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - ts,
+                          newton=out[1].iterations,
+                          outside=model.host_syncs - model.cg_host_syncs
+                          - outside0))
+        return out
+
+    model.step = recorded
     run, _ = coupled_window(model, mesh)
-    return dict(run, rank=mesh.rank, build_s=build_s)
+    return dict(run, rank=mesh.rank, build_s=build_s, steps=steps)
 
 
 def check_first_window(tag, run, ref, rtol):
@@ -2044,10 +2103,15 @@ def phase_coupled_shard(parallel):
     for r in out:
         tag = f"coupled_shard rank {r['rank']}"
         log(f"{tag}: model built in {r['build_s']:.1f} s; window seconds "
-            f"{[w['seconds'] for w in r['windows']]}; collectives in the run "
-            f"{r['calls']}; launches {r['launches']}; participant "
+            f"{[w['seconds'] for w in r['windows']]}; step times "
+            f"{[x['seconds'] for x in r['steps']]} s, Newton "
+            f"{[x['newton'] for x in r['steps']]}, read-backs outside the CG "
+            f"{[x['outside'] for x in r['steps']]} a step; collectives in "
+            f"the run {r['calls']}; launches {r['launches']}; participant "
             f"{'held' if r['writes'] else 'none'}")
         read_counts("coupled_shard", r["launches"])
+        require_newton_syncs(tag, [x["outside"] for x in r["steps"]],
+                             [x["newton"] for x in r["steps"]])
         check_first_window(tag, r, ref, SHARD_RTOL)
         for k, n in r["launches"].items():
             total[k] = total.get(k, 0) + n
@@ -2061,7 +2125,7 @@ def phase_coupled_shard(parallel):
 
 def coupled_nccl1(mesh, parallel):
     """coupled_nccl1 (phase 14): phase 10's first window on `mesh`, a world
-    of one over NCCL, with the CG graphs and the device Newton loop; bit
+    of one over NCCL, with the CG and the Newton bodies in CUDA graphs; bit
     for bit phase 10's first window. Returns the launches."""
     import torch
 
@@ -2070,8 +2134,8 @@ def coupled_nccl1(mesh, parallel):
     model = build_model(mesh.device, mesh_tags=parallel["mesh_tags"],
                         mg_lam_max=ref["lam_max"], device_mesh=mesh,
                         mg_level_backend="stencil_vmem", end_time=COUPLED_END)
-    require(model.cg_loop == "graphs" and model.newton_loop == "graphs",
-            "coupled_nccl1: CG graphs and the device Newton loop")
+    require(model.cg_loop == "graphs" and not model._graphs.eager,
+            "coupled_nccl1: the CG and the Newton bodies in CUDA graphs")
     build_s = time.perf_counter() - t0
     run, _ = coupled_window(model, mesh)
     log(f"coupled_nccl1: model built in {build_s:.1f} s; window in "
@@ -2198,7 +2262,7 @@ def phase_jvp(main):
                     "reuse_fine3d: fewer assemblies than Newton iterations")
         else:
             tangent_operator_ms(path, model, state)
-        newton_host_twin(path, model, stress, infos, checksum)
+        newton_eager_twin(path, model, stress, infos, checksum)
         del model, state
         torch.cuda.empty_cache()
     return by_path
@@ -2647,7 +2711,7 @@ def phase_gather3d(main):
     require(all(i.converged for i in infos), "gather3d: every step converged")
     require(newton == ref["newton"], "gather3d: Newton counts equal jvp3d's")
     require(rel <= JVP_RTOL, "gather3d: checksum against jvp3d's")
-    newton_host_twin("gather3d", model, stress, infos, checksum)
+    newton_eager_twin("gather3d", model, stress, infos, checksum)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2731,15 +2795,17 @@ def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
         counters.reset()
     state = model.initial_state()
     for k in ("newton", "cg", "converged", "min_det_F", "times", "checksums",
-              "calls"):
+              "calls", "outside"):
         out[k] = []
     for _ in range(n_steps):
         sync()
         calls0 = dict(mesh.calls)
+        outside0 = model.host_syncs - model.cg_host_syncs
         ts = time.perf_counter()
         state, info = model.step(state, stress)
         sync()
         out["times"].append(time.perf_counter() - ts)
+        out["outside"].append(model.host_syncs - model.cg_host_syncs - outside0)
         out["calls"].append({k: mesh.calls[k] - calls0[k] for k in calls0})
         u = state.displacement.reshape(-1)
         out["checksums"].append(float(mesh.all_reduce(torch.dot(u, u))))
@@ -2780,7 +2846,8 @@ def phase_shard3d(main, records):
                 dict(c, rank=r["rank"], ranks=SHARD_RANKS))
         log(f"{tag}: step times {r['times']} s (ranks sharing one card, not "
             f"a scaling result); Newton {r['newton']}, CG {r['cg']} (main3d: "
-            f"{main['newton']}, {main['cg']}); min_det_F {r['min_det_F']}; "
+            f"{main['newton']}, {main['cg']}); read-backs outside the CG "
+            f"{r['outside']} a step; min_det_F {r['min_det_F']}; "
             f"collectives a step {r['calls']}; checksums {r['checksums']}; "
             f"peak device memory {r['peak_gib']:.2f} GiB")
         read_counts("shard3d", r["launches"])
@@ -2792,6 +2859,7 @@ def phase_shard3d(main, records):
         require(all(r["converged"]), f"{tag}: every step converged")
         require(r["newton"] == main["newton"][:SHARD3D_STEPS],
                 f"{tag}: Newton counts equal main3d's")
+        require_newton_syncs(tag, r["outside"], r["newton"])
         require(all(abs(a - b) <= SHARD_CG_SLACK for a, b in zip(r["cg"], main["cg"])),
                 f"{tag}: CG within {SHARD_CG_SLACK} a step of main3d's")
         require(rel <= SHARD_RTOL, f"{tag}: checksum against main3d's")
@@ -2873,13 +2941,16 @@ def _shard_cells_rank(mesh):
     stress = model.local_rows(interface_traction(model))
     start_counts()
     state = model.initial_state()
-    out = dict(rank=mesh.rank, newton=[], cg=[], times=[], converged=[])
+    out = dict(rank=mesh.rank, newton=[], cg=[], times=[], converged=[],
+               outside=[])
     for _ in range(SHARD_CELLS_STEPS):
         torch.cuda.synchronize()
+        outside0 = model.host_syncs - model.cg_host_syncs
         ts = time.perf_counter()
         state, info = model.step(state, stress)
         torch.cuda.synchronize()
         out["times"].append(time.perf_counter() - ts)
+        out["outside"].append(model.host_syncs - model.cg_host_syncs - outside0)
         out["newton"].append(info.iterations)
         out["cg"].append(info.cg_iterations)
         out["converged"].append(info.converged)
@@ -2907,12 +2978,14 @@ def phase_shard_cells(ref):
         rel = abs(r["checksum"] - ref["checksum"]) / ref["checksum"]
         log(f"{tag}: step times {r['times']} s; Newton {r['newton']}, CG "
             f"{r['cg']} (one rank: {ref['newton']}, {ref['cg']}, "
-            f"{ref['times']} s); collectives {r['calls']}; checksum "
+            f"{ref['times']} s); read-backs outside the CG {r['outside']} a "
+            f"step; collectives {r['calls']}; checksum "
             f"{r['checksum']!r} against one rank's {ref['checksum']!r}: rel. "
             f"difference {rel:.3e} (limit {SHARD_RTOL})")
         read_counts("shard_cells", r["launches"])
         require(all(r["converged"]), f"{tag}: every step converged")
         require(r["newton"] == ref["newton"], f"{tag}: Newton counts equal")
+        require_newton_syncs(tag, r["outside"], r["newton"])
         require(all(abs(a - b) <= SHARD_CG_SLACK * n
                     for a, b, n in zip(r["cg"], ref["cg"], r["newton"])),
                 f"{tag}: CG within {SHARD_CG_SLACK} a solve")

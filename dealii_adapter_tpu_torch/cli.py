@@ -95,7 +95,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="ignore undeclared .prm subsections/keys instead of "
                         "rejecting them (deal.II ParameterHandler rejects)")
     p.add_argument("--verbose", action="store_true",
-                   help="print every completed window's full solver info")
+                   help="print the per-iteration Newton convergence table "
+                        "(neo-Hookean) and every completed window's full "
+                        "solver info")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a torch.profiler trace of the coupled run "
                         "into DIR/trace.json (chrome trace format)")
@@ -196,16 +198,19 @@ def main(argv=None) -> int:
     if lead and not args.no_output and out_dir != ".":
         os.makedirs(out_dir, exist_ok=True)  # `elasticity.cc:56-81`
 
+    extra = {}
     if params.model == "neo-Hookean":
         from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
             NonlinearElasticity as cls,
         )
+
+        extra["verbose"] = args.verbose  # the Newton table, as the JAX CLI's
     else:
         from dealii_adapter_tpu_torch.models.linear_elasticity import (
             LinearElastodynamics as cls,
         )
     model = cls(params, refine=args.refine, device=device, device_mesh=mesh,
-                cg_loop=cg_loop)
+                cg_loop=cg_loop, **extra)
 
     standalone = args.standalone or not args.coupled
     if standalone:

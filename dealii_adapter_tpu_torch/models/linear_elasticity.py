@@ -301,6 +301,12 @@ class LinearElastodynamics:
 
         return apply
 
+    def masked_operator(self, op):
+        """BC-eliminated SPD action of `op` under the model's Dirichlet
+        mask: identity on constrained DoFs (on this rank's rows under a
+        `device_mesh`)."""
+        return self._masked(op, self.mask)
+
     def local_rows(self, v: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global (n_nodes, dim) vector (all of them
         on one device and under the cell partition)."""
@@ -354,8 +360,23 @@ class LinearElastodynamics:
         """One theta-step. `interface_data` is the (n_nodes, dim) nodal
         coupling field (stress for consistent, forces for conservative
         reads), zero off the interface."""
+        return self.jittable_step()(state, interface_data)
+
+    def jittable_step(self):
+        """The step function `(state, data) -> (state, info)` that `step`
+        runs (the JAX package's, which it wraps in `jax.jit`; the port has
+        no such transform): under `cg_loop="graphs"` the device step,
+        whose right-hand side, refinements, CG chunks and update the model
+        replays from its CUDA graphs; under "host" (and for the Direct
+        solve) the eager lines with the host loops. Every rank of a
+        `device_mesh` calls it in lockstep. The model does not hold it."""
         if self.cg_loop == "graphs" and self._direct is None:
-            return self._step_device(state, interface_data)
+            return self._step_device
+        return self._step_host
+
+    def _step_host(self, state: LinearState, interface_data: torch.Tensor):
+        """`step` under `cg_loop="host"` and for the Direct solve: the
+        eager lines, the host refinement loop around the host CG."""
         F_new = self.assemble_load(interface_data)
         rhs = self._rhs(state.displacement, state.velocity, state.old_load,
                         F_new)

@@ -3,12 +3,17 @@
 Counterpart of `dealii_adapter_tpu/models/material.py`:
 
   kappa = 2 mu (1+nu) / (3 (1-2 nu)),  c1 = mu/2
+  Psi   = (kappa/4)(J^2 - 1 - 2 ln J) + c1 (tr b_bar - dim)
   tau   = (kappa/2)(J^2 - 1) I + dev(2 c1 b_bar)
   Jc    = Jc_vol + Jc_iso (spatial tangent J * c)
 
-with b_bar = J^{-2/dim} F F^T. The hot path works on component lists:
-every tensor is a dim x dim nested list of equally shaped (q, c) tensors,
-so each component is one contiguous pointwise pass.
+with b_bar = J^{-2/dim} F F^T. The hot path works on component lists
+(the `_c` functions): every tensor is a dim x dim nested list of equally
+shaped (q, c) tensors, so each component is one contiguous pointwise
+pass. `NeoHookean.psi`, `NeoHookean.tau`, `NeoHookean.Jc`,
+`det_and_inv` and `kinematics` take batched (..., dim, dim) tensors, as
+the JAX package's do (tests and API parity; off the hot path, so they
+use plain arithmetic).
 
 In f64 the reciprocal and J^{-2/3} are taken from an f32 seed refined by
 two division-free Newton steps, exactly as the JAX package does, so both
@@ -77,6 +82,25 @@ class NeoHookean:
     @property
     def c1(self) -> float:
         return self.mu / 2.0
+
+    def psi(self, det_F: torch.Tensor, b_bar: torch.Tensor) -> torch.Tensor:
+        """The strain energy, batched over the leading axes of `det_F` and
+        of the (..., dim, dim) `b_bar`."""
+        dim = b_bar.shape[-1]
+        psi_vol = (self.kappa / 4.0) * (det_F**2 - 1.0 - 2.0 * torch.log(det_F))
+        tr_bbar = torch.diagonal(b_bar, dim1=-2, dim2=-1).sum(-1)
+        return psi_vol + self.c1 * (tr_bbar - dim)
+
+    def tau(self, det_F: torch.Tensor, b_bar: torch.Tensor) -> torch.Tensor:
+        """tau = (kappa/2)(J^2-1) I + dev(2 c1 b_bar), batched over the
+        leading axes."""
+        dim = b_bar.shape[-1]
+        eye = torch.eye(dim, dtype=b_bar.dtype, device=b_bar.device)
+        p_vol = 0.5 * self.kappa * (det_F**2 - 1.0)
+        tau_bar = 2.0 * self.c1 * b_bar
+        tr = torch.diagonal(tau_bar, dim1=-2, dim2=-1).sum(-1)
+        tau_iso = tau_bar - (tr / dim)[..., None, None] * eye
+        return p_vol[..., None, None] * eye + tau_iso
 
     def tau_c(self, det_F, b_bar):
         """Component-wise Kirchhoff stress: `b_bar` is a dim x dim nested
@@ -154,6 +178,33 @@ def iso_scale(J, dim: int):
     return J ** (-2.0 / dim)
 
 
+def det_and_inv(F: torch.Tensor):
+    """Determinant and inverse of (..., 2, 2) or (..., 3, 3) matrices by
+    their explicit formulas (the cofactors over the determinant)."""
+    if F.shape[-1] == 2:
+        a, b = F[..., 0, 0], F[..., 0, 1]
+        c, e = F[..., 1, 0], F[..., 1, 1]
+        det = a * e - b * c
+        inv = torch.stack([torch.stack([e, -b], dim=-1),
+                           torch.stack([-c, a], dim=-1)], dim=-2)
+        return det, inv / det[..., None, None]
+    a = F
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    det = a[..., 0, 0] * c00 + a[..., 0, 1] * c01 + a[..., 0, 2] * c02
+    c10 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c20 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c21 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    cof = torch.stack([torch.stack([c00, c10, c20], dim=-1),
+                       torch.stack([c01, c11, c21], dim=-1),
+                       torch.stack([c02, c12, c22], dim=-1)], dim=-2)
+    return det, cof / det[..., None, None]
+
+
 def det_and_inv_c(F):
     """Determinant and inverse of a dim x dim nested list of equally shaped
     tensors; returns (det, inv) with inv in the same structure."""
@@ -197,4 +248,15 @@ def kinematics_c(grad_u):
         [scale * fsum(F[i][k] * F[j][k] for k in range(dim)) for j in range(dim)]
         for i in range(dim)
     ]
+    return F, J, F_inv, b_bar
+
+
+def kinematics(grad_u: torch.Tensor):
+    """F, J, F^{-1} and b_bar from (..., dim, dim) displacement gradients
+    (deal.II's Kinematics::F, F_iso and b)."""
+    dim = grad_u.shape[-1]
+    F = grad_u + torch.eye(dim, dtype=grad_u.dtype, device=grad_u.device)
+    J, F_inv = det_and_inv(F)
+    b = torch.einsum("...ik,...jk->...ij", F, F)
+    b_bar = J[..., None, None] ** (-2.0 / dim) * b
     return F, J, F_inv, b_bar

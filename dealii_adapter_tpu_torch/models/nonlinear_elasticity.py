@@ -73,22 +73,30 @@ per model: the assembly writes into one (the layouts' `out=`), the jvp
 tangent's linearization point is copied into others, so the captured
 operator reads each Newton iteration's tangent at the same address.
 
-The Newton loop runs as `newton_loop` says: "graphs" (the default under
-`cg_loop="graphs"`, `_newton_solve_device`) makes every decision on the
-device in 0-dim f64 tensors, in the order of operations of the host
-loop, replays the residuals, the tangent refill, the decisions and the
-update from CUDA graphs captured once per model into the CG graphs' memory
-pool (`solvers/graphs.py`; eagerly on the CPU), hands the CG its
-tolerance as a device tensor, and reads back one packed status a Newton
-pass (two in a pass whose f32 residual stalls); "host" (`_newton_solve_
-host`, the default under the host CG loop, which "graphs" cannot run
-beside) decides in Python floats, one read-back a norm. Both give the
-same `NewtonInfo` and iterate bit for bit.
+The Newton loop is written once (`_newton_solve`, the JAX package's
+`_make_step`): every decision is made on the device in 0-dim f64 tensors
+(`_newton_decide`), the CG takes its tolerance as a device tensor, and
+the host reads back one packed status a Newton pass (two in a pass whose
+f32 residual stalls), which says what to run next. Its bodies (the
+residuals, the tangent refill, the decisions and the update) go through
+the model's `solvers/graphs.py:GraphRunner`, which follows `cg_loop`:
+under "graphs" it replays them from CUDA graphs captured once per model
+into the CG graphs' memory pool, under "host" it runs them eagerly, as
+the gloo ranks need (their collectives cannot be captured); on the CPU
+both run eagerly. Both give the same `NewtonInfo` and iterate bit for
+bit. `verbose` prints the reference's per-iteration convergence table
+from the status read each pass, at no extra read-back.
+
+One difference in work from the JAX package's loop: an f64 pass before
+the noise floor is calibrated evaluates the solve-dtype residual whether
+or not u != 0 (the JAX package skips it at u = 0, where the calibration
+is discarded), so a step from rest pays one more such evaluation, which
+`NewtonInfo.f32_evals` does not count and `uncounted_f32_evals` does; on
+the gloo ranks that residual also costs its collectives.
 
 Differences from the JAX package, all in the host orchestration:
 * Newton is a host loop (`lax.while_loop` in JAX) that reads a packed
-  status back every pass (under `newton_loop="host"` every decision's
-  scalars, one sync each), counted in `host_syncs` with the CG's
+  status back every pass, counted in `host_syncs` with the CG's
   read-backs;
 * a NaN f32 residual never becomes the noise floor: a non-finite
   calibration leaves the floor uncalibrated (f64 continues), and the
@@ -173,7 +181,6 @@ from ..solvers.graphs import GraphRunner
 from .material import NeoHookean, det_and_inv_c, fsum, kinematics_c
 
 DIRECT_MAX_UNKNOWNS = 16384  # dense Direct tangent cap (as in the JAX package)
-NEWTON_LOOPS = ("graphs", "host")  # the `newton_loop` choices
 
 
 def internal_force_cellwise_T(ut, G, w, material):
@@ -234,42 +241,23 @@ class NewtonInfo(NamedTuple):
     tangent_assemblies: int = 0
 
 
-def _fmax(a: float, b: float) -> float:
-    """max that propagates NaN (jnp.maximum)."""
-    return math.nan if (math.isnan(a) or math.isnan(b)) else max(a, b)
-
-
-def _fmin(a: float, b: float) -> float:
-    return math.nan if (math.isnan(a) or math.isnan(b)) else min(a, b)
-
-
-def _div(a: float, b: float) -> float:
-    """IEEE division (x/0 = +-inf, 0/0 = nan) of host scalars."""
-    return float(np.float64(a) / np.float64(b)) if b == 0.0 else a / b
-
-
-def _clip(x: float, lo: float, hi: float) -> float:
-    return x if math.isnan(x) else min(max(x, lo), hi)
-
-
 class NonlinearElasticity:
     """Builds mesh, space, operators and preconditioner once on `device`
     (default: the CUDA card); `step(state, stress) -> (state,
-    NewtonInfo)`; `residual` and `_residual32` are exposed for tests.
-    `cg_loop` ("graphs", the default, or "host") chooses the Krylov loop
-    (module docstring); it exists so that both loops can be measured side
-    by side, and the model never switches between them itself. `cg_chunk`
-    (default `CG_CHUNK`) sets the graphs' chunk length; it exists for
-    `tools/cg_chunk_sweep.py`, which measures the lengths on this model.
-    With a `device_mesh`, states and interface stresses are this rank's
-    rows (`local_rows`, `global_rows`). `newton_loop` ("graphs" or "host")
-    chooses the Newton loop (module docstring); it is an attribute that a
-    caller may switch between steps of a model with `cg_loop="graphs"`
-    (both loops share its CG graphs: `chip_smoke.py`'s A/B), never
-    switched by the model itself. `host_syncs` counts the read-backs,
+    NewtonInfo)` runs `jittable_step()`; `internal_force`, `residual` and
+    `_residual32` are exposed for tests. `cg_loop` ("graphs", the
+    default, or "host") chooses the Krylov loop and with it how the Newton
+    loop's bodies run (module docstring); it exists so that both can be
+    measured side by side and for gloo ranks on the card, and the model
+    never switches it itself. `cg_chunk` (default `CG_CHUNK`) sets the
+    graphs' chunk length; it exists for `tools/cg_chunk_sweep.py`, which
+    measures the lengths on this model. With a `device_mesh`, states and
+    interface stresses are this rank's rows (`local_rows`,
+    `global_rows`). `verbose` prints the per-iteration Newton table (rank
+    0 alone on several ranks). `host_syncs` counts the read-backs,
     `cg_host_syncs` the CG's among them, and `uncounted_f32_evals` the
-    solve-dtype residuals the device loop evaluated and discarded, which
-    `NewtonInfo` does not count (`_newton_solve_device`)."""
+    solve-dtype residuals the loop evaluated and discarded, which
+    `NewtonInfo` does not count (module docstring)."""
 
     def __init__(
         self,
@@ -283,12 +271,11 @@ class NonlinearElasticity:
         cg_loop: str = "graphs",
         cg_chunk: int = CG_CHUNK,
         device_mesh=None,
-        newton_loop: Optional[str] = None,
+        verbose: bool = False,
     ):
         """`mg_lam_max` (one value per MG level, fine first) replaces the
-        hierarchy's power-iteration estimates. `newton_loop` ("graphs" or
-        "host") defaults to "graphs" under `cg_loop="graphs"` and to
-        "host" under the host CG loop, which "graphs" cannot run beside."""
+        hierarchy's power-iteration estimates."""
+        self.verbose = verbose
         if not params.data_consistent:
             raise ValueError(
                 "The neo-Hookean solid doesn't support 'Force' data reading. "
@@ -299,6 +286,7 @@ class NonlinearElasticity:
         if device_mesh is None and params.n_devices > 1:
             device_mesh = make_device_mesh(params.n_devices, device=device)
         self.device_mesh = device_mesh
+        self._lead = device_mesh is None or device_mesh.rank == 0
         self.device = resolve_device(
             device if device is not None or device_mesh is None
             else device_mesh.device)
@@ -308,22 +296,13 @@ class NonlinearElasticity:
                 f"unknown cg_loop {cg_loop!r}; expected one of {CG_LOOPS}")
         check_collective_loop(device_mesh, self.device, cg_loop)
         self.cg_chunk = int(cg_chunk)
-        if newton_loop is None:
-            newton_loop = "graphs" if cg_loop == "graphs" else "host"
-        if newton_loop not in NEWTON_LOOPS:
-            raise ValueError(f"unknown newton_loop {newton_loop!r}; expected "
-                             f"one of {NEWTON_LOOPS}")
-        if newton_loop == "graphs" and cg_loop != "graphs":
-            raise ValueError(
-                "newton_loop='graphs' needs cg_loop='graphs': the Newton "
-                "loop on the device hands its CG tolerance over as a device "
-                "tensor, which the host CG loop reads back")
-        self.newton_loop = newton_loop
-        # the Newton loop's CUDA graphs share the CG graphs' memory pool
+        # the Newton loop's CUDA graphs share the CG graphs' memory pool;
+        # beside the host CG loop its bodies run eagerly
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
-        self._graphs = GraphRunner(self.device, self._pool)
-        self._nb = None  # the device Newton loop's buffers, at first use
+        self._graphs = GraphRunner(self.device, self._pool,
+                                   eager=cg_loop == "host")
+        self._nb = None  # the Newton loop's buffers, at its first step
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -357,7 +336,7 @@ class NonlinearElasticity:
         self.alpha_6 = (1.0 - gamma / (2.0 * beta)) * dt
         self.host_syncs = 0  # device-to-host read-backs, the CG's included
         self.cg_host_syncs = 0  # the CG's read-backs among them
-        self.uncounted_f32_evals = 0  # the device loop's, at u = 0
+        self.uncounted_f32_evals = 0  # the Newton loop's, at u = 0
         self._tangent = None  # (persistent tangent, CG solve), at first use
         self._setup_constants(mg_lam_max)
 
@@ -794,6 +773,13 @@ class NonlinearElasticity:
             return self._sharded_internal32(u)
         return self._int_force_t_J(u)[0]
 
+    def internal_force(self, u: torch.Tensor) -> torch.Tensor:
+        """F_int[i] = int_Omega0 sym(grad_x N_i) : tau dV, the geometric
+        stress term of the residual (`nonlinear_elasticity.cc:980-996`),
+        at the total displacement `u` (this rank's rows under a
+        `device_mesh`); min det F is `_internal_force_and_J`'s."""
+        return self._internal_force_and_J(u)[0]
+
     def _internal_force_and_J(self, u: torch.Tensor):
         if self._cells:
             return self._sharded_internal(u)
@@ -955,166 +941,18 @@ class NonlinearElasticity:
         v32 = v.to(torch.float32).reshape(-1)
         return torch.sqrt(self._dot(v32, v32)).to(torch.float64)
 
-    def _norm(self, v: torch.Tensor) -> float:
-        """`_norm_t` read back."""
-        self.host_syncs += 1
-        return float(self._norm_t(v))
-
-    def _scalar(self, x: torch.Tensor) -> float:
-        self.host_syncs += 1
-        return float(x)
-
-    def _newton_solve(self, state: NonlinearState, stress: torch.Tensor):
-        if self.newton_loop == "graphs":
-            return self._newton_solve_device(state, stress)
-        return self._newton_solve_host(state, stress)
-
-    def _newton_solve_host(self, state: NonlinearState, stress: torch.Tensor):
-        """The Newton loop on the host: every decision in Python floats
-        read back from the device (`newton_loop="host"`)."""
-        params = self.params
-        mask = self.mask
-        tol_u, tol_f = params.tol_u, params.tol_f
-        max_nr = int(params.max_iterations_NR)
-        use_cg = params.type_lin == "CG"
-        ew = params.newton_forcing == "ew"
-        f64_window = float(params.newton_residual_f64_window)
-        # the cell partition evaluates in f64 only, as the JAX package's
-        # shard_map mode does (it has no f32 residual)
-        mixed_resid = (
-            use_cg
-            and self._mixed_tangent
-            and not self._cells
-            and params.newton_residual == "mixed"
-        )
-        norm = self._norm
-        # modified Newton: keep the assembled tangent across iterations and
-        # refresh it only for the first `tangent_reuse_after` iterations or
-        # when it goes stale (the JAX package's rule, decided here on the
-        # host from residual norms the loop already read back)
-        reuse = bool(params.newton_tangent_reuse and self._use_assembled
-                     and use_cg and self._mixed_tangent)
-        reuse_after = int(params.tangent_reuse_after)
-        refresh_ratio = float(params.tangent_refresh_ratio)
-        ratio_prev = 1.0
-
-        if params.newton_predictor and not self.quasi_static:
-            delta = mask * (
-                params.delta_t * state.velocity
-                + (0.5 * params.delta_t**2) * state.acceleration
-            )
-        else:
-            delta = torch.zeros_like(state.displacement)
-
-        it, converged = 0, False
-        res0 = upd0 = res_abs = res_rel = upd_abs = upd_rel = 1.0
-        cg_total, min_J = 0, math.inf
-        res_floor, calibrated, want64_next = 0.0, False, False
-        n64 = n32 = nasm = 0
-        while not converged and it < max_nr:
-            if mixed_resid:
-                # f64 at iteration 0, before the floor is calibrated, near
-                # the floor, or where the last iteration predicted it
-                want64 = (
-                    it == 0 or not calibrated
-                    or res_rel <= f64_window * res_floor or want64_next
-                )
-                if want64:
-                    rhs, mJ = self.residual(delta, state, stress)
-                else:
-                    rhs, mJ = self._residual32(delta, state, stress)
-                was32 = not want64
-                res_abs0 = norm(rhs)
-                u_nonzero = norm(state.displacement + delta) > 0.0
-                floor_denom = res_abs0 if it == 0 else res0
-                can_calib = (not was32) and (not calibrated) and u_nonzero
-                floor0 = res_floor
-                calib_ok = False
-                if can_calib:
-                    # a non-finite f32 evaluation calibrates nothing: keep
-                    # evaluating in f64 and calibrate at the next iterate
-                    rhs32, _ = self._residual32(delta, state, stress)
-                    fl = _div(norm(rhs32 - rhs), _fmax(floor_denom, 1e-300))
-                    calib_ok = math.isfinite(fl)
-                    if calib_ok:
-                        floor0 = fl
-                calibrated = calibrated or calib_ok
-                # stall: an f32 iteration that fails to halve the residual
-                # (NaN-safe: a NaN residual also hands back to f64)
-                stall = was32 and not (res_abs0 <= 0.5 * res_abs)
-                res_floor = floor0
-                if stall:
-                    # re-evaluate this iterate in f64 and re-calibrate the
-                    # floor from the difference; a non-finite difference
-                    # (NaN f32 residual) keeps the last finite floor
-                    rhs64, mJ = self.residual(delta, state, stress)
-                    fl = _div(norm(rhs64 - rhs), _fmax(res0, 1e-300))
-                    rhs = rhs64
-                    if math.isfinite(fl):
-                        res_floor = max(fl, floor0)
-                calibrated = calibrated or stall
-                n64_inc = (0 if was32 else 1) + (1 if stall else 0)
-                n32_inc = (1 if was32 else 0) + (1 if can_calib else 0)
-            else:
-                rhs, mJ = self.residual(delta, state, stress)
-                n64_inc, n32_inc = 1, 0
-            res_abs_new = res_abs0 if mixed_resid and not stall else norm(rhs)
-            if it == 0:
-                res0 = _fmax(res_abs_new, 1e-300)
-            res_rel_new = _div(res_abs_new, res0)
-            ratio = _div(res_abs_new, res_abs)
-            eta = params.ew_eta0 if it == 0 else _clip(0.9 * ratio * ratio, 1e-4, 0.5)
-            T = _fmax(tol_f * res0, 5e-9)
-            if mixed_resid:
-                pred = _fmax(eta * res_abs_new, 0.5 * T) if ew else params.tol_lin * res_abs_new
-                want64_next = _div(pred, res0) <= f64_window * res_floor
-            # dual rel/abs rule
-            conv = it > 0 and (upd_rel <= tol_u or upd_abs <= 1e-15) and (
-                res_rel_new <= tol_f or res_abs_new <= 5e-9
-            )
-            cg_its = asm_inc = 0
-            if not conv:
-                cg_tol = _fmax(eta * res_abs_new, 0.5 * T) if ew else params.tol_lin * res_abs_new
-                refresh = True
-                if reuse:
-                    # a frozen iteration whose contraction fails to halve
-                    # the previous ratio, and is slower than the refresh
-                    # ratio, re-assembles at the current iterate
-                    stale = ratio > 0.5 * ratio_prev and ratio > refresh_ratio
-                    refresh = (it < reuse_after or (it > reuse_after and stale)
-                               or self._tangent is None)
-                du, cg_its, asm_inc = self._solve(delta, state, stress, rhs,
-                                                  cg_tol, refresh)
-                ratio_prev = ratio
-                upd_abs_new = norm(mask * du)
-                if it == 0:
-                    upd0 = _fmax(upd_abs_new, 1e-300)
-                upd_abs, upd_rel = upd_abs_new, _div(upd_abs_new, upd0)
-                delta = delta + du
-                it += 1
-            converged = conv
-            res_abs, res_rel = res_abs_new, res_rel_new
-            cg_total += cg_its
-            min_J = _fmin(min_J, self._scalar(mJ))
-            n64, n32, nasm = n64 + n64_inc, n32 + n32_inc, nasm + asm_inc
-        info = NewtonInfo(
-            converged=converged, iterations=it, residual_abs=res_abs,
-            residual_rel=res_rel, update_abs=upd_abs, update_rel=upd_rel,
-            cg_iterations=cg_total, min_det_F=min_J, f64_evals=n64,
-            f32_evals=n32, tangent_assemblies=nasm,
-        )
-        return delta, info
-
     # ------------------------------------------------------------------
-    # the Newton loop on the device (`newton_loop="graphs"`)
+    # the Newton loop
     # ------------------------------------------------------------------
 
-    # the packed status read back once a Newton pass (`_newton_decide`)
+    # the packed status read back once a Newton pass (`_newton_decide`);
+    # `pass_J` is the pass's own min det F (the verbose table's)
     _STATUS = ("stall", "conv", "refresh", "want64", "calibrated", "n64",
-               "n32", "res_abs", "res_rel", "upd_abs", "upd_rel", "min_J")
+               "n32", "res_abs", "res_rel", "upd_abs", "upd_rel", "min_J",
+               "pass_J")
 
     def _newton_buffers(self, state, stress):
-        """The device loop's static buffers (allocated at the first step):
+        """The Newton loop's static buffers (allocated at the first step):
         the step's inputs, the iterate, the residuals, and the loop's
         scalars as 0-dim f64 (bool for flags) tensors; the step's inputs
         are copied in."""
@@ -1146,7 +984,7 @@ class NonlinearElasticity:
 
     def _newton_start(self, b):
         """The loop's initial values: the predictor iterate and the
-        scalars `_newton_solve_host` starts from."""
+        scalars the JAX package's loop starts from."""
         p = self.params
         if p.newton_predictor and not self.quasi_static:
             b.delta.copy_(self.mask * (
@@ -1171,10 +1009,10 @@ class NonlinearElasticity:
 
     def _newton_decide(self, b, it0, was32, calib, redo, refresh_mode, mixed):
         """One pass's decisions after its residuals, on the device: the
-        lines of `_newton_solve_host` between the residual and the solve,
-        in the same order of operations on 0-dim f64 tensors (maximum and
-        minimum propagate NaN as `_fmax`/`_fmin`, the division is IEEE's
-        as `_div`'s). The flags the host knows select the lines: `it0`
+        lines of the JAX package's loop body between the residual and the
+        solve, on 0-dim f64 tensors (maximum and minimum propagate NaN as
+        `jnp.maximum`/`jnp.minimum` do, the division is IEEE's). The
+        flags the host knows select the lines: `it0`
         (iteration 0), `was32` (the pass evaluated in the solve dtype),
         `calib` (an f64 pass before the floor is calibrated, which also
         evaluated `out32`; u != 0 is tested here), `redo` (the f64
@@ -1263,7 +1101,7 @@ class NonlinearElasticity:
         for i, val in enumerate((
                 stall if stall is not None else False, conv, refresh, want64,
                 b.calibrated, b.n64, b.n32, b.res_abs, b.res_rel, b.upd_abs,
-                b.upd_rel, b.min_J)):
+                b.upd_rel, b.min_J, mJ)):
             if isinstance(val, torch.Tensor):
                 b.status[i].copy_(val)
             else:
@@ -1283,27 +1121,26 @@ class NonlinearElasticity:
         self.host_syncs += 1
         return dict(zip(self._STATUS, b.status.tolist()))
 
-    def _newton_solve_device(self, state: NonlinearState,
-                             stress: torch.Tensor):
-        """`_newton_solve_host` with its decisions on the device
-        (`newton_loop="graphs"`): each residual, tangent refill, decision
-        and update replays its CUDA graph (`solvers/graphs.py`; eager on
-        the CPU), the CG takes its tolerance as a device tensor, and the
-        host reads one packed status a pass, which says what to run next
-        (the residual's precision, the calibration, a stall's f64
-        re-evaluation, the tangent refresh, convergence); a stall costs a
-        second read. `NewtonInfo` is built from the device's scalars, the
-        same floats as the host loop's. Differs in work from the host
-        loop in one place: an f64 pass before the floor is calibrated
-        evaluates the solve-dtype residual whether or not u != 0 (the host
-        loop skips it at u = 0, where the calibration is discarded), so a
-        step from rest pays one more such evaluation, which `f32_evals`
-        does not count and `uncounted_f32_evals` does (a calibrating pass
-        whose status shows no f32 evaluation counted)."""
+    def _newton_solve(self, state: NonlinearState, stress: torch.Tensor):
+        """The Newton loop (module docstring): each residual, tangent
+        refill, decision and update goes through the model's runner
+        (replayed from its CUDA graph under `cg_loop="graphs"` on the
+        card, eager otherwise), the CG takes its tolerance as a device
+        tensor, and the host reads one packed status a pass, which says
+        what to run next (the residual's precision, the calibration, a
+        stall's f64 re-evaluation, the tangent refresh, convergence); a
+        stall costs a second read. `NewtonInfo` is built from the device's
+        scalars. A calibrating pass whose status shows no f32 evaluation
+        counted is one at u = 0 (`uncounted_f32_evals`)."""
         params = self.params
         use_cg = params.type_lin == "CG"
+        # the cell partition evaluates in f64 only, as the JAX package's
+        # shard_map mode does (it has no f32 residual)
         mixed = (use_cg and self._mixed_tangent and not self._cells
                  and params.newton_residual == "mixed")
+        # modified Newton: keep the assembled tangent across iterations and
+        # refresh it only for the first `tangent_reuse_after` iterations or
+        # when it goes stale (the JAX package's rule)
         reuse = bool(params.newton_tangent_reuse and self._use_assembled
                      and use_cg and self._mixed_tangent)
         reuse_after = int(params.tangent_reuse_after)
@@ -1341,6 +1178,13 @@ class NonlinearElasticity:
                 flags = (it0, was32, False, True, refresh_mode, mixed)
                 run(("decide",) + flags, lambda: self._newton_decide(b, *flags))
                 st = self._read_status(b)
+            if self.verbose and self._lead:
+                # the reference's per-iteration table
+                # (`nonlinear_elasticity.cc:503-542`), the JAX package's line
+                print(f"    NR it {it}: RES_F(abs) {st['res_abs']:.4e}  "
+                      f"RES_F(rel) {st['res_rel']:.4e}  NU(rel) "
+                      f"{st['upd_rel']:.4e}  min J {st['pass_J']:.4f}",
+                      flush=True)
             n32 = int(st["n32"])
             converged = bool(st["conv"])
             if not converged:
@@ -1387,9 +1231,6 @@ class NonlinearElasticity:
             du = torch.linalg.solve(A, b.reshape(-1)).reshape(b.shape)
             return self.local_rows(du), 1, 1
         tdt = self.solve_dtype
-        # on the device Newton loop the refills replay their CUDA graphs
-        produce = (self._graphs if self.newton_loop == "graphs"
-                   else lambda key, body: body())
         if self._use_assembled:
             # the assembly closure refers to the model and is not kept:
             # kept, it would make the model, its tangent and its CG graphs
@@ -1401,14 +1242,14 @@ class NonlinearElasticity:
                 self._tangent = (Kt, self._make_cg(K))
             elif refresh:
                 Kt = self._tangent[0]
-                produce("assemble", lambda: assemble_Kt(
+                self._graphs("assemble", lambda: assemble_Kt(
                     (state.displacement + delta).to(tdt), out=Kt))
         elif self._tangent is None:
             refill, K = self._make_jvp_tangent(delta, state, stress)
             self._tangent = (refill, self._make_cg(K))
         else:
             refill = self._tangent[0]
-            produce("refill", lambda: refill(delta, state, stress))
+            self._graphs("refill", lambda: refill(delta, state, stress))
         solve = self._tangent[1]
         r = solve(rhs.to(tdt), torch.zeros_like(rhs, dtype=tdt), cg_tol,
                   self._max_cg_iter)
@@ -1431,22 +1272,38 @@ class NonlinearElasticity:
         return make_cg(self.cg_loop, K, precond, self.cg_chunk, self._dot,
                        self._pool)
 
+    def _make_step(self):
+        def step(state: NonlinearState, interface_stress: torch.Tensor):
+            delta, info = self._newton_solve(state, interface_stress)
+            acc_new = self._acc(delta, state)
+            vel_new = (
+                self.alpha_4 * delta
+                + self.alpha_5 * state.velocity
+                + self.alpha_6 * state.acceleration
+            )
+            return (
+                NonlinearState(state.displacement + delta, vel_new, acc_new),
+                info,
+            )
+
+        return step
+
     def step(
         self, state: NonlinearState, interface_stress: torch.Tensor
     ) -> Tuple[NonlinearState, NewtonInfo]:
         """One Newmark time step: Newton solve + velocity/acceleration
         updates. Checking `info.converged` is the caller's job."""
-        delta, info = self._newton_solve(state, interface_stress)
-        acc_new = self._acc(delta, state)
-        vel_new = (
-            self.alpha_4 * delta
-            + self.alpha_5 * state.velocity
-            + self.alpha_6 * state.acceleration
-        )
-        return (
-            NonlinearState(state.displacement + delta, vel_new, acc_new),
-            info,
-        )
+        return self.jittable_step()(state, interface_stress)
+
+    def jittable_step(self):
+        """The step function `(state, stress) -> (state, info)` that `step`
+        runs (the JAX package's, which it wraps in `jax.jit`; the port has
+        no such transform). "Jittable" means here: the function whose
+        residuals, decisions, updates and CG chunks the model replays from
+        its CUDA graphs under `cg_loop="graphs"`, and that every rank of a
+        `device_mesh` calls in lockstep. The model does not hold it, so
+        holding it keeps the model alive and dropping it frees nothing."""
+        return self._make_step()
 
     def with_delta_t(self, delta_t: float) -> "NonlinearElasticity":
         """A solver clone stepping with a different dt on the same mesh and
@@ -1469,7 +1326,7 @@ class NonlinearElasticity:
                 mesh=self.mesh, tags=self.tags,
                 quasi_static=self.quasi_static, device=self.device,
                 cg_loop=self.cg_loop, cg_chunk=self.cg_chunk,
-                device_mesh=self.device_mesh, newton_loop=self.newton_loop,
+                device_mesh=self.device_mesh, verbose=self.verbose,
             )
         return cache[key]
 

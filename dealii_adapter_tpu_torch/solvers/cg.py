@@ -150,15 +150,21 @@ def cg_solve(
     dot: Callable = _dot,
 ) -> CGResult:
     """Preconditioned CG solving operator(x) = b to ||r||_2 <= tol
-    (absolute, rounded to b's dtype)."""
+    (absolute, rounded to b's dtype). `tol` is a float, or a 0-dim tensor
+    (the Newton loop's, computed on the device), read back together with
+    the first residual norm, so it costs no read-back of its own."""
     M = preconditioner if preconditioner is not None else (lambda r: r)
-    tol = torch.tensor(float(tol), dtype=b.dtype).item()
     x = x0
     r = b - operator(x0)
     z = M(r)
     p = z
     rz = dot(r, z)
-    resn = torch.sqrt(dot(r, r)).item()
+    resn = torch.sqrt(dot(r, r))
+    if isinstance(tol, torch.Tensor):
+        resn, tol = torch.stack([resn, tol.to(resn)]).tolist()
+    else:
+        tol = torch.tensor(float(tol), dtype=b.dtype).item()
+        resn = resn.item()
     k = 0
     while resn > tol and k < max_iter:
         Ap = operator(p)
@@ -363,8 +369,8 @@ class ChunkedCG:
     def __call__(self, b: torch.Tensor, x0: torch.Tensor, tol,
                  max_iter: int) -> CGResult:
         """`tol` a float, or a 0-dim tensor on b's device, copied into the
-        solver's tolerance on the device (no read-back; the Newton loop on
-        the device computes it there)."""
+        solver's tolerance on the device (no read-back; the Newton loop
+        computes it there)."""
         self.bind(b, max_iter)
         self._b.copy_(b)
         self._x0.copy_(x0)

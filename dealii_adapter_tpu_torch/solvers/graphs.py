@@ -13,13 +13,17 @@ capture sets its wrappers' counts back and keeps them as the graph's
 launches per replay, and every replay adds them again
 (`kernels/counters.py`).
 
-The Neo-Hookean model's Newton loop on the device (`newton_loop=
-"graphs"`) runs its residuals, tangent refills, decisions and updates
-through one runner that shares its pool with the model's CG graphs
-(`cg.py:ChunkedCG`, which warms both its bodies up before it captures
-either; both capture through `capture`), and the linear model's device
-step its right-hand side, update and defect-correction loop
-(`cg.py:ChunkedIRCG`) the same way.
+`GraphRunner(device, pool, eager=True)` runs every body eagerly and
+captures nothing, with the same call: the runner of a model whose Krylov
+loop runs on the host (`cg_loop="host"`), whose collectives on gloo ranks
+cannot be captured.
+
+The Neo-Hookean model's Newton loop runs its residuals, tangent refills,
+decisions and updates through one runner that shares its pool with the
+model's CG graphs (`cg.py:ChunkedCG`, which warms both its bodies up
+before it captures either; both capture through `capture`), and the
+linear model's device step its right-hand side, update and
+defect-correction loop (`cg.py:ChunkedIRCG`) the same way.
 """
 
 from __future__ import annotations
@@ -53,13 +57,14 @@ def capture(graph, pool=None):
 class GraphRunner:
     """Replays each keyed body from its CUDA graph (module docstring)."""
 
-    def __init__(self, device, pool=None):
+    def __init__(self, device, pool=None, eager: bool = False):
         self.device = torch.device(device)
         self.pool = pool
+        self.eager = eager  # run every body, capture nothing
         self._graphs = {}  # key -> (CUDAGraph, launches per replay)
 
     def __call__(self, key: Hashable, body: Callable[[], None]) -> None:
-        if self.device.type != "cuda":
+        if self.eager or self.device.type != "cuda":
             body()
             return
         from ..kernels import counters

@@ -111,3 +111,26 @@ def test_cli_no_output_and_no_card(tmp_path, capsys):
         text=True, timeout=300,
     )
     assert r.returncode != 0 and "CUDA" in r.stderr
+
+
+def test_cli_verbose_prints_the_newton_table(tmp_path, capsys):
+    """`--verbose` passes `verbose` to the Neo-Hookean model, as the JAX
+    CLI does: each window prints the per-iteration Newton table (`NR it`
+    0 to its Newton iterations, the JAX package's line), and the window's
+    line and its full solver info still follow."""
+    prm, _ = _write_prm(tmp_path, "neo-Hookean", "v")
+    assert main([prm, "--standalone", "--traction", "2000", "0",
+                 "--no-output", "--device", "cpu", "--verbose"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    windows = [i for i, x in enumerate(lines) if x.startswith("  t=")]
+    assert len(windows) == 2
+    start = 0
+    for i in windows:
+        its = [int(m[1]) for m in (re.match(r"^    NR it (\d+): RES_F\(abs\) "
+                                            r"\S+  RES_F\(rel\) \S+  NU\(rel\) "
+                                            r"\S+  min J \S+$", x)
+                                   for x in lines[start:i]) if m]
+        newton = int(re.search(r"newton_its=(\d+)", lines[i])[1])
+        assert its == list(range(newton + 1))
+        assert lines[i + 1].startswith("    NewtonInfo(")
+        start = i + 1

@@ -1,14 +1,20 @@
-"""The Neo-Hookean Newton loop with its decisions on the device
-(`newton_loop="graphs"`; on the CPU its residuals, refills, decisions and
-updates run eagerly) against the host loop (`newton_loop="host"`): the
-same `NewtonInfo` and the same iterate bit for bit, with one read-back a
-Newton pass outside the CG, on the 3D benchmark configuration at scale 1
-(2,331 DoF) under f64 residuals, the mixed schedule through a stall,
-tangent reuse at traction 30,000 (two stalls), the jvp tangent and the
-gather backend; and the JAX package's counts where the host loop has
-them."""
+"""The Neo-Hookean model's one Newton loop (its decisions on the device)
+beside the host CG loop (`cg_loop="host"`: its bodies run eagerly, the CG
+is `cg_solve`) and beside the CG graphs (`cg_loop="graphs"`: the bodies
+go through the graph runner and the CG is `ChunkedCG`, both eager on the
+CPU): the same `NewtonInfo`, the same iterate bit for bit and the same
+passes, with one read-back a Newton pass outside the CG, on the 3D
+benchmark configuration at scale 1 (2,331 DoF) under f64 residuals, the
+mixed schedule through a stall, tangent reuse at traction 30,000 (two
+stalls), the jvp tangent and the gather backend; the JAX package's counts
+in 2D; the dense Direct solve and the per-iteration Newton table
+(`verbose`) against the JAX package's in 3D."""
 
+import contextlib
+import io
+import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,20 +64,23 @@ def _stress(model, magnitude):
 
 
 def _models(mesh_tags, kw):
+    """(the host CG loop's model, the CG graphs' model) on one mesh and one
+    set of lam_max values."""
     params = AllParameters(**dict(PRODUCTION, **kw))
     mesh, tags = mesh_tags
     host = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
-                               newton_loop="host")
+                               cg_loop="host")
     lam = ([lv.lam_max for lv in host._precond.levels]
            if params.preconditioner == "MG" else None)
     dev = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
                               mg_lam_max=lam)
-    assert (host.newton_loop, dev.newton_loop) == ("host", "graphs")
+    assert (host.cg_loop, dev.cg_loop) == ("host", "graphs")
+    assert host._graphs.eager and not dev._graphs.eager
     return host, dev
 
 
 def _record(model):
-    """Counts of the device loop's passes: [decisions, stall redos, CG
+    """Counts of the Newton loop's passes: [decisions, stall redos, CG
     read-backs, f64 residuals, solve-dtype residuals]."""
     counts = [0, 0, 0, 0, 0]
     decide, solve = model._newton_decide, model._solve
@@ -99,34 +108,46 @@ def _record(model):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_device_newton_loop_equals_the_host_loop(mesh_tags, case):
+    """The one Newton loop beside the host CG loop (its bodies eager)
+    equals it beside the CG graphs: `NewtonInfo`, states, the passes, the
+    stall redos and the residuals evaluated, and each reads back once a
+    pass outside the CG (once more a stall)."""
     traction, n_steps, kw, stalls = CASES[case]
-    host, dev = _models(mesh_tags, kw)
-    counts = _record(dev)
-    stress = torch.as_tensor(_stress(host, traction))
-    sh, sd = host.initial_state(), dev.initial_state()
+    models = _models(mesh_tags, kw)
+    counts = [_record(m) for m in models]
+    stress = torch.as_tensor(_stress(models[0], traction))
+    states = [m.initial_state() for m in models]
     for _ in range(n_steps):
-        syncs, (decided, redos, cg_syncs, n64, n32) = dev.host_syncs, counts[:]
-        uncounted = dev.uncounted_f32_evals
-        sh, ih = host.step(sh, stress)
-        sd, idev = dev.step(sd, stress)
+        before = [(m.host_syncs, c[:], m.uncounted_f32_evals)
+                  for m, c in zip(models, counts)]
+        out = [m.step(st, stress) for m, st in zip(models, states)]
+        (sh, ih), (sd, idev) = out
         assert ih.converged
         assert idev == ih
         assert all(torch.equal(a, b) for a, b in zip(sd, sh))
-        # one read-back a pass outside the CG, one more a stall
-        passes = counts[0] - decided - (counts[1] - redos)
-        outside = dev.host_syncs - syncs - (counts[2] - cg_syncs)
-        assert passes == ih.iterations + 1
-        assert outside == passes + counts[1] - redos
-        # the residuals evaluated are the ones counted, the solve-dtype
-        # ones discarded at u = 0 apart
-        assert counts[3] - n64 == ih.f64_evals
-        assert counts[4] - n32 == (ih.f32_evals
-                                   + dev.uncounted_f32_evals - uncounted)
-    assert counts[1] == stalls
+        states = [sh, sd]
+        for m, c, (syncs, (decided, redos, cg_syncs, n64, n32),
+                   uncounted) in zip(models, counts, before):
+            # one read-back a pass outside the CG, one more a stall
+            passes = c[0] - decided - (c[1] - redos)
+            outside = m.host_syncs - syncs - (c[2] - cg_syncs)
+            assert passes == ih.iterations + 1
+            assert outside == passes + c[1] - redos
+            # the residuals evaluated are the ones counted, the
+            # solve-dtype ones discarded at u = 0 apart
+            assert c[3] - n64 == ih.f64_evals
+            assert c[4] - n32 == (ih.f32_evals
+                                  + m.uncounted_f32_evals - uncounted)
+    # the same passes, redos and residuals; the CG read-backs differ (one
+    # an iteration on the host CG loop, one a chunk on the graphs)
+    assert counts[0][:2] + counts[0][3:] == counts[1][:2] + counts[1][3:]
+    assert counts[1][1] == stalls
     # only the calibrating pass at rest, step 0's first, evaluates a
     # residual it does not count, and only under the mixed schedule
+    dev = models[1]
     mixed = dev.params.newton_residual == "mixed" and dev._mixed_tangent
-    assert dev.uncounted_f32_evals == int(mixed and not dev._cells)
+    for m in models:
+        assert m.uncounted_f32_evals == int(mixed and not dev._cells)
 
 
 def test_device_newton_loop_counts_match_jax():
@@ -143,7 +164,7 @@ def test_device_newton_loop_counts_match_jax():
     tm = NonlinearElasticity(
         AllParameters(**params), mesh=mesh, tags=tags, device="cpu",
         mg_lam_max=[lv.lam_max for lv in jm._precond.levels])
-    assert tm.newton_loop == "graphs"
+    assert tm.cg_loop == "graphs"
     stress = np.zeros((tm.space.n_nodes, 2))
     stress[tm.space.boundary_nodes[tm.interface_id], 0] = 1000.0
     js, ts = jm.initial_state(), tm.initial_state()
@@ -159,17 +180,108 @@ def test_device_newton_loop_counts_match_jax():
 
 
 def test_newton_loop_option(mesh_tags):
-    """`newton_loop` follows `cg_loop` by default; "graphs" beside the host
-    CG loop, and an unknown loop, raise."""
+    """There is one Newton loop: the `newton_loop` keyword is gone, how the
+    loop's bodies run follows `cg_loop`, and a `with_delta_t` clone keeps
+    the model's `cg_loop`."""
     mesh, tags = mesh_tags
     params = AllParameters(**PRODUCTION)
+    for loop in ("graphs", "host"):
+        with pytest.raises(TypeError, match="newton_loop"):
+            NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
+                                cg_loop=loop, newton_loop=loop)
     host = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
                                cg_loop="host")
-    assert host.newton_loop == "host"
-    assert host.with_delta_t(0.02).newton_loop == "host"
-    with pytest.raises(ValueError, match="needs cg_loop='graphs'"):
-        NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
-                            cg_loop="host", newton_loop="graphs")
-    with pytest.raises(ValueError, match="unknown newton_loop"):
-        NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
-                            newton_loop="device")
+    clone = host.with_delta_t(0.02)
+    assert clone is not host and clone.cg_loop == "host"
+    assert clone._graphs.eager and host._graphs.eager
+    graphs = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu")
+    clone = graphs.with_delta_t(0.02)
+    assert clone.cg_loop == "graphs" and not clone._graphs.eager
+    assert not hasattr(graphs, "newton_loop")
+
+
+# the dense Direct solve on the 3D configuration at scale 1 (f64 throughout)
+DIRECT = dict(PRODUCTION, type_lin="Direct", preconditioner="Jacobi",
+              solve_dtype="", precond_dtype="")
+_NR_LINE = re.compile(
+    r"^    NR it (\d+): RES_F\(abs\) (\S+)  RES_F\(rel\) (\S+)  "
+    r"NU\(rel\) (\S+)  min J (\S+)$")
+
+
+def _table(text):
+    """The Newton table's rows in printed text: [(it, abs, rel, nu, J)]."""
+    rows = [_NR_LINE.match(line) for line in text.splitlines()]
+    assert all(rows), text
+    return [(int(m[1]),) + tuple(float(x) for x in m.groups()[1:])
+            for m in rows]
+
+
+@pytest.fixture(scope="module")
+def direct_runs(mesh_tags):
+    """One step from rest of `DIRECT` at traction 1000 with the Newton
+    table on (`verbose`): the JAX package's (its `jax.debug.print` lines
+    captured) and the port's beside the host CG loop and beside the CG
+    graphs: {name: (NewtonInfo, displacement, printed text)}."""
+    jmesh, jtags = jax_grid("PF", 3, 2, scale=1, solver="neo-Hookean")
+    jm = jax_nl.NonlinearElasticity(JaxParams(**DIRECT), mesh=jmesh,
+                                    tags=jtags, verbose=True)
+    stress = _stress(jm, 1000.0)
+    out = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        js, ji = jm.step(jm.initial_state(), jnp.asarray(stress))
+        jax.block_until_ready(js)
+        jax.effects_barrier()
+    out["jax"] = (ji, np.asarray(js.displacement), buf.getvalue())
+    mesh, tags = mesh_tags
+    for loop in ("host", "graphs"):
+        model = NonlinearElasticity(AllParameters(**DIRECT), mesh=mesh,
+                                    tags=tags, device="cpu", cg_loop=loop,
+                                    verbose=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            st, info = model.step(model.initial_state(),
+                                  torch.as_tensor(stress))
+        out[loop] = (info, st, buf.getvalue())
+    return out
+
+
+def test_direct_one_loop_matches_jax(direct_runs):
+    """`type_lin="Direct"` through the one loop: beside the host CG loop
+    and beside the CG graphs the same `NewtonInfo` and state bit for bit;
+    against the JAX package's dense Direct step, the same Newton count,
+    residual evaluations and solves, and the displacement within the
+    tolerance of `test_device_newton_loop_counts_match_jax`."""
+    (ih, sh, _), (ig, sg, _) = direct_runs["host"], direct_runs["graphs"]
+    assert ih.converged and ig == ih
+    assert all(torch.equal(a, b) for a, b in zip(sg, sh))
+    ji, ju, _ = direct_runs["jax"]
+    assert bool(ji.converged)
+    assert (ih.iterations, ih.cg_iterations, ih.f64_evals, ih.f32_evals,
+            ih.tangent_assemblies) == tuple(int(x) for x in (
+                ji.iterations, ji.cg_iterations, ji.f64_evals,
+                ji.f32_evals, ji.tangent_assemblies))
+    assert ih.min_det_F == pytest.approx(float(ji.min_det_F), rel=1e-12)
+    np.testing.assert_allclose(sh.displacement.numpy(), ju, rtol=0,
+                               atol=1e-9 * np.abs(ju).max())
+
+
+def test_verbose_newton_table_matches_jax(direct_runs):
+    """`verbose=True` prints the JAX package's per-iteration Newton table
+    (`NR it`, RES_F abs and rel, NU rel, min J), one line a pass, from the
+    status the loop reads anyway: the same lines under both CG loops, and
+    against the JAX package's the same count and `NR it` values, the
+    residuals within 1e-9 of the first (the tolerance of
+    `test_device_newton_loop_counts_match_jax`, relative to the largest
+    value), NU and min J as printed."""
+    (ih, _, th), (_, _, tg) = direct_runs["host"], direct_runs["graphs"]
+    ours, theirs = _table(th), _table(direct_runs["jax"][2])
+    assert th == tg
+    assert len(ours) == len(theirs) == ih.iterations + 1
+    assert [r[0] for r in ours] == [r[0] for r in theirs] == list(
+        range(ih.iterations + 1))
+    res0 = theirs[0][1]
+    for (_, a, r, nu, mj), (_, ja, jr, jnu, jmj) in zip(ours, theirs):
+        assert abs(a - ja) <= 1e-9 * res0 + 1e-4 * ja  # 5 printed digits
+        assert abs(r - jr) <= 1e-9 + 1e-4 * jr
+        assert nu == pytest.approx(jnu, rel=1e-4) and mj == jmj

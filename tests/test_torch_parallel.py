@@ -20,7 +20,10 @@ running every case of its world once; the cases are parametrized here.
   package's single-device steps, with its count rules and tolerances
   (the port takes the JAX hierarchy's lam_max values); the dense Direct
   solve of both models (whole on every rank) and a Neumann interface that
-  covers part of its lattice sides, each also against one device (1e-12).
+  covers part of its lattice sides, each also against one device (1e-12);
+  on 2 ranks the production step with the host CG loop (the Newton
+  loop's bodies eager, as gloo ranks on the card run it) bit for bit the
+  same ranks' step with the CG graphs' loop, and against one device.
 * The coupled run on 2 ranks, on both partitions (rank 0 holds the
   participant): tests/test_torch_coupling.py's implicit linear and
   Neo-Hookean runs, whose every window rolls back, against the JAX
@@ -197,12 +200,13 @@ def _mesh_kw(name, kw, grid):
     return dict(mesh=_partial_interface(mesh, tags["interface"]), tags=tags)
 
 
-def _step(mesh, name, lam_max):
+def _step(mesh, name, lam_max, cg_loop="graphs"):
     kw, mag = STEPS[name]
     cls = LinearElastodynamics if kw["model"] == "linear" else NonlinearElasticity
     extra = {"mg_lam_max": lam_max[name]} if name in lam_max else {}
     extra.update(_mesh_kw(name, kw, make_scenario_grid))
-    model = cls(AllParameters(**kw), device="cpu", device_mesh=mesh, **extra)
+    model = cls(AllParameters(**kw), device="cpu", device_mesh=mesh,
+                cg_loop=cg_loop, **extra)
     if mesh is not None:
         assert (model._lat is None) == name.endswith("_gather")
     if name.endswith("_partial"):
@@ -352,6 +356,9 @@ def _world_cases(mesh, cells, lattice, lam_max, root):
             out["vcycle_bf16"] = _vcycle_bf16(mesh, lam_max["vcycle_bf16"])
         for name in LATTICE_STEPS[mesh.world]:
             out[name] = _step(mesh, name, lam_max)
+        if mesh.world == 2:
+            out["production_host"] = _step(mesh, "production", lam_max,
+                                           cg_loop="host")
     if cells and lattice:
         for name in COUPLED_CASES:
             out[name] = _coupled(mesh, name)
@@ -594,6 +601,26 @@ def test_lattice_step_equals_one_device(worlds, name):
                                        atol=1e-12 * np.abs(ref[2]).max())
             assert np.abs(ref[2]).max() > 0
     assert np.abs(ref[0]).max() > 0
+
+
+def test_one_loop_on_gloo_ranks_equals_one_device(worlds, jax_refs):
+    """The production step on 2 ranks with the host CG loop, whose Newton
+    loop runs its bodies eagerly (gloo collectives cannot be captured):
+    on every rank bit for bit the same ranks' step beside the CG graphs'
+    loop (the same `NewtonInfo`), and against one device with the host CG
+    loop, the production step's limits (Newton equal, CG within 2 a
+    solve, displacement within 1e-8 of the largest)."""
+    lam = jax_refs[1]
+    u_ref, info_ref = _step(None, "production", lam, cg_loop="host")[:2]
+    for rank in worlds[2]:
+        (u, info), (u_graphs, info_graphs) = (rank["production_host"],
+                                              rank["production"])
+        np.testing.assert_array_equal(u, u_graphs)
+        assert info == info_graphs and info[0]
+        assert info[1] == info_ref[1]
+        assert abs(info[6] - info_ref[6]) <= 2 * info[1]
+        np.testing.assert_allclose(u, u_ref, rtol=0,
+                                   atol=1e-8 * np.abs(u_ref).max())
 
 
 @pytest.mark.parametrize("name", COUPLED_CASES)
