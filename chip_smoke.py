@@ -213,8 +213,9 @@ script exits non-zero without printing a result):
      dealii_adapter_tpu_torch` on `CLI_PRM` with `--devices 2` in a
      subprocess (gloo ranks sharing the card, the host CG loop): exit code
      0, one banner, naming the card, 2 ranks and the host CG loop, each
-     VTU file written once, the final ||u||^2 within 1e-9
-     (`CLI_RANKS_RTOL`) of phase 11's; rank 0's closing `kernel
+     VTU file written once, at most CG iterations + 2 read-backs a step
+     (the step lines' `read_backs`, printed), the final ||u||^2 within
+     1e-9 (`CLI_RANKS_RTOL`) of phase 11's; rank 0's closing `kernel
      launches` line gives the path's counts;
    - golden_nl — the recorded Neo-Hookean golden tip trajectories
      (`nonlinear_pf_q2`: 2D PF, Q2, the f64 Jacobi CG on the f64 jvp
@@ -223,31 +224,37 @@ script exits non-zero without printing a result):
      configuration), 20 steps each, every step converged and the tip
      within rtol 1e-7 of tests/golden_trajectories.json; C1/C2 and no
      other kernel launched.
-15. linear_loops (run after linear2d) — the linear step on the device
-   (`cg_loop="graphs"`, the default of every linear path: its right-hand
-   side, the defect-correction loop around the CG chunks and the update
-   replayed from CUDA graphs, the refinement decisions on the card)
-   against its host loops (`cg_loop="host"`: `ir_cg_solve` around the
-   host CG) on each of `LINEAR_CELLS` (bench_linear_q2, bench_linear_q3,
-   linear2d) at full size, two models on one mesh: 1 warmup and 3 timed
-   steps each, then one profiled step of each (`profile_timeline`: device
-   time by kernel group, launches, busy share, read-backs and the idle
-   gaps after them): the same `StepInfo` in every step, ||u||^2 within
-   `LOOPS_RTOL` (and whether bitwise), every residual <= 1e-10, the
-   device loop's read-backs at most its CG iterations + 2 a step (one a
-   chunk of 1 iteration, plus at most one masked chunk where the host
-   guessed that the refinements go on and they ended, plus at most one
-   read after a refinement where it guessed the end; CG + 1 where the
-   guess is right) and the launches beyond the host loop's (the masked
-   start and chunk of a wrong guess); each
-   loop's step times and read-backs; then one step of the device model's
+15. linear_loops (run after linear2d) — the one linear step (one
+   function, `LinearElastodynamics._step`) replayed (`cg_loop="graphs"`,
+   the default of every linear path: its right-hand side, the
+   defect-correction loop around the CG chunks and the update from CUDA
+   graphs, the refinement decisions on the card) against the same step
+   eager (`cg_loop="host"`: the same bodies run eagerly, nothing
+   captured, as gloo ranks run it) on each of `LINEAR_CELLS`
+   (bench_linear_q2, bench_linear_q3, linear2d) at full size, two models
+   on one mesh: 1 warmup and 3 timed steps each, then one profiled step
+   of each (`profile_timeline`: device time by kernel group, launches,
+   busy share, read-backs and the idle gaps after them): the same
+   `StepInfo` in every step and the states bit for bit, every residual
+   <= 1e-10, each form's read-backs at most its CG iterations + 2 a step
+   (one a chunk of 1 iteration, plus at most one masked chunk where the
+   host guessed that the refinements go on and they ended, plus at most
+   one read after a refinement where it guessed the end; CG + 1 where
+   the guess is right); each form's step times and read-backs (paths
+   `linear_loops <cell>` and `linear_loops <cell> eager`); then the first
+   step from rest against `oracle_linear_step` (the public host loops
+   `ir_cg_solve` around `cg_solve`, on the card): the same `StepInfo`
+   and the velocity bit for bit; then one step of the replayed model's
    subcycling clone (half the step), with the peak device memory before
    and after it.
 
 Every path but `main3d host`, shard3d, shard_cells, dryrun,
-coupled_shard and cli_ranks (the host CG loop, and the Newton loop's
-bodies run eagerly; all but the first on gloo ranks) runs its CG in CUDA
-graphs and its Newton loop's bodies replayed from CUDA graphs; f64jvp3d,
+coupled_shard, cli_ranks and the eager forms of linear_loops
+(`cg_loop="host"`: the Neo-Hookean paths' host CG loop with the Newton
+loop's bodies run eagerly, the linear step's bodies and CG chunks run
+eagerly; all but the first and linear_loops on gloo ranks) runs its CG
+in CUDA graphs and its Newton loop's or linear step's bodies replayed
+from CUDA graphs; f64jvp3d,
 jvp3d, reuse_fine3d and gather3d then run their 4 steps again from rest
 with the Newton loop's bodies run eagerly on the same model and CG graphs
 (`newton_eager_twin`): the same `NewtonInfo` in every step, ||u||^2
@@ -423,6 +430,11 @@ PATH_KERNELS.update({
     "linear_loops bench_linear_q3": _HEALTH + ("K3 q1_structured",),
     "linear_loops linear2d": _HEALTH + ("K4b q1_structured_2d",),
 })
+# the eager form of each linear_loops cell launches the kernels of its
+# replayed form
+for _cell in LINEAR_CELLS:
+    PATH_KERNELS[f"linear_loops {_cell} eager"] = PATH_KERNELS[
+        f"linear_loops {_cell}"]
 # kernels a path must NOT launch: the stencil paths replace K3 with K6, the
 # jvp paths have no assembled tangent, reuse_fine3d smooths the tangent
 # (K1) on the fine level in place of the proxy (K5), and cli_nl's Jacobi
@@ -447,6 +459,10 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                  "linear_loops bench_linear_q2": ("K1 tangent_matvec",),
                  "linear_loops bench_linear_q3": ("K1 tangent_matvec",
                                                   "K5 q2_structured")}
+for _cell in LINEAR_CELLS:
+    if f"linear_loops {_cell}" in PATH_EXCLUDES:
+        PATH_EXCLUDES[f"linear_loops {_cell} eager"] = PATH_EXCLUDES[
+            f"linear_loops {_cell}"]
 # ||u||^2 after cli_nl's 3 steps, the JAX package on the CPU:
 #   JAX_PLATFORMS=cpu python tools/jax_reference_nl_default.py
 NL_DEFAULT_REF = 0.10160554980143784
@@ -2346,6 +2362,7 @@ def phase_cli():
         files = sorted(os.listdir(out))
         log(f"cli: exit code 0 in {wall:.1f} s (process start included), "
             f"VTU files {[(f, os.path.getsize(os.path.join(out, f))) for f in files]}")
+    log(f"cli: (CG iterations, read-backs) a step {step_read_backs(r.stdout)}")
     require(torch.cuda.get_device_name(0) in r.stdout, "cli: banner names the card")
     require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"], f"cli: files {files}")
     line = next(x for x in r.stdout.splitlines() if x.startswith("kernel launches: "))
@@ -2357,6 +2374,12 @@ def final_u2(text):
     """The CLI's closing `final ||u||^2:` value."""
     line = next(x for x in text.splitlines() if x.startswith("final ||u||^2: "))
     return float(line[len("final ||u||^2: "):])
+
+
+def step_read_backs(text):
+    """[(CG iterations, read-backs)] of the linear CLI's step lines."""
+    return [(int(cg), int(n)) for cg, n in re.findall(
+        r"cg_its=(\d+) .*read_backs=(\d+)", text)]
 
 
 def phase_cli_ranks(cli_u2):
@@ -2401,6 +2424,10 @@ def phase_cli_ranks(cli_u2):
             "cli_ranks: banner names the ranks and the host CG loop")
     require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"]
             and "2 VTU files" in text, f"cli_ranks: files {files}")
+    steps = step_read_backs(text)
+    log(f"cli_ranks: (CG iterations, read-backs) a step {steps}")
+    require(steps and all(n <= cg + 2 for cg, n in steps),
+            "cli_ranks: at most CG iterations + 2 read-backs a step")
     u2 = final_u2(text)
     rel = abs(u2 - cli_u2) / cli_u2
     log(f"cli_ranks: final ||u||^2 {u2!r} against the cli phase's {cli_u2!r}: "
@@ -2567,83 +2594,142 @@ def phase_linear2d(profile):
     return launches
 
 
-def phase_linear_loops():
-    """The linear step on the device (`cg_loop="graphs"`, the default: its
-    right-hand side, defect-correction loop, CG chunks and update replayed
-    from CUDA graphs) against its host loops (`cg_loop="host"`) on each of
-    `LINEAR_CELLS` at full size, two models on one mesh with the same
-    lam_max values: 1 warmup and 3 timed steps from rest each (host first),
-    then one profiled step of each (`profile_timeline`). The same
-    `StepInfo` in every step, ||u||^2 within `LOOPS_RTOL` (and whether
-    bitwise), every residual <= 1e-10, and the device loop's read-backs at
-    most its CG iterations + 2 a step (module docstring); each loop's step
-    times and read-backs. Then one step of the device model's subcycling clone
-    (half the step) from its state, with the peak device memory before and
-    after it. Returns {path: the device loop's launches}."""
-    import torch
+def oracle_linear_step(model, state, data):
+    """One linear theta-step of `model` from its public pieces with the
+    host loops, the JAX package's `_make_step` line by line: the load
+    (`assemble_load`), the right-hand side from `K`, `M` and the mask, the
+    solve (`solvers/cg.py:ir_cg_solve` around `cg_solve` for an f32 solve,
+    else `cg_solve`), the theta update; (state, StepInfo). The oracle of
+    the one step (tests/test_torch_linear_device.py holds the same on the
+    CPU, with the Direct solve too)."""
+    from dealii_adapter_tpu_torch.models.linear_elasticity import (
+        CG_TOL,
+        LinearState,
+        StepInfo,
+    )
+    from dealii_adapter_tpu_torch.solvers import cg
 
-    from dealii_adapter_tpu_torch.kernels import counters
+    p = model.params
+    require(p.type_lin == "CG", "oracle_linear_step: a CG configuration")
+    dt, theta = p.delta_t, p.theta
+    mask, K, M = model.mask, model.K, model.M
+    disp, vel, old = state
+    F = model.assemble_load(data)
+    rhs = mask * (dt * theta * F + dt * (1.0 - theta) * old + M(vel)
+                  - (theta * (1.0 - theta) * dt * dt) * K(vel)
+                  - dt * K(disp))
+    max_iter = int(model.space.n_dofs * p.max_iterations_lin)
+    A_hi = model.masked_operator(model.A)
+    if model.solve_dtype != model.dtype:
+        r = cg.ir_cg_solve(
+            A_hi, model.masked_operator(model.A_lo, model.mask_lo), rhs,
+            mask * vel, CG_TOL, max_iter, lo_dtype=model.solve_dtype,
+            preconditioner=model.preconditioner)
+    else:
+        r = cg.cg_solve(A_hi, rhs, mask * vel, CG_TOL, max_iter,
+                        model.preconditioner)
+    v = r.x
+    d = disp + dt * theta * v + dt * (1.0 - theta) * vel
+    return (LinearState(d, v, F),
+            StepInfo(r.iterations, r.residual_norm, float(v.abs().max())))
+
+
+def phase_linear_loops():
+    """The one linear step replayed (`cg_loop="graphs"`, the default: its
+    right-hand side, defect-correction loop, CG chunks and update from
+    CUDA graphs) against the same step eager (`cg_loop="host"`: the same
+    bodies run eagerly, nothing captured) on each of `LINEAR_CELLS` at
+    full size, two models on one mesh with the same lam_max values: 1
+    warmup and 3 timed steps from rest each (eager first), then one
+    profiled step of each (`profile_timeline`). The same `StepInfo` in
+    every step and the states bit for bit, every residual <= 1e-10, and
+    both forms' read-backs at most their CG iterations + 2 a step (module
+    docstring); each form's step times and read-backs. Then the first
+    step from rest against `oracle_linear_step` (the host loops
+    `ir_cg_solve` and `cg_solve` on the card): the same `StepInfo`, the
+    velocity bit for bit. Then one step of the replayed model's
+    subcycling clone (half the step), with the peak device memory before
+    and after it. Returns {path: launches} (the replayed form's under the
+    cell's path, the eager form's under it + " eager")."""
+    import torch
 
     dev = torch.device("cuda")
     by_path = {}
+    forms = (("host", "eager"), ("graphs", "replayed"))
     for cell in LINEAR_CELLS:
         runs, mesh_tags, lam_max = {}, None, None
-        for loop in ("graphs", "host"):
+        for loop, form in reversed(forms):
             t0 = time.perf_counter()
             model = build_linear_cell(cell, dev, mesh_tags=mesh_tags,
                                       mg_lam_max=lam_max, cg_loop=loop)
             torch.cuda.synchronize()
-            log(f"linear_loops {cell}: cg_loop={loop} built in "
+            log(f"linear_loops {cell}: {form} (cg_loop={loop}) built in "
                 f"{time.perf_counter() - t0:.1f} s, {model.space.n_dofs} DoF")
             if mesh_tags is None:
                 mesh_tags = (model.mesh, model.tags)
                 lam_max = [lv.lam_max for lv in model._precond.levels]
-            runs[loop] = model
-        stress = interface_traction(runs["host"])
+            runs[form] = model
+        require(runs["eager"].jittable_step().__func__
+                is runs["replayed"].jittable_step().__func__,
+                f"linear_loops {cell}: one step function under both loops")
+        stress = interface_traction(runs["eager"])
         out, path = {}, f"linear_loops {cell}"
-        for loop in ("host", "graphs"):
-            model = runs[loop]
+        for loop, form in forms:
+            model = runs[form]
             torch.cuda.reset_peak_memory_stats()
             start_counts()
             state, infos, steps, checksum = run_steps(
-                f"{path} {loop}", model, stress, linear_fmt)
-            launches = (read_counts(path) if loop == "graphs"
-                        else counters.launch_counts())
-            out[loop] = dict(state=state, infos=infos, steps=steps,
+                f"{path} {form}", model, stress, linear_fmt)
+            launches = read_counts(path if form == "replayed"
+                                   else f"{path} eager")
+            out[form] = dict(state=state, infos=infos, steps=steps,
                              checksum=checksum, launches=launches,
                              peak=torch.cuda.max_memory_allocated() / 2**30)
             require(all(i.residual <= 1e-10 for i in infos),
-                    f"{path} {loop}: every step's residual <= 1e-10")
-        for loop in ("host", "graphs"):
-            out[loop]["state"], out[loop]["profile"] = profile_timeline(
-                f"{path} {loop}", runs[loop], out[loop]["state"], stress)
-        g, h = out["graphs"], out["host"]
-        rel = abs(g["checksum"] - h["checksum"]) / h["checksum"]
-        for loop, r in out.items():
+                    f"{path} {form}: every step's residual <= 1e-10")
+        g, h = out["replayed"], out["eager"]
+        same = all(torch.equal(a, b) for a, b in zip(g["state"], h["state"]))
+        for _, form in forms:
+            out[form]["state"], out[form]["profile"] = profile_timeline(
+                f"{path} {form}", runs[form], out[form]["state"], stress)
+        for form, r in out.items():
             st = r["steps"]
-            log(f"{path} {loop}: step times {st['times']} s (timed mean "
+            log(f"{path} {form}: step times {st['times']} s (timed mean "
                 f"{statistics.mean(st['times'][1:])!r} s), CG "
                 f"{[i.iterations for i in r['infos']]}, read-backs "
-                f"{st['syncs']}, kernel launches {st['launches']}, peak "
-                f"device memory {r['peak']:.3f} GiB; launches "
-                f"{r['launches']}")
-        log(f"{path}: checksums graphs {g['checksum']!r} host "
-            f"{h['checksum']!r}, rel. difference {rel:.3e} (limit "
-            f"{LOOPS_RTOL}); bitwise {g['checksum'] == h['checksum']}; "
-            f"StepInfo equal {g['infos'] == h['infos']}")
+                f"{st['syncs']} (less the CG iterations "
+                f"{[y - i.iterations for y, i in zip(st['syncs'], r['infos'])]}"
+                f"), kernel launches {st['launches']}, peak device memory "
+                f"{r['peak']:.3f} GiB; launches {r['launches']}")
+        log(f"{path}: checksums replayed {g['checksum']!r} eager "
+            f"{h['checksum']!r}; states bitwise {same}; StepInfo equal "
+            f"{g['infos'] == h['infos']}; the eager step over the replayed "
+            f"one {statistics.mean(h['steps']['times'][1:]) - statistics.mean(g['steps']['times'][1:])!r} s (timed means)")
         require(g["infos"] == h["infos"],
-                f"{path}: the device loop's StepInfo equals the host loop's")
-        require(rel <= LOOPS_RTOL,
-                f"{path}: the device loop's checksum against the host loop's")
-        extra = [y - i.iterations for y, i in zip(g["steps"]["syncs"],
-                                                  g["infos"])]
-        log(f"{path}: the device loop's read-backs less its CG iterations "
-            f"{extra} a step; launches beyond the host loop's "
-            f"{[a - b for a, b in zip(g['steps']['launches'], h['steps']['launches'])]}")
-        require(max(extra) <= 2,
-                f"{path}: the device loop reads back at most its CG "
-                "iterations + 2 a step")
-        model = runs["graphs"]
+                f"{path}: the replayed step's StepInfo equals the eager one's")
+        require(same, f"{path}: the replayed step's state equals the eager "
+                "one's bit for bit")
+        for form, r in out.items():
+            extra = [y - i.iterations for y, i in zip(r["steps"]["syncs"],
+                                                      r["infos"])]
+            require(max(extra) <= 2, f"{path} {form}: at most CG "
+                    "iterations + 2 read-backs a step")
+        model = runs["replayed"]
+        t0 = time.perf_counter()
+        (s1, i1), (so, io) = (model.step(model.initial_state(), stress),
+                              oracle_linear_step(model, model.initial_state(),
+                                                 stress))
+        torch.cuda.synchronize()
+        log(f"{path}: first step against the ir_cg_solve oracle (both in "
+            f"{time.perf_counter() - t0:.2f} s): step {linear_fmt(i1)}; "
+            f"oracle {linear_fmt(io)}; velocity bitwise "
+            f"{torch.equal(s1.velocity, so.velocity)}, displacement bitwise "
+            f"{torch.equal(s1.displacement, so.displacement)}")
+        require(i1 == io == g["infos"][0],
+                f"{path}: the first step's StepInfo equals the oracle's")
+        require(torch.equal(s1.velocity, so.velocity),
+                f"{path}: the first step's velocity equals the oracle's bit "
+                "for bit")
         del runs
         peak0 = torch.cuda.max_memory_allocated() / 2**30
         clone = model.with_delta_t(model.params.delta_t / 2)
@@ -2655,7 +2741,8 @@ def phase_linear_loops():
             f"after")
         require(info.residual <= 1e-10, f"{path}: the clone's residual")
         by_path[path] = g["launches"]
-        del model, clone, out, g, h
+        by_path[f"{path} eager"] = h["launches"]
+        del model, clone, out, g, h, s1, so
         torch.cuda.empty_cache()
     return by_path
 

@@ -239,17 +239,22 @@ def main(argv=None) -> int:
 
     timer = TimerOutput("run")
     n_out = [0]
+    syncs = [model.host_syncs]  # the model's read-backs at the last output
 
     def output_cb(state, t, info):
         ts = t.get_timestep()
+        # the device-to-host read-backs of the model's steps since the
+        # last output (one step at `Output interval = 1` in a standalone run)
+        reads = model.host_syncs - syncs[0]
+        syncs[0] = model.host_syncs
         if hasattr(info, "cg_iterations"):  # Newton table analog
             say(f"  t={t.current():.4g}  newton_its={int(info.iterations)} "
                 f"cg_its={int(info.cg_iterations)} "
                 f"res={float(info.residual_abs):.3e} "
-                f"minJ={float(info.min_det_F):.4f}")
+                f"minJ={float(info.min_det_F):.4f} read_backs={reads}")
         else:
             say(f"  t={t.current():.4g}  cg_its={int(info.iterations)} "
-                f"res={float(info.residual):.3e}")
+                f"res={float(info.residual):.3e} read_backs={reads}")
         if args.verbose:
             say(f"    {info}")
         if not args.no_output:

@@ -25,29 +25,35 @@ the JAX package), `auto`/`structured` the lattice partition
 the V-cycle on per-rank slabs, inner products all-reduced; the interface
 load is integrated on the gathered interface data, and the dense Direct
 solve runs whole on every rank on the gathered right-hand side). The solve is the reference's absolute 1e-10 CG contract: f32
-preconditioned CG inside f64 defect correction (`ir_cg_solve`) when
+preconditioned CG inside f64 defect correction (the JAX package's
+`ir_cg_solve`) when
 `solve_dtype` is float32, plain CG otherwise, or a prefactored dense
 Cholesky (`type_lin="Direct"`, up to 16,384 unknowns). The MG
 preconditioner's fine proxy is kernel K5 in 3D Q2 (the plain structured
 operator in 2D), its Q1 levels kernels K3 (3D) or K4b (2D).
 
-The step runs as `cg_loop` says. "graphs" (the default) keeps the step
-on the device, as the JAX package's one jitted step function: the
-right-hand side (load, M and K applications), the solve and the update
-run through one `solvers/graphs.py:GraphRunner` (CUDA graphs on the card,
-captured at the first step and replayed after it, in one memory pool
-with the CG's; eager on the CPU), the CG in chunks of guarded iterations
-(`solvers/cg.py:ChunkedCG`, `cg_chunk` iterations a chunk, one read-back
-a chunk) and, in f32, inside the defect-correction loop on the device
-(`ChunkedIRCG`), whose decisions, final residual, iterations and the
+The step is written once, as the JAX package's `_make_step`: the
+right-hand side (load, M and K applications), the solve, the update and
+`StepInfo`. The right-hand side and the update run through the model's
+`solvers/graphs.py:GraphRunner`, in one memory pool with the CG's graphs.
+The solve takes one of three branches: in f32, the defect-correction
+loop on the device (`solvers/cg.py:ChunkedIRCG`) around the CG in chunks
+of guarded iterations (`ChunkedCG`, `cg_chunk` iterations a chunk, one
+read-back a chunk), whose decisions, final residual, iterations and the
 velocity's max norm come back in the status the host reads after each
-chunk: a step reads back once a chunk, plus at most once (where the loop
-was expected to end, or the f64 CG's max norm). "host" runs the same
-lines eagerly with the host loops (`ir_cg_solve` around the host-loop
-`cg_solve`, one read-back per CG iteration and per refinement, and one
-for the max norm), the oracle of the device loop. Both give the same
-bits; `host_syncs` counts the read-backs. The Direct solve is the same
-eager code under both.
+chunk; the f64 `ChunkedCG`; or the prefactored dense Cholesky, run
+eagerly between the right-hand side and the update (on ranks its
+gathered right-hand side cannot be captured). A step reads back once a
+chunk, plus at most once (where the refinement loop was expected to end,
+or the f64 CG's and the Direct solve's max norm).
+
+`cg_loop` decides only how the bodies run: "graphs" (the default)
+replays them from CUDA graphs on the card, captured at the first step;
+"host" runs the same bodies eagerly on whatever device the model is on
+and captures nothing (gloo collectives cannot be captured). On the CPU
+both run eagerly. Both give the same bits; `host_syncs` counts the
+read-backs. `solvers/cg.py:cg_solve` and `ir_cg_solve`, the host loops,
+are the step's oracle in the tests and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -81,13 +87,12 @@ from ..parallel.spmd import (
 from ..solvers.cg import (
     CG_CHUNK,
     CG_LOOPS,
+    ChunkedCG,
     ChunkedIRCG,
     _dot,
     chebyshev_preconditioner,
-    ir_cg_solve,
     jacobi_preconditioner,
     lambda_max,
-    make_cg,
 )
 from ..solvers.direct import DenseCholesky
 from ..solvers.graphs import GraphRunner
@@ -129,10 +134,10 @@ class StepInfo(NamedTuple):
 class LinearElastodynamics:
     """Builds mesh, space, operators and preconditioner once on `device`
     (default: the CUDA card); `step(state, interface_data) -> (state,
-    StepInfo)`. `cg_loop` ("graphs", the default, or "host") chooses the
-    step's loops (module docstring); it exists so that both can be
-    measured side by side, and the model never switches between them
-    itself. `cg_chunk` (CG iterations a chunk under "graphs") exists for
+    StepInfo)`. `cg_loop` ("graphs", the default, or "host") chooses
+    whether the step's bodies are replayed from CUDA graphs or run
+    eagerly (module docstring); the model never switches between them
+    itself. `cg_chunk` (CG iterations a chunk) exists for
     `tools/cg_chunk_sweep.py`, which measures the lengths. With a
     `device_mesh`, states and interface data are this rank's rows
     (`local_rows`, `global_rows`)."""
@@ -167,8 +172,11 @@ class LinearElastodynamics:
         # the step's CUDA graphs share the CG graphs' memory pool
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
-        self._graphs = GraphRunner(self.device, self._pool)
-        self._sb = None  # the device step's buffers, at its first step
+        # the step's bodies: replayed under "graphs" on the card, eager
+        # under "host" (gloo ranks) and on the CPU
+        self._graphs = GraphRunner(self.device, self._pool,
+                                   eager=cg_loop == "host")
+        self._sb = None  # the step's buffers, at its first step
         dim = params.dim
         if mesh is None:
             mesh, tags = make_scenario_grid(
@@ -270,24 +278,22 @@ class LinearElastodynamics:
             np.fill_diagonal(A_dense, np.diag(A_dense) + (1.0 - flat_mask))
             self._direct = DenseCholesky(A_dense, dt_, dev)
         self._max_cg_iter = int(space.n_dofs * params.max_iterations_lin)
-        # the BC-masked stepping matrix, and the CG solve (the inner solves
-        # of the refinement when it runs in f32)
+        # the BC-masked stepping matrix, and the Krylov solve: in f32 the
+        # refinement loop around its inner ChunkedCG, else the ChunkedCG
         self._A_bc = self._masked(self.A, self.mask)
         cg_op = (self._masked(self.A_lo, self.mask_lo) if self._mixed
                  else self._A_bc)
         self._vmax = _max_norm(lat)
-        # under "graphs" in f32 the refinement loop on the device, and its
-        # inner ChunkedCG as the CG solve
-        self._ir = None
-        if self._mixed and self.cg_loop == "graphs":
-            self._ir = ChunkedIRCG(
+        if self._mixed:
+            self._solve = ChunkedIRCG(
                 self._A_bc, cg_op, self._precond, self.solve_dtype,
                 chunk=self.cg_chunk, dot=self._dot, pool=self._pool,
                 runner=self._graphs, x_stat=self._vmax)
-            self._cg = self._ir.inner
+            self._cg = self._solve.inner
         else:
-            self._cg = make_cg(self.cg_loop, cg_op, self._precond,
-                               self.cg_chunk, self._dot, self._pool)
+            self._solve = self._cg = ChunkedCG(
+                cg_op, self._precond, self.cg_chunk, self._dot, self._pool,
+                eager=self._graphs.eager)
         self._cg_op = cg_op
 
     # ------------------------------------------------------------------
@@ -301,11 +307,17 @@ class LinearElastodynamics:
 
         return apply
 
-    def masked_operator(self, op):
+    def masked_operator(self, op, mask: Optional[torch.Tensor] = None):
         """BC-eliminated SPD action of `op` under the model's Dirichlet
-        mask: identity on constrained DoFs (on this rank's rows under a
-        `device_mesh`)."""
-        return self._masked(op, self.mask)
+        mask (`mask`, by default the model's `mask`; `mask_lo` for an
+        operator in the solve dtype): identity on constrained DoFs (on
+        this rank's rows under a `device_mesh`)."""
+        return self._masked(op, self.mask if mask is None else mask)
+
+    @property
+    def preconditioner(self):
+        """The Krylov solve's preconditioner (lo -> lo), or None."""
+        return self._precond
 
     def local_rows(self, v: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global (n_nodes, dim) vector (all of them
@@ -365,49 +377,15 @@ class LinearElastodynamics:
     def jittable_step(self):
         """The step function `(state, data) -> (state, info)` that `step`
         runs (the JAX package's, which it wraps in `jax.jit`; the port has
-        no such transform): under `cg_loop="graphs"` the device step,
-        whose right-hand side, refinements, CG chunks and update the model
-        replays from its CUDA graphs; under "host" (and for the Direct
-        solve) the eager lines with the host loops. Every rank of a
-        `device_mesh` calls it in lockstep. The model does not hold it."""
-        if self.cg_loop == "graphs" and self._direct is None:
-            return self._step_device
-        return self._step_host
-
-    def _step_host(self, state: LinearState, interface_data: torch.Tensor):
-        """`step` under `cg_loop="host"` and for the Direct solve: the
-        eager lines, the host refinement loop around the host CG."""
-        F_new = self.assemble_load(interface_data)
-        rhs = self._rhs(state.displacement, state.velocity, state.old_load,
-                        F_new)
-        if self._direct is not None:
-            # the whole system on every rank (one factor each): the gathered
-            # right-hand side, this rank's rows of the solution
-            v_new = self.local_rows(self._direct.solve(self.global_rows(rhs)))
-            iters, resn = 1, 0.0
-        else:
-            if self._mixed:
-                res = ir_cg_solve(
-                    self._A_bc, self._cg_op, rhs,
-                    self.mask * state.velocity, tol=CG_TOL,
-                    max_iter=self._max_cg_iter, lo_dtype=self.solve_dtype,
-                    preconditioner=self._precond, dot=self._dot,
-                )
-            else:
-                res = self._cg(rhs, self.mask * state.velocity, CG_TOL,
-                               self._max_cg_iter)
-            self.host_syncs += res.host_syncs
-            v_new, iters, resn = res.x, res.iterations, res.residual_norm
-        d_new = self._update(state.displacement, state.velocity, v_new)
-        self.host_syncs += 1
-        info = StepInfo(iterations=iters, residual=resn,
-                        linf_velocity=float(self._vmax(v_new)))
-        return LinearState(d_new, v_new, F_new), info
+        no such transform): the one step, under either `cg_loop` and for
+        every solver (module docstring). Every rank of a `device_mesh`
+        calls it in lockstep. The model does not hold it."""
+        return self._step
 
     def _step_buffers(self, state: LinearState, interface_data):
-        """The device step's static buffers (allocated at the first step;
-        later steps must bring the same shapes and dtypes), with the
-        step's inputs copied in."""
+        """The step's static buffers (allocated at the first step; later
+        steps must bring the same shapes and dtypes), with the step's
+        inputs copied in."""
         ins = (*state, interface_data)
         b = self._sb
         if b is None:
@@ -419,6 +397,7 @@ class LinearElastodynamics:
                 F=torch.empty_like(interface_data, dtype=f_dtype),
                 rhs=torch.empty_like(state.displacement),
                 x0=torch.empty_like(state.displacement),
+                v=torch.empty_like(state.displacement),  # the Direct solution
                 d_new=torch.empty_like(state.displacement),
                 status=torch.zeros((), dtype=torch.float64,
                                    device=self.device),
@@ -428,46 +407,54 @@ class LinearElastodynamics:
                                                       t.device):
                 raise ValueError(
                     f"step: an input {tuple(t.shape)} {t.dtype} on {t.device}"
-                    f"; the device step's buffers are {tuple(buf.shape)} "
+                    f"; the step's buffers are {tuple(buf.shape)} "
                     f"{buf.dtype} on {buf.device}")
             buf.copy_(t)
         return b
 
-    def _device_rhs(self, b):
+    def _rhs_body(self, b):
         disp, vel, old, data = b.inputs
         b.F.copy_(self.assemble_load(data))
         b.rhs.copy_(self._rhs(disp, vel, old, b.F))
         b.x0.copy_(self.mask * vel)
 
-    def _device_update(self, b, v_new, with_vmax):
+    def _update_body(self, b, v_new, with_vmax):
         disp, vel = b.inputs[:2]
         b.d_new.copy_(self._update(disp, vel, v_new))
         if with_vmax:
             b.status.copy_(self._vmax(v_new))
 
-    def _step_device(self, state: LinearState, interface_data):
-        """`step` under `cg_loop="graphs"` (module docstring): the same
-        lines through the graph runner, the solve's loops on the device;
-        `StepInfo` from the solve's last status read-back (the f64 CG
-        reads the max norm once after it)."""
+    def _step(self, state: LinearState, interface_data):
+        """`step` (module docstring), in `_make_step`'s order: the
+        right-hand side, the solve's branch, the update, `StepInfo` from
+        the solve's last status read-back (the f64 CG and the Direct solve
+        read the max norm once after the update)."""
         b = self._step_buffers(state, interface_data)
         run = self._graphs
-        run("rhs", lambda: self._device_rhs(b))
-        solve = self._ir if self._mixed else self._cg
-        res = solve(b.rhs, b.x0, CG_TOL, self._max_cg_iter)
-        self.host_syncs += res.host_syncs
-        v_new = solve._x
-        with_vmax = not self._mixed
+        run("rhs", lambda: self._rhs_body(b))
+        if self._direct is not None:
+            # the whole system on every rank (one factor each): the gathered
+            # right-hand side, this rank's rows of the solution
+            b.v.copy_(self.local_rows(
+                self._direct.solve(self.global_rows(b.rhs))))
+            res, v_new = None, b.v
+        else:
+            res = self._solve(b.rhs, b.x0, CG_TOL, self._max_cg_iter)
+            self.host_syncs += res.host_syncs
+            v_new = self._solve._x
+        with_vmax = not self._mixed or res is None
         run(("update", with_vmax),
-            lambda: self._device_update(b, v_new, with_vmax))
+            lambda: self._update_body(b, v_new, with_vmax))
         if with_vmax:
             self.host_syncs += 1
             vmax = b.status.item()
         else:
             vmax = res.x_stat
-        info = StepInfo(iterations=res.iterations, residual=res.residual_norm,
-                        linf_velocity=vmax)
-        return LinearState(b.d_new.clone(), res.x, b.F.clone()), info
+        if res is None:
+            info, v = StepInfo(1, 0.0, vmax), b.v.clone()
+        else:
+            info, v = StepInfo(res.iterations, res.residual_norm, vmax), res.x
+        return LinearState(b.d_new.clone(), v, b.F.clone()), info
 
     def with_delta_t(self, delta_t: float) -> "LinearElastodynamics":
         """A solver clone stepping with a different dt on the same mesh and
@@ -475,7 +462,8 @@ class LinearElastodynamics:
         an integer multiple of delta_t is closed with a shortened stepper,
         `adapter.h:104-107`). The stepping matrix and its preconditioner
         depend on dt, so the clone rebuilds them once (and, under
-        `cg_loop="graphs"`, captures its own CG graphs)."""
+        `cg_loop="graphs"` on the card, captures its own graphs), with
+        the model's `cg_loop` and `cg_chunk`."""
         if float(delta_t) == float(self.params.delta_t):
             return self
         cache = self.__dict__.setdefault("_dt_clones", {})

@@ -6,7 +6,8 @@ whole solve inside one `lax.while_loop`. Here:
 
 * `cg_solve` is a host loop that reads the residual norm back every
   iteration (`resn > tol`), one device-to-host sync per iteration. It is
-  the oracle of `ChunkedCG` and the "host" side of the models' `cg_loop`;
+  the oracle of `ChunkedCG` and the Neo-Hookean model's CG under
+  `cg_loop="host"`;
 * `ChunkedCG` keeps the loop state (x, r, p, rz, the iteration count and
   the residual norm) and the tolerance and cap in device tensors and runs
   the loop in chunks of `chunk` iterations. Each iteration is the JAX
@@ -23,7 +24,9 @@ whole solve inside one `lax.while_loop`. Here:
   `torch.cuda.CUDAGraph` (operator, preconditioner and dots: on the
   models' paths the tangent kernel and the whole V-cycle) at the first
   solve and replayed for every later one; a capture or replay that fails
-  raises. On the CPU the same code runs eagerly.
+  raises. On the CPU, and on a card when built with `eager=True` (the
+  linear model under `cg_loop="host"`, whose collectives on gloo ranks
+  cannot be captured), the same code runs eagerly.
 
 Every solve and `estimate_lambda_max` take the inner product as `dot`
 (default `_dot`): on row-distributed vectors (the lattice partition) the
@@ -246,12 +249,14 @@ class ChunkedCG:
     Python, which a replay does not run: the launches each capture
     recorded are set back (a capture launches nothing) and added again at
     every replay (`kernels/counters.py`), so the counts stay device
-    launches, the masked iterations of a solve's last chunk included."""
+    launches, the masked iterations of a solve's last chunk included.
+    With `eager=True` nothing is captured and the same code runs eagerly
+    on the card too."""
 
     def __init__(self, operator: Callable,
                  preconditioner: Optional[Callable] = None,
                  chunk: int = CG_CHUNK, dot: Callable = _dot, pool=None,
-                 status_slots: int = 0):
+                 status_slots: int = 0, eager: bool = False):
         if int(chunk) < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.operator = operator
@@ -263,6 +268,7 @@ class ChunkedCG:
         # for the code that runs the solves to publish its own scalars in
         # (`ChunkedIRCG`), so that they cost no read-back of their own
         self.status_slots = int(status_slots)
+        self.eager = bool(eager)  # run the start and chunks, capture nothing
         self._like = None  # (shape, dtype, device) of b, fixed at the first call
         self._graphs = None  # [(CUDAGraph, launches per replay)] once captured
 
@@ -336,8 +342,8 @@ class ChunkedCG:
         self._graphs = graphs
 
     def _run(self, which: int):
-        """The start (0) or one chunk (1): a graph replay on a CUDA device,
-        the eager code on the CPU."""
+        """The start (0) or one chunk (1): a graph replay once captured,
+        else the eager code."""
         if self._graphs is None:
             (self._start, self._chunk)[which]()
             return
@@ -349,7 +355,8 @@ class ChunkedCG:
 
     def bind(self, b: torch.Tensor, max_iter: int) -> None:
         """Fix (at the first call) or check b's shape, dtype and device,
-        write the cap, and on a CUDA device capture the graphs once."""
+        write the cap, and on a CUDA device capture the graphs once
+        (unless `eager`)."""
         if self._like is None:
             self._allocate(b)
         elif (b.shape, b.dtype, b.device) != self._like:
@@ -359,7 +366,7 @@ class ChunkedCG:
                 f"on {self._like[2]}"
             )
         self._max_iter.fill_(min(int(max_iter), _INT32_MAX))
-        if b.is_cuda and self._graphs is None:
+        if b.is_cuda and self._graphs is None and not self.eager:
             self._capture()
 
     def read_status(self) -> list:
@@ -403,7 +410,8 @@ class ChunkedIRCG:
     `body` after its inner solve: `x += inner.x`, `r = b - A_hi(x)`, its
     norm, k and the count advanced) run through `runner`
     (`graphs.py:GraphRunner`: replayed from CUDA graphs on a card, eager
-    on the CPU), and each ends with the JAX `cond` (`resn > tol` and the
+    on the CPU or where the runner is `eager`, and then so is the inner
+    solve), and each ends with the JAX `cond` (`resn > tol` and the
     count below `max_refinements`) computed on the device. The next inner
     solve's right-hand side r and tolerance `inner_rtol * resn` are
     written into the inner `ChunkedCG`'s buffers there, so the inner
@@ -443,7 +451,8 @@ class ChunkedIRCG:
         self.runner = runner  # a GraphRunner (default: one of its own)
         self.x_stat = x_stat
         self.inner = ChunkedCG(operator_lo, preconditioner, chunk, dot, pool,
-                               status_slots=len(self.SLOTS))
+                               status_slots=len(self.SLOTS),
+                               eager=runner is not None and runner.eager)
         self._like = None
 
     def _allocate(self, b: torch.Tensor):

@@ -14,16 +14,16 @@ launches per replay, and every replay adds them again
 (`kernels/counters.py`).
 
 `GraphRunner(device, pool, eager=True)` runs every body eagerly and
-captures nothing, with the same call: the runner of a model whose Krylov
-loop runs on the host (`cg_loop="host"`), whose collectives on gloo ranks
-cannot be captured.
+captures nothing, with the same call: the runner of a model built with
+`cg_loop="host"`, whose collectives on gloo ranks cannot be captured.
 
 The Neo-Hookean model's Newton loop runs its residuals, tangent refills,
 decisions and updates through one runner that shares its pool with the
 model's CG graphs (`cg.py:ChunkedCG`, which warms both its bodies up
 before it captures either; both capture through `capture`), and the
-linear model's device step its right-hand side, update and
-defect-correction loop (`cg.py:ChunkedIRCG`) the same way.
+linear model's step its right-hand side, update and defect-correction
+loop (`cg.py:ChunkedIRCG`) the same way; an eager runner makes the
+linear model's `ChunkedCG` eager too.
 """
 
 from __future__ import annotations

@@ -5,6 +5,8 @@ replace (interpret mode, f64 rtol 1e-12); K1 against `torch.func.jvp`
 of the ported internal force; and the f32 tangent's action on rigid
 translations against the f64 tangent's (2e-5)."""
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -360,15 +362,33 @@ def test_tangent_kernel_dispatch():
         assert tangent_kernel_id(p) == "K2"
 
 
+@contextlib.contextmanager
+def _jax_takes_lam_max(values):
+    """The JAX package's multigrid hierarchies built inside take `values`
+    (one per level, fine first) in place of their power iterations (in 2D
+    ~7 s of XLA compilation and run a hierarchy on the CPU)."""
+    from dealii_adapter_tpu.solvers import cg as jcg
+
+    it = iter(values)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(it))
+        yield
+
+
 @pytest.mark.parametrize("sym", [False, True])
 def test_2d_steps_match_jax_for_every_tangent_kernel(sym):
     """Two Newmark steps of the 2D flap: the port with each kernel of the
     storage (`tangent_block_symmetric=sym`) against one JAX run (off the
     TPU the JAX result does not depend on the kernel knob): the same
-    Newton iterations, displacements within rtol 1e-6."""
+    Newton iterations, displacements within rtol 1e-6. Every hierarchy
+    takes the port's lam_max estimates (the fine proxy's, the same for
+    every kernel)."""
     jp = JaxParams(tangent_block_symmetric=sym, **NONLINEAR_2D)
-    jm = JaxModel(jp)
-    lam = [lv.lam_max for lv in jm._precond.levels]
+    lam = [lv.lam_max for lv in NonlinearElasticity(
+        params_from_jax(jp), device="cpu")._precond.levels]
+    with _jax_takes_lam_max(lam):
+        jm = JaxModel(jp)
+    assert [lv.lam_max for lv in jm._precond.levels] == lam
     stress = np.zeros((jm.space.n_nodes, 2))
     stress[jm.space.boundary_nodes[jm.interface_id], 0] = 1000.0
     js, jits = jm.initial_state(), []

@@ -203,12 +203,24 @@ def test_postprocessor_and_vtu_copies(dim, degree, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _pair(kw, neo, fake_kw, surrogate=None):
-    """The JAX and ported model, participant and adapter for one run."""
+@pytest.fixture(scope="module")
+def models():
+    """{configuration: (JAX model, ported model)}, filled by `_pair` for
+    the module: a model keeps no state from one step to the next, so the
+    runs of one configuration share one JAX compilation."""
+    return {}
+
+
+def _pair(models, kw, neo, fake_kw, surrogate=None):
+    """The JAX and ported model (from `models`, built at the first run of
+    a configuration), participant and adapter for one run."""
     jp = JaxParams(**kw)
     jcls, tcls = (JaxNonlinear, NonlinearElasticity) if neo else (
         JaxLinear, LinearElastodynamics)
-    jm, tm = jcls(jp), tcls(params_from_jax(jp), device="cpu")
+    key = tuple(sorted(kw.items()))
+    if key not in models:
+        models[key] = jcls(jp), tcls(params_from_jax(jp), device="cpu")
+    jm, tm = models[key]
     out = []
     for pkg, m, Fake, Surr, Ad in (
         ("jax", jm, JaxFake, _recording(JaxSurrogate), JaxAdapter),
@@ -254,7 +266,7 @@ def _compare_histories(ja, tb, rtol):
     ["explicit_linear", "implicit_linear", "subcycling_linear",
      "implicit_neo_hookean", "surrogate_neo_hookean"],
 )
-def test_coupled_run_matches_jax(case):
+def test_coupled_run_matches_jax(models, case):
     neo = case.endswith("neo_hookean")
     kw = dict(NEO_HOOKEAN if neo else LINEAR)
     fake_kw, surrogate, strict = dict(read_fn=_traction), None, True
@@ -274,7 +286,8 @@ def test_coupled_run_matches_jax(case):
             return sig - 2.0e7 * u
 
         surrogate = dict(stress_fn=stress_fn, eps=1e-6, acceleration="aitken")
-    (jm, jpart, jad), (tm, tpart, tad) = _pair(kw, neo, fake_kw, surrogate)
+    (jm, jpart, jad), (tm, tpart, tad) = _pair(models, kw, neo, fake_kw,
+                                               surrogate)
     outs = {"jax": [], "torch": []}
     js = jax_coupled_run(jm, jad, strict_dt=strict,
                          output_cb=lambda s, t, i: outs["jax"].append(t.current()))

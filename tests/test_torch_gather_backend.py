@@ -11,6 +11,7 @@ interface covers only part of a lattice side, which takes the gather
 formulation on every backend (rtol 1e-12 against the JAX package's
 `_external_force_gather`). Inputs come from numpy seeds."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -67,6 +68,19 @@ PRODUCTION_3D = dict(model="neo-Hookean", type_lin="CG", scenario="PF", dim=3,
                      element_backend="gather")
 
 
+@contextlib.contextmanager
+def _jax_takes_lam_max(values):
+    """The JAX package's multigrid hierarchies built inside take `values`
+    (one per level, fine first) in place of their power iterations (in 3D
+    ~10 s of XLA compilation and run a hierarchy on the CPU)."""
+    from dealii_adapter_tpu.solvers import cg as jcg
+
+    it = iter(values)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(it))
+        yield
+
+
 def _stress(space, interface_id, magnitude):
     s = np.zeros((space.n_nodes, space.dim))
     s[space.boundary_nodes[interface_id], 0] = magnitude
@@ -121,8 +135,8 @@ def test_gather_nonlinear_step_matches_jax(case):
     """The Neo-Hookean step on the gather backend (its jvp tangent) against
     the JAX package's gather step: Newton counts equal, CG within 2 a
     Newton iteration; 2D (f64 Jacobi CG) to rtol 1e-7 (atol 1e-12), the 3D
-    production solver (f32 CG, bf16 V-cycle with the JAX hierarchy's
-    lam_max) to 1e-8 of max|u| (tests/test_sharding.py's)."""
+    production solver (f32 CG, bf16 V-cycle, both hierarchies on the
+    port's lam_max estimates) to 1e-8 of max|u| (tests/test_sharding.py's)."""
     if case == "2d":
         jp = JaxParams(**NONLINEAR_2D)
         jm = JaxNonlinear(jp)
@@ -130,10 +144,11 @@ def test_gather_nonlinear_step_matches_jax(case):
         mag = 5000.0
     else:
         jp = JaxParams(**PRODUCTION_3D)
-        jm = JaxNonlinear(jp)
-        tm = NonlinearElasticity(
-            params_from_jax(jp), device="cpu",
-            mg_lam_max=[lv.lam_max for lv in jm._precond.levels])
+        tm = NonlinearElasticity(params_from_jax(jp), device="cpu")
+        lam = [lv.lam_max for lv in tm._precond.levels]
+        with _jax_takes_lam_max(lam):
+            jm = JaxNonlinear(jp)
+        assert [lv.lam_max for lv in jm._precond.levels] == lam
         mag = 1000.0
     assert tm.plan is not None and not tm._use_assembled
     st = _stress(tm.space, tm.interface_id, mag)

@@ -9,6 +9,7 @@ reference's own Neo-Hookean configuration (FSI3, Q4, f64 Jacobi CG) for
 three steps, and `tangent_backend="jvp"` against `"assembled"` and the
 JAX jvp path."""
 
+import contextlib
 import dataclasses
 import os
 
@@ -197,20 +198,21 @@ def test_assembled_rejected(override, match):
 
 @pytest.mark.parametrize(
     "kw,steps",
-    [(dict(dim=2, solve_dtype="", precond_dtype="float32"), 2),
-     (dict(dim=3, tangent_backend="jvp"), 2),
-     (dict(dim=2, solve_dtype="", preconditioner="Chebyshev"), 2),
+    [(dict(dim=2, solve_dtype="", precond_dtype="float32"), 1),
+     (dict(dim=3, tangent_backend="jvp"), 1),
+     (dict(dim=2, solve_dtype="", preconditioner="Chebyshev"), 1),
      (dict(dim=2, solve_dtype="", preconditioner="None"), 1)],
     ids=["f64_jvp_2d_mg", "f32_jvp_3d_mg", "f64_jvp_2d_chebyshev",
          "f64_jvp_2d_none"],
 )
 def test_chunked_cg_on_jvp_equals_the_host_loop(kw, steps):
-    """Production steps with the CG in chunks of 3 (`cg_loop="graphs"`,
+    """A production step with the CG in chunks of 3 (`cg_loop="graphs"`,
     eager on the CPU) over each jvp operator (f64 under an f32 V-cycle, a
     Chebyshev smoother or none in 2D, f32 under the bf16 V-cycle in 3D)
-    give the host loop's `NewtonInfo` and state bit for bit; the
+    gives the host loop's `NewtonInfo` and state bit for bit; the
     linearization point lives in persistent buffers that every Newton
-    iteration refills."""
+    iteration refills (a step from rest takes at least 4 Newton
+    iterations here, so at least 3 refills)."""
     p = AllParameters(**dict(PRODUCTION, **kw))
     mesh, tags = make_scenario_grid("PF", p.dim, 2, scale=1,
                                     solver="neo-Hookean")
@@ -226,7 +228,7 @@ def test_chunked_cg_on_jvp_equals_the_host_loop(kw, steps):
     for _ in range(steps):
         (sh, ih), (sc, ic) = (m.step(st, stress)
                               for m, st in zip((host, chunked), states))
-        assert ih.converged and ic == ih
+        assert ih.converged and ic == ih and ih.iterations >= 4
         assert all(torch.equal(a, b) for a, b in zip(sc, sh))
         states = [sh, sc]
     assert chunked.host_syncs < host.host_syncs
@@ -348,14 +350,38 @@ def test_reference_default_steps_match_jax(monkeypatch):
             assert abs(a - b) <= 3, (i, port_its, jax_its)
 
 
+@contextlib.contextmanager
+def _jax_takes_lam_max(values):
+    """The JAX package's multigrid hierarchies built inside take `values`
+    (one per level, fine first) in place of their power iterations (in 2D
+    ~7 s of XLA compilation and run a hierarchy on the CPU)."""
+    from dealii_adapter_tpu.solvers import cg as jcg
+
+    it = iter(values)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(it))
+        yield
+
+
 def _production(tangent_backend, **kw):
+    """The production configuration with `kw` and its JAX model, whose
+    hierarchy takes the port's lam_max estimates."""
     jp = JaxParams(**dict(PRODUCTION, tangent_backend=tangent_backend, **kw))
-    mesh, tags = jax_grid("PF", 3, 2, scale=1, solver="neo-Hookean")
-    return jp, jax_nl.NonlinearElasticity(jp, mesh=mesh, tags=tags)
+    mesh, tags = make_scenario_grid("PF", jp.dim, 2, scale=1,
+                                    solver="neo-Hookean")
+    lam = [lv.lam_max for lv in NonlinearElasticity(
+        params_from_jax(jp), mesh=mesh, tags=tags, device="cpu"
+    )._precond.levels]
+    jmesh, jtags = jax_grid("PF", jp.dim, 2, scale=1, solver="neo-Hookean")
+    with _jax_takes_lam_max(lam):
+        jm = jax_nl.NonlinearElasticity(jp, mesh=jmesh, tags=jtags)
+    assert [lv.lam_max for lv in jm._precond.levels] == lam
+    return jp, jm
 
 
 def _port(jp, jm, **kw):
-    mesh, tags = make_scenario_grid("PF", 3, 2, scale=1, solver="neo-Hookean")
+    mesh, tags = make_scenario_grid("PF", jp.dim, 2, scale=1,
+                                    solver="neo-Hookean")
     p = dataclasses.replace(params_from_jax(jp), **kw)
     return NonlinearElasticity(p, mesh=mesh, tags=tags, device="cpu",
                                mg_lam_max=[lv.lam_max for lv in jm._precond.levels])
@@ -366,13 +392,18 @@ def test_jvp_backend_steps_match_assembled_and_jax():
     tangent) take the Newton iterations of the port's assembled tangent
     and of the JAX package's jvp path, and their displacements agree
     within 1e-6 relative (the JAX package's
-    test_model_step_equivalent_backends)."""
-    jp, jm = _production("jvp")
+    test_model_step_equivalent_backends). On the 2D flap (518 DoF; 4-5
+    Newton iterations a step, the jvp tangent's linearization point
+    refilled at each): the JAX package's 2D step compiles in about a
+    fifth of its 3D step's time, and the f32 jvp tangent in 3D is held
+    against the JAX package's by `test_f32_jvp_operator_matches_jax[3]`
+    and `test_chunked_cg_on_jvp_equals_the_host_loop[f32_jvp_3d_mg]`."""
+    jp, jm = _production("jvp", dim=2)
     assert not jm._use_assembled
     models = {b: _port(jp, jm, tangent_backend=b) for b in ("jvp", "assembled")}
     for b, m in models.items():
         assert m._use_assembled == (b == "assembled")
-    stress = _stress(jm, 1000.0, 3)
+    stress = _stress(jm, 1000.0, 2)
     js = jm.initial_state()
     states = {b: m.initial_state() for b, m in models.items()}
     for _ in range(2):
@@ -387,3 +418,78 @@ def test_jvp_backend_steps_match_assembled_and_jax():
     for other in (states["assembled"].displacement.numpy(),
                   np.asarray(js.displacement)):
         assert np.linalg.norm(u_jvp - other) / np.linalg.norm(other) < 1e-6
+
+
+def test_tf32_products_would_spoil_the_linear_stepping_matrix():
+    """The same emulation on the linear model's f32 stepping matrix
+    A = M + (theta dt)^2 K (the f32 inner solve's operator,
+    `StructuredOperator`'s one product; tests/test_golden_trajectory.py's
+    linear configuration with the f32 solve, 2D Q2, 518 DoF): against the
+    f64 matrix on the same f32 vector its error is f32 rounding (~1e-7,
+    within the 1e-5 bound of the f32 parity tests) with TF32 off, and
+    with TF32 products past that bound (~2.5e-4)."""
+    from dealii_adapter_tpu_torch.models.linear_elasticity import (
+        LinearElastodynamics,
+    )
+
+    p = AllParameters(model="linear", type_lin="CG", scenario="PF", dim=2,
+                      poly_degree=2, delta_t=0.005, theta=0.5, mu=0.5e6,
+                      nu=0.4, rho=1000.0, solve_dtype="float32")
+    m = LinearElastodynamics(p, device="cpu")
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (m.space.n_nodes, 2)), dtype=torch.float32)
+    exact = m.A(v.double())
+
+    def err():
+        got = m.A_lo(v).double()
+        return float((got - exact).abs().max() / exact.abs().max())
+
+    e32 = err()
+    with _TF32Products():
+        e_tf32 = err()
+    print(f"f32 stepping matrix error: {e32:.3e} (f32 products), "
+          f"{e_tf32:.3e} (TF32 products)")
+    assert e32 < 1e-6
+    assert e_tf32 > 1e-5, (e32, e_tf32)
+
+
+def test_tf32_products_would_spoil_the_tangent_assembly():
+    """The same emulation on the f32 tangent assembly
+    (`ops/assembled_tangent.py:assemble_cell_tangents`, 2D Q2 flap): the
+    gradient products are f32 (the contraction sums in f64, which TF32
+    does not touch). At a deformation with grad u ~ 0.1 the f32 blocks are
+    within f32 rounding of the f64 ones (~1.6e-7 of the largest entry)
+    with TF32 off, and past the 1e-5 bound of the assembly parity tests
+    (tests/test_torch_assembled_tangent.py) with TF32 products (~2e-4).
+    At grad u ~ 1e-2 TF32 stays inside that bound (~4e-6)."""
+    from dealii_adapter_tpu_torch.fem.dofspace import DofSpace
+    from dealii_adapter_tpu_torch.models.material import NeoHookean
+    from dealii_adapter_tpu_torch.ops import assembled_tangent as tat
+
+    mesh, _ = make_scenario_grid("PF", 2, 2, solver="neo-Hookean")
+    space = DofSpace.create(mesh, n_q_1d=4)
+    h = np.asarray(mesh.cell_h)
+    G = space.tab.dN / h[None, None, :]
+    w = space.tab.q_weights * float(np.prod(h))
+    ut = 1e-3 * np.random.default_rng(0).standard_normal(
+        (2, space.tab.n_nodes, int(np.prod(mesh.reps))))
+    material = NeoHookean(0.5e6, 0.4, 1000.0)
+
+    def blocks(dtype):
+        K = tat.assemble_cell_tangents(
+            *(torch.as_tensor(x, dtype=dtype) for x in (ut, G, w)), material)
+        return torch.stack([K[d][e] for d in range(2) for e in range(2)])
+
+    exact = blocks(torch.float64)
+
+    def err():
+        got = blocks(torch.float32).double()
+        return float((got - exact).abs().max() / exact.abs().max())
+
+    e32 = err()
+    with _TF32Products():
+        e_tf32 = err()
+    print(f"f32 tangent assembly error: {e32:.3e} (f32 products), "
+          f"{e_tf32:.3e} (TF32 products)")
+    assert e32 < 1e-6
+    assert e_tf32 > 1e-5, (e32, e_tf32)

@@ -6,6 +6,7 @@ solvers, the chunked CG's steps against the host loop's (bit for bit),
 the subcycling clone, and the recorded golden tip trajectories
 `linear_pf_q2` and `linear_pf_q3` (rtol 1e-9)."""
 
+import contextlib
 import json
 import os
 
@@ -69,14 +70,47 @@ def _stress(model, magnitude=1000.0):
     return s
 
 
+@contextlib.contextmanager
+def _jax_takes_lam_max(values):
+    """The JAX package's multigrid hierarchies built inside take `values`
+    (one per level, fine first) in place of their power iterations (in 3D
+    ~10 s of XLA compilation and run a hierarchy on the CPU)."""
+    from dealii_adapter_tpu.solvers import cg as jcg
+
+    it = iter(values)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(it))
+        yield
+
+
+@pytest.fixture(scope="module")
+def models():
+    """`models(**kw)`: the JAX and ported models of `GOLDEN` with `kw`,
+    built once a configuration for the module (a model keeps no state
+    from one step to the next, so one JAX compilation serves every test
+    of a configuration)."""
+    pairs = {}
+
+    def get(**kw):
+        key = tuple(sorted(dict(GOLDEN, **kw).items()))
+        if key not in pairs:
+            pairs[key] = _models(**kw)
+        return pairs[key]
+
+    return get
+
+
 def _models(**kw):
+    """The JAX and ported models of `GOLDEN` with `kw`; a multigrid
+    hierarchy takes the port's lam_max estimates on both."""
     jp = JaxParams(**dict(GOLDEN, **kw))
-    jm = JaxModel(jp)
-    lam = (
-        [lv.lam_max for lv in jm._precond.levels]
-        if jp.preconditioner == "MG" else None
-    )
-    tm = LinearElastodynamics(params_from_jax(jp), device="cpu", mg_lam_max=lam)
+    tm = LinearElastodynamics(params_from_jax(jp), device="cpu")
+    if jp.preconditioner != "MG":
+        return JaxModel(jp), tm
+    lam = [lv.lam_max for lv in tm._precond.levels]
+    with _jax_takes_lam_max(lam):
+        jm = JaxModel(jp)
+    assert [lv.lam_max for lv in jm._precond.levels] == lam
     return jm, tm
 
 
@@ -147,7 +181,7 @@ def test_ir_cg_solve_matches_jax():
 
 @pytest.mark.parametrize("solver", list(SOLVERS))
 @pytest.mark.parametrize("dim", [2, 3])
-def test_steps_match_jax(dim, solver):
+def test_steps_match_jax(models, dim, solver):
     """Five theta-steps from the same state under a constant traction.
 
     The Jacobi f64 solves take ~200 CG iterations to the absolute 1e-10,
@@ -158,7 +192,7 @@ def test_steps_match_jax(dim, solver):
     iteration falls a few apart (seen: 2 of 195 in 3D). Counts must agree
     within 3; the fields within rtol."""
     kw, rtol, same_counts = SOLVERS[solver]
-    jm, tm = _models(dim=dim, **kw)
+    jm, tm = models(dim=dim, **kw)
     stress = _stress(tm)
     js, ts = jm.initial_state(), tm.initial_state()
     for _ in range(5):
@@ -175,11 +209,14 @@ def test_steps_match_jax(dim, solver):
 
 @pytest.mark.parametrize("solver", ["jacobi_f64", "mg_bf16_ir"])
 def test_chunked_cg_step_equals_the_host_loop(solver):
-    """Three theta-steps with the CG in chunks (`cg_loop="graphs"`, run
-    eagerly on the CPU; the refinement's inner tolerance written to the
-    solver's tolerance tensor each round) give the host loop's `StepInfo`
-    and state bit for bit, and its clone keeps the loop. The chunk is set
-    to 3 iterations on the built solver, so that masked iterations run."""
+    """Three theta-steps with the CG in chunks of 3 (`cg_loop="graphs"`,
+    run eagerly on the CPU; the refinement's inner tolerance written to
+    the solver's tolerance tensor each round) give the `cg_loop="host"`
+    step's `StepInfo` and state bit for bit (the one step, its bodies
+    eager, chunks of 1), and its clone keeps the loop. Both read back
+    once a chunk plus at most once a step: the host form at most its CG
+    iterations + 1, the chunks of 3 fewer than the CG iterations. The
+    chunk is set on the built solver, so that masked iterations run."""
     kw = SOLVERS[solver][0]
     params = params_from_jax(JaxParams(**dict(GOLDEN, **kw)))
     models = [LinearElastodynamics(params, device="cpu", cg_loop=loop)
@@ -188,20 +225,23 @@ def test_chunked_cg_step_equals_the_host_loop(solver):
     stress = torch.as_tensor(_stress(models[0]))
     states = [m.initial_state() for m in models]
     for _ in range(3):
+        syncs = [m.host_syncs for m in models]
         (host, hi), (chunked, ci) = (m.step(st, stress)
                                      for m, st in zip(models, states))
         assert ci == hi and hi.residual <= 1e-10
         assert all(torch.equal(a, b) for a, b in zip(chunked, host))
+        dsyncs = [m.host_syncs - s for m, s in zip(models, syncs)]
+        assert dsyncs[0] <= hi.iterations + 1
+        assert dsyncs[1] < hi.iterations
         states = [host, chunked]
-    assert models[1].host_syncs < models[0].host_syncs
     clone = models[1].with_delta_t(0.0025)
     assert clone.cg_loop == "graphs" and isinstance(clone._cg, tcg.ChunkedCG)
 
 
-def test_step_from_a_carried_state_matches_jax():
+def test_step_from_a_carried_state_matches_jax(models):
     """A step from a random state handed to both packages (the state
     carry-over of `convert.py`)."""
-    jm, tm = _models()
+    jm, tm = models()
     rng = np.random.default_rng(3)
     fields = [rng.standard_normal((tm.space.n_nodes, 2)) * s
               for s in (1e-3, 1e-1, 10.0)]
@@ -215,8 +255,8 @@ def test_step_from_a_carried_state_matches_jax():
     _assert_fields_close(ts, js, 1e-9)
 
 
-def test_with_delta_t_is_a_memoized_clone_matching_jax():
-    jm, tm = _models()
+def test_with_delta_t_is_a_memoized_clone_matching_jax(models):
+    jm, tm = models()
     assert tm.with_delta_t(tm.params.delta_t) is tm
     clone = tm.with_delta_t(0.0025)
     assert clone is tm.with_delta_t(0.0025) and clone is not tm

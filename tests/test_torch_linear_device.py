@@ -1,15 +1,19 @@
-"""The linear theta-step on the device (`cg_loop="graphs"`; on the CPU its
-graph bodies run eagerly) against its host loops (`cg_loop="host"`): the
-defect-correction loop on the device (`solvers/cg.py:ChunkedIRCG`)
-against the host-loop oracle `ir_cg_solve` bit for bit, at chunks of 1
-and 3 iterations, where the tolerance is met at the start, where the
-refinement cap ends the loop and with a bf16-preconditioned f32 inner CG;
-and three model steps of every solver bit for bit the host loop's, with
-at most one read-back a step besides the CG's chunks, on the 2D flap of
-the golden configuration (518 DoF). No JAX: the host loops are the
-oracles here; `tests/test_torch_linear.py` holds both against the JAX
-package."""
+"""The linear theta-step, written once (`LinearElastodynamics._step`):
+against an oracle step built from the model's public pieces alone
+(`assemble_load`, `masked_operator`, the host-loop `cg_solve` /
+`ir_cg_solve` or the dense Cholesky, the theta update) bit for bit, for
+every solver at chunks of 1 and 3 over three steps and a clone step; its
+replayed (`cg_loop="graphs"`; on the CPU its bodies run eagerly) and
+eager (`cg_loop="host"`) forms as one function with the same bits and
+read-backs; and the defect-correction loop on the device
+(`solvers/cg.py:ChunkedIRCG`) against `ir_cg_solve` bit for bit, at
+chunks of 1 and 3 iterations, where the tolerance is met at the start,
+where the refinement cap ends the loop and with a bf16-preconditioned
+f32 inner CG; on the 2D flap of the golden configuration (518 DoF). No
+JAX: the host loops are the oracles here; `tests/test_torch_linear.py`
+holds the step against the JAX package."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,8 +21,15 @@ from dealii_adapter_tpu_torch.config import AllParameters
 from dealii_adapter_tpu_torch.models.linear_elasticity import (
     CG_TOL,
     LinearElastodynamics,
+    LinearState,
+    StepInfo,
+)
+from dealii_adapter_tpu_torch.ops.element_ops import (
+    ElementMatrices,
+    assemble_dense,
 )
 from dealii_adapter_tpu_torch.solvers import cg as tcg
+from dealii_adapter_tpu_torch.solvers.direct import DenseCholesky
 
 torch.set_num_threads(1)
 
@@ -128,40 +139,120 @@ def test_device_refinement_equals_ir_cg_solve(case, chunk, guess,
         assert r.host_syncs < host.iterations
 
 
+def _dense_direct(model):
+    """The Direct solve of `model`'s stepping matrix, from public pieces:
+    the dense BC-masked matrix (identity on the constrained rows),
+    factored once."""
+    p, space = model.params, model.space
+    elem = ElementMatrices(space, p.lmbda, p.mu, p.rho)
+    A = assemble_dense(space, elem.M_e + (p.theta * p.delta_t) ** 2 * elem.K_e)
+    m = model.mask.numpy().reshape(-1)
+    A = A * m[:, None] * m[None, :]
+    A[np.diag_indices_from(A)] += 1.0 - m
+    return DenseCholesky(A, model.dtype, "cpu")
+
+
+def _oracle_step(model, state, data, direct=None):
+    """One theta-step of `model` from its public pieces (the JAX package's
+    `_make_step` line by line): the load, the right-hand side, the solve
+    (`ir_cg_solve` in f32 defect correction, `cg_solve`, or `direct`),
+    the update; `StepInfo` as the model reports it."""
+    p = model.params
+    dt, theta = p.delta_t, p.theta
+    mask, K, M = model.mask, model.K, model.M
+    disp, vel, old = state
+    F = model.assemble_load(data)
+    rhs = mask * (dt * theta * F + dt * (1.0 - theta) * old + M(vel)
+                  - (theta * (1.0 - theta) * dt * dt) * K(vel)
+                  - dt * K(disp))
+    max_iter = int(model.space.n_dofs * p.max_iterations_lin)
+    A_hi = model.masked_operator(model.A)
+    if direct is not None:
+        v, its, resn = direct.solve(rhs), 1, 0.0
+    else:
+        if model.solve_dtype != model.dtype:
+            r = tcg.ir_cg_solve(
+                A_hi, model.masked_operator(model.A_lo, model.mask_lo), rhs,
+                mask * vel, CG_TOL, max_iter, lo_dtype=model.solve_dtype,
+                preconditioner=model.preconditioner)
+        else:
+            r = tcg.cg_solve(A_hi, rhs, mask * vel, CG_TOL, max_iter,
+                             model.preconditioner)
+        v, its, resn = r.x, r.iterations, r.residual_norm
+    d = disp + dt * theta * v + dt * (1.0 - theta) * vel
+    return (LinearState(d, v, F),
+            StepInfo(its, resn, float(v.abs().max())))
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("solver", list(SOLVERS))
+def test_step_equals_the_public_function_oracle(models, solver, chunk):
+    """Three steps of the one step (`cg_loop="graphs"`, eager on the CPU)
+    and a step of its subcycling clone give the oracle step's `StepInfo`
+    and state bit for bit: every solver branch (the f32 refinement around
+    the bf16-preconditioned CG, the f64 Jacobi CG, the Direct solve) at
+    chunks of 1 and 3 (masked iterations)."""
+    model = models[solver][chunk]
+    assert model._cg.chunk == chunk
+    direct = _dense_direct(model) if solver == "direct" else None
+    stress = _stress(model)
+    st = ost = model.initial_state()
+    for _ in range(3):
+        (st, info), (ost, oinfo) = (model.step(st, stress),
+                                    _oracle_step(model, ost, stress, direct))
+        assert info == oinfo and type(info.iterations) is int
+        assert isinstance(info.residual, float)
+        assert all(torch.equal(a, b) for a, b in zip(st, ost))
+        if solver != "direct":
+            assert info.residual <= CG_TOL
+    clone = model.with_delta_t(0.0025)
+    direct = _dense_direct(clone) if solver == "direct" else None
+    (st, info), (ost, oinfo) = (clone.step(st, stress),
+                                _oracle_step(clone, ost, stress, direct))
+    assert info == oinfo
+    assert all(torch.equal(a, b) for a, b in zip(st, ost))
+
+
 @pytest.mark.parametrize("chunk", [1, 3])
 @pytest.mark.parametrize("solver", list(SOLVERS))
 def test_device_steps_equal_the_host_loop(models, solver, chunk):
-    """Three steps of `cg_loop="graphs"` give the host loops' `StepInfo`
-    and state bit for bit (for Direct the same code runs under both); the
-    device step reads back at most its CG iterations + 1 a step (chunks
-    of 1; fewer at 3), fewer than the host loop; the subcycling clone
-    keeps the loop, its chunk and its result."""
+    """The step replayed (`cg_loop="graphs"`) and eager (`cg_loop=
+    "host"`, chunks of 1) is one function (`jittable_step()`): three steps
+    give the same `StepInfo` and state bit for bit, and both read back
+    once a CG chunk plus at most once a step (the Direct solve once), so
+    at chunks of 1 equally often, at chunks of 3 the replayed form less;
+    the subcycling clone keeps the loop, its chunk and its result."""
     host, dev = models[solver]["host"], models[solver][chunk]
     assert dev.cg_loop == "graphs" and dev._cg.chunk == chunk
+    assert host._graphs.eager and host._cg.eager
+    assert not dev._graphs.eager and not dev._cg.eager
+    assert (host.jittable_step().__func__ is dev.jittable_step().__func__
+            is LinearElastodynamics._step)
     stress = _stress(host)
     states = [host.initial_state(), dev.initial_state()]
     for _ in range(3):
         syncs = [host.host_syncs, dev.host_syncs]
         (sh, ih), (sd, idv) = (m.step(st, stress)
                                for m, st in zip((host, dev), states))
-        assert idv == ih and type(idv.iterations) is int
-        assert isinstance(idv.residual, float)
-        assert isinstance(idv.linf_velocity, float)
+        assert idv == ih
         assert all(torch.equal(a, b) for a, b in zip(sd, sh))
         dsyncs = [host.host_syncs - syncs[0], dev.host_syncs - syncs[1]]
         if solver == "direct":
             assert dsyncs[1] == dsyncs[0] == 1
         else:
             assert ih.residual <= CG_TOL
-            assert dsyncs[1] <= ih.iterations + 1 < dsyncs[0]
-            if chunk > 1:
+            assert dsyncs[0] <= ih.iterations + 1
+            if chunk == 1:
+                assert dsyncs[1] == dsyncs[0]
+            else:
                 assert dsyncs[1] < ih.iterations
         states = [sh, sd]
     clones = [m.with_delta_t(0.0025) for m in (host, dev)]
-    assert clones[1].cg_loop == "graphs"
+    assert [c.cg_loop for c in clones] == ["host", "graphs"]
+    assert clones[0]._graphs.eager and clones[0]._cg.eager
+    assert [c._cg.chunk for c in clones] == [1, chunk]
     if solver == "mg_bf16_ir":
-        assert isinstance(clones[1]._ir, tcg.ChunkedIRCG)
-        assert clones[1]._cg.chunk == chunk
+        assert all(isinstance(c._solve, tcg.ChunkedIRCG) for c in clones)
     (sh, ih), (sd, idv) = (c.step(st, stress) for c, st in zip(clones, states))
     assert idv == ih
     assert all(torch.equal(a, b) for a, b in zip(sd, sh))

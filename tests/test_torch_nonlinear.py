@@ -63,6 +63,13 @@ def models_3d():
     return jm, tm
 
 
+@pytest.fixture(scope="module")
+def jax_vcycle_3d(models_3d):
+    """The JAX 3D production model's bf16 V-cycle, jitted once for the
+    module (one XLA compilation for both 3D V-cycle tests)."""
+    return jax.jit(models_3d[0]._precond)
+
+
 def test_residuals_match_jax(models_3d):
     jm, tm = models_3d
     rng = np.random.default_rng(0)
@@ -110,10 +117,12 @@ def test_production_steps_3d_match_jax(models_3d):
 
 @pytest.mark.parametrize("sym,kind", [(False, "auto"), (True, "blocks")])
 def test_chunked_cg_step_equals_the_host_loop(models_3d, sym, kind):
-    """Two 3D production steps with the CG in chunks of 3 (`cg_loop=
-    "graphs"`, run eagerly on the CPU) give the host loop's `NewtonInfo`
+    """A 3D production step with the CG in chunks of 3 (`cg_loop=
+    "graphs"`, run eagerly on the CPU) gives the host loop's `NewtonInfo`
     and state bit for bit, with the tangent assembled into one persistent
-    buffer: the column-major pack (K1) and the upper blocks (K2b)."""
+    buffer: the column-major pack (K1) and the upper blocks (K2b). One
+    step from rest takes 5 Newton iterations, so the buffer is refilled
+    and the CG run over it four times after the first assembly."""
     jm, _ = models_3d
     lam = [lv.lam_max for lv in jm._precond.levels]
     p = params_from_jax(JaxParams(dim=3, max_iterations_NR=10, **PRODUCTION))
@@ -127,10 +136,11 @@ def test_chunked_cg_step_equals_the_host_loop(models_3d, sym, kind):
         models[0].space.n_nodes, 3,
         models[0].space.boundary_nodes[models[0].interface_id], 1000.0))
     states = [m.initial_state() for m in models]
-    for _ in range(2):
+    for _ in range(1):
         out = [m.step(st, stress) for m, st in zip(models, states)]
         (host, host_info), (chunked, chunked_info) = out
         assert host_info.converged and chunked_info == host_info
+        assert host_info.iterations >= 4
         assert all(torch.equal(a, b) for a, b in zip(chunked, host))
         states = [host, chunked]
     assert models[1].host_syncs < models[0].host_syncs
@@ -206,7 +216,8 @@ def test_transient_nan_f32_residual_keeps_a_finite_floor():
 
 
 @pytest.mark.parametrize("dim,scale,iterations", [(2, 8, 30), (3, 1, 12)])
-def test_bf16_vcycle_preconditions_as_jax(monkeypatch, dim, scale, iterations):
+def test_bf16_vcycle_preconditions_as_jax(monkeypatch, request, dim, scale,
+                                          iterations):
     """The port's bf16 V-cycle preconditions the Newton CG as well as the
     JAX package's (ROADMAP Queue 3, fixed): on one tangent system of the
     production configuration (2D at scale 8, 28,322 DoF; 3D at scale 1,
@@ -219,23 +230,30 @@ def test_bf16_vcycle_preconditions_as_jax(monkeypatch, dim, scale, iterations):
     in f32 (`GeometricMultigrid.__call__`), and it computed the 2D fine
     proxy in f32 where the JAX package computes it in bf16
     (`ops/q2_structured.py:_PlainDegreeOperator`). The 3D case guards the
-    3D hierarchy, whose CG counts equalled the JAX package's before."""
-    import jax
-
+    3D hierarchy, whose CG counts equalled the JAX package's before; it
+    takes the module's 3D models (`models_3d`, the port on the JAX
+    hierarchy's lam_max values) and jitted V-cycle."""
     from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jgrid
     from dealii_adapter_tpu.solvers import cg as jcg
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.solvers import cg as tcg
 
     jp = JaxParams(dim=dim, max_iterations_NR=10, **PRODUCTION)
-    tmesh, ttags = make_scenario_grid("PF", dim, 2, scale=scale,
-                                      solver="neo-Hookean")
-    tm = NonlinearElasticity(params_from_jax(jp), mesh=tmesh, tags=ttags,
-                             device="cpu")
-    lam = iter([lv.lam_max for lv in tm._precond.levels])
-    monkeypatch.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(lam))
-    jmesh, jtags = jgrid("PF", dim, 2, scale=scale, solver="neo-Hookean")
-    jm = JaxModel(jp, mesh=jmesh, tags=jtags)
+    if dim == 3:
+        assert scale == 1
+        jm, tm = request.getfixturevalue("models_3d")
+        jvc = request.getfixturevalue("jax_vcycle_3d")
+    else:
+        tmesh, ttags = make_scenario_grid("PF", dim, 2, scale=scale,
+                                          solver="neo-Hookean")
+        tm = NonlinearElasticity(params_from_jax(jp), mesh=tmesh,
+                                 tags=ttags, device="cpu")
+        lam = iter([lv.lam_max for lv in tm._precond.levels])
+        monkeypatch.setattr(jcg, "estimate_lambda_max",
+                            lambda *a, **k: next(lam))
+        jmesh, jtags = jgrid("PF", dim, 2, scale=scale, solver="neo-Hookean")
+        jm = JaxModel(jp, mesh=jmesh, tags=jtags)
+        jvc = jax.jit(jm._precond)
     assert [lv.lam_max for lv in jm._precond.levels] == [
         lv.lam_max for lv in tm._precond.levels]
     n = tm.space.n_nodes
@@ -251,7 +269,6 @@ def test_bf16_vcycle_preconditions_as_jax(monkeypatch, dim, scale, iterations):
     np.testing.assert_allclose(op(torch.from_numpy(b)).numpy(),
                                np.asarray(jop(v)), rtol=1e-6,
                                atol=1e-6 * float(jnp.abs(jop(v)).max()))
-    jvc = jax.jit(jm._precond)
 
     def jax_vcycle(r):
         return torch.from_numpy(np.array(jvc(jnp.asarray(r.numpy()))))
@@ -272,7 +289,8 @@ def test_bf16_vcycle_preconditions_as_jax(monkeypatch, dim, scale, iterations):
     assert ours <= 1.3 * theirs  # the port's V-cycle: as the JAX package's
 
 
-def test_bf16_vcycle_equals_jax_bitwise_3d(monkeypatch):
+def test_bf16_vcycle_equals_jax_bitwise_3d(monkeypatch, models_3d,
+                                           jax_vcycle_3d):
     """One application of the port's bf16 V-cycle in 3D (the production
     configuration at scale 1, 2,331 DoF) equals the JAX package's jitted
     V-cycle bit for bit, once the port's level operators compute as the
@@ -283,10 +301,9 @@ def test_bf16_vcycle_equals_jax_bitwise_3d(monkeypatch):
     `StructuredOperator` (`_PlainDegreeOperator`). What is left is the
     V-cycle's own rounding: every smoother and transfer line in bf16, the
     closing `x + d` in f32 (`GeometricMultigrid.__call__`). With that
-    line rounded to bf16, as before the repair, most entries differ."""
-    import jax
-
-    from dealii_adapter_tpu.solvers import cg as jcg
+    line rounded to bf16, as before the repair, most entries differ. The
+    JAX side is the module's 3D model and its jitted V-cycle; the port's
+    hierarchy takes their lam_max values."""
     from dealii_adapter_tpu_torch.models import nonlinear_elasticity as tnl
     from dealii_adapter_tpu_torch.ops.q2_structured import _PlainDegreeOperator
     from dealii_adapter_tpu_torch.ops.structured import _grid_shape
@@ -298,18 +315,15 @@ def test_bf16_vcycle_equals_jax_bitwise_3d(monkeypatch):
 
     monkeypatch.setattr(tnl, "make_q2_operator", jax_like)
     monkeypatch.setattr(tmg, "make_q1_operator", jax_like)
-    jp = JaxParams(dim=3, max_iterations_NR=10, **PRODUCTION)
-    tm = NonlinearElasticity(params_from_jax(jp), device="cpu")
-    lam = iter([lv.lam_max for lv in tm._precond.levels])
-    monkeypatch.setattr(jcg, "estimate_lambda_max", lambda *a, **k: next(lam))
-    jm = JaxModel(jp)
-    assert [lv.lam_max for lv in jm._precond.levels] == [
-        lv.lam_max for lv in tm._precond.levels]
+    jm = models_3d[0]
+    tm = NonlinearElasticity(
+        params_from_jax(jm.params), device="cpu",
+        mg_lam_max=[lv.lam_max for lv in jm._precond.levels])
     rng = np.random.default_rng(0)
     r = (rng.standard_normal((tm.space.n_nodes, 3))
          * tm.mask.numpy()).astype(np.float32)
     ours = tm._precond(torch.from_numpy(r)).numpy()
-    theirs = np.asarray(jax.jit(jm._precond)(jnp.asarray(r)))
+    theirs = np.asarray(jax_vcycle_3d(jnp.asarray(r)))
     assert ours.dtype == theirs.dtype == np.float32
     np.testing.assert_array_equal(ours, theirs)
 

@@ -888,39 +888,38 @@ LINEAR_3D = dict(
 
 
 @pytest.mark.cuda
-def test_linear_step_graphs_equal_the_eager_device_loop_on_card(monkeypatch):
+def test_linear_step_graphs_equal_the_eager_device_loop_on_card():
     """Run on the card (see above). The 3D linear bench configuration at
-    scale 1 (2,331 DoF): three steps with the step on the device
-    (`cg_loop="graphs"`: its right-hand side, refinements, update and CG
-    chunks replayed from CUDA graphs) give bit for bit the `StepInfo` and
-    states of the same device loop run eagerly on the card (no graph
-    captured) and of the host loops, with at most CG + 2 read-backs a
-    step (`chip_smoke.py`'s linear_loops) and fewer than the host loops';
-    after the first step (the captures' warm-up) each step launches as
-    many kernels by the counts as the eager loop does."""
+    scale 1 (2,331 DoF): three steps of the one step with its bodies
+    replayed (`cg_loop="graphs"`: its right-hand side, refinements,
+    update and CG chunks from CUDA graphs) give bit for bit the
+    `StepInfo` and states of the same step run eagerly on the card
+    (`cg_loop="host"`: no graph captured), with the same read-backs, at
+    most CG + 2 a step (`chip_smoke.py`'s linear_loops); after the first
+    step (the captures' warm-up) each step launches as many kernels by
+    the counts as the eager step does; and the first step equals the
+    public host loops' (`cg_solve` inside `ir_cg_solve`) bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    sys.path.insert(0, REPO)
+    import chip_smoke
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
     from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG
 
     dev = torch.device("cuda")
     params = AllParameters(**LINEAR_3D)
     mesh, tags = make_scenario_grid("PF", 3, 2, scale=1, solver="linear")
-    host = LinearElastodynamics(params, mesh=mesh, tags=tags, device=dev,
-                                cg_loop="host")
-    lam = [lv.lam_max for lv in host._precond.levels]
-    graphs, eager = (LinearElastodynamics(params, mesh=mesh, tags=tags,
-                                          device=dev, mg_lam_max=lam)
-                     for _ in range(2))
-    # the eager twin: its runner runs every body and its CG captures nothing
-    monkeypatch.setattr(eager._graphs, "device", torch.device("cpu"))
-    monkeypatch.setattr(eager._cg, "_capture", lambda: None)
-    stress = torch.zeros((host.space.n_nodes, 3), dtype=torch.float64,
+    eager = LinearElastodynamics(params, mesh=mesh, tags=tags, device=dev,
+                                 cg_loop="host")
+    lam = [lv.lam_max for lv in eager._precond.levels]
+    graphs = LinearElastodynamics(params, mesh=mesh, tags=tags, device=dev,
+                                  mg_lam_max=lam)
+    stress = torch.zeros((eager.space.n_nodes, 3), dtype=torch.float64,
                          device=dev)
-    stress[torch.as_tensor(host.space.boundary_nodes[host.interface_id],
+    stress[torch.as_tensor(eager.space.boundary_nodes[eager.interface_id],
                            device=dev), 0] = 1000.0
     runs = {}
-    for name, model in (("host", host), ("graphs", graphs), ("eager", eager)):
+    for name, model in (("eager", eager), ("graphs", graphs)):
         state, out = model.initial_state(), []
         for _ in range(3):
             syncs = model.host_syncs
@@ -934,11 +933,14 @@ def test_linear_step_graphs_equal_the_eager_device_loop_on_card(monkeypatch):
     assert isinstance(graphs._cg, ChunkedCG) and graphs._cg._graphs
     assert eager._cg._graphs is None and len(eager._graphs) == 0
     assert len(graphs._graphs) >= 4  # rhs, start, refinement, update
-    for i, ((ig, sg, yg, lg), (ie, se, ye, le), (ih, sh, yh, _)) in enumerate(
-            zip(runs["graphs"], runs["eager"], runs["host"])):
-        assert ig == ie == ih and ig.residual <= 1e-10
-        assert all(torch.equal(a, b) and torch.equal(a, c)
-                   for a, b, c in zip(sg, se, sh))
-        assert yg == ye <= ig.iterations + 2 and yg < yh
+    for i, ((ig, sg, yg, lg), (ie, se, ye, le)) in enumerate(
+            zip(runs["graphs"], runs["eager"])):
+        assert ig == ie and ig.residual <= 1e-10
+        assert all(torch.equal(a, b) for a, b in zip(sg, se))
+        assert yg == ye <= ig.iterations + 2
         if i:
             assert lg == le > 0
+    so, io = chip_smoke.oracle_linear_step(graphs, graphs.initial_state(),
+                                           stress)
+    assert io == runs["graphs"][0][0]
+    assert torch.equal(so.velocity, runs["graphs"][0][1][1])

@@ -18,12 +18,15 @@ running every case of its world once; the cases are parametrized here.
   configuration (MG, bf16 V-cycle, f32 CG, EW, predictor), and on 2 ranks
   also its Jacobi linear and f64 Neo-Hookean steps, against the JAX
   package's single-device steps, with its count rules and tolerances
-  (the port takes the JAX hierarchy's lam_max values); the dense Direct
+  (both hierarchies on one device's lam_max estimates); the dense Direct
   solve of both models (whole on every rank) and a Neumann interface that
   covers part of its lattice sides, each also against one device (1e-12);
   on 2 ranks the production step with the host CG loop (the Newton
   loop's bodies eager, as gloo ranks on the card run it) bit for bit the
-  same ranks' step with the CG graphs' loop, and against one device.
+  same ranks' step with the CG graphs' loop, and against one device;
+  on 2 ranks the linear MG step with the f32 defect correction on the
+  device (`ChunkedIRCG`) under the host loop, its bodies eager, against
+  one device (the same decisions and read-backs on every rank).
 * The coupled run on 2 ranks, on both partitions (rank 0 holds the
   participant): tests/test_torch_coupling.py's implicit linear and
   Neo-Hookean runs, whose every window rolls back, against the JAX
@@ -33,6 +36,7 @@ running every case of its world once; the cases are parametrized here.
 This module imports jax only inside its fixtures: the spawned ranks
 import it by name and must not."""
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -110,6 +114,10 @@ LATTICE_STEPS = {2: ("linear", "nonlinear", "linear_mg", "production",
                  4: ("linear_mg", "production")}
 # the steps that must also equal one device's (1e-12)
 ONE_DEVICE_STEPS = ("linear_direct", "nonlinear_direct", "nonlinear_partial")
+# the linear MG step with the f32 solve: the defect-correction loop on the
+# device (`ChunkedIRCG`) on 2 ranks under the host loop (its bodies eager,
+# as gloo ranks on the card run it)
+LIN_IR = dict(LIN_MG, solve_dtype="float32")
 # tests/test_torch_coupling.py's implicit runs, the linear one cut to two
 # windows of 2 iterations and the Neo-Hookean one on Direct solves (its jvp CG's
 # collectives cost ~10 ms an iteration on 2 gloo ranks; the steps above
@@ -332,6 +340,25 @@ def _vcycle_bf16(mesh, lam_max):
     return z, mg._restrict(li, g).float().numpy()
 
 
+def _linear_ir_host(mesh, lam_max, steps=2):
+    """`steps` LIN_IR steps under `cg_loop="host"` on `mesh` (None: one
+    device): (||u||^2 and `StepInfo` of each step, the read-backs of
+    each step)."""
+    model = LinearElastodynamics(AllParameters(**LIN_IR), device="cpu",
+                                 device_mesh=mesh, cg_loop="host",
+                                 mg_lam_max=lam_max)
+    assert model._graphs.eager and model._cg.eager
+    stress = model.local_rows(_interface_stress(model, 1000.0))
+    state, out, syncs = model.initial_state(), [], []
+    for _ in range(steps):
+        before = model.host_syncs
+        state, info = model.step(state, stress)
+        syncs.append(model.host_syncs - before)
+        u = model.global_rows(state.displacement)
+        out.append((float((u * u).sum()), tuple(info)))
+    return out, syncs
+
+
 def _world_cases(mesh, cells, lattice, lam_max, root):
     """Every case of one world on one rank (the spawned function); `root`
     is a directory for the CLI's files."""
@@ -359,6 +386,8 @@ def _world_cases(mesh, cells, lattice, lam_max, root):
         if mesh.world == 2:
             out["production_host"] = _step(mesh, "production", lam_max,
                                            cg_loop="host")
+            out["linear_ir_host"] = _linear_ir_host(mesh,
+                                                    lam_max["linear_ir"])
     if cells and lattice:
         for name in COUPLED_CASES:
             out[name] = _coupled(mesh, name)
@@ -367,26 +396,60 @@ def _world_cases(mesh, cells, lattice, lam_max, root):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_refs():
-    """The JAX package's single-device steps (and the lam_max values of
-    its multigrid hierarchies) and its structured operator."""
+def _jax_imports():
     import jax
-    import jax.numpy as jnp
 
-    from dealii_adapter_tpu.adapter import Adapter as JaxAdapter
-    from dealii_adapter_tpu.adapter import FakeParticipant as JaxFake
     from dealii_adapter_tpu.config import AllParameters as JaxParams
-    from dealii_adapter_tpu.fem.dofspace import DofSpace as JaxSpace
     from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jax_grid
-    from dealii_adapter_tpu.mesh.generator import (
-        subdivided_hyper_rectangle as jax_box,
-    )
     from dealii_adapter_tpu.models.linear_elasticity import (
         LinearElastodynamics as JaxLinear,
     )
     from dealii_adapter_tpu.models.nonlinear_elasticity import (
         NonlinearElasticity as JaxNonlinear,
+    )
+
+    jax.config.update("jax_enable_x64", True)
+    return JaxParams, jax_grid, JaxLinear, JaxNonlinear
+
+
+def _jax_models():
+    """The JAX package's model of each step case, and the lam_max values
+    of the multigrid hierarchies: one device's estimates on the port,
+    which the JAX hierarchies take in place of their power iterations and
+    the ranks are given."""
+    from dealii_adapter_tpu.solvers import cg as jcg
+
+    JaxParams, jax_grid, JaxLinear, JaxNonlinear = _jax_imports()
+    models, lam_max = {}, {}
+    for name, (kw, _) in STEPS.items():
+        cls = JaxLinear if kw["model"] == "linear" else JaxNonlinear
+        with pytest.MonkeyPatch.context() as mp:
+            if kw.get("preconditioner") == "MG":
+                port = (LinearElastodynamics if kw["model"] == "linear"
+                        else NonlinearElasticity)(AllParameters(**kw),
+                                                  device="cpu")
+                lam = lam_max[name] = [lv.lam_max
+                                       for lv in port._precond.levels]
+                it = iter(lam)
+                mp.setattr(jcg, "estimate_lambda_max",
+                           lambda *a, **k: next(it))
+            m = models[name] = cls(JaxParams(**kw),
+                                   **_mesh_kw(name, kw, jax_grid))
+        if name in lam_max:
+            assert [lv.lam_max for lv in m._precond.levels] == lam_max[name]
+    return models, lam_max
+
+
+def _jax_steps(models):
+    """The JAX package's single-device steps, structured operator and
+    coupled runs."""
+    import jax.numpy as jnp
+
+    from dealii_adapter_tpu.adapter import Adapter as JaxAdapter
+    from dealii_adapter_tpu.adapter import FakeParticipant as JaxFake
+    from dealii_adapter_tpu.fem.dofspace import DofSpace as JaxSpace
+    from dealii_adapter_tpu.mesh.generator import (
+        subdivided_hyper_rectangle as jax_box,
     )
     from dealii_adapter_tpu.ops.element_ops import (
         ElementMatrices as JaxElementMatrices,
@@ -394,15 +457,11 @@ def jax_refs():
     from dealii_adapter_tpu.ops.structured import make_structured_operator
     from dealii_adapter_tpu.runner import coupled_run as jax_coupled_run
 
-    jax.config.update("jax_enable_x64", True)
-    refs, lam_max = {}, {}
-    for name, (kw, mag) in STEPS.items():
-        cls = JaxLinear if kw["model"] == "linear" else JaxNonlinear
-        m = cls(JaxParams(**kw), **_mesh_kw(name, kw, jax_grid))
-        if kw.get("preconditioner") == "MG":
-            lam_max[name] = [lv.lam_max for lv in m._precond.levels]
+    JaxParams, _, JaxLinear, JaxNonlinear = _jax_imports()
+    refs = {}
+    for name, m in models.items():
         s = np.zeros((m.space.n_nodes, m.space.dim))
-        s[m.space.boundary_nodes[m.interface_id], 0] = mag
+        s[m.space.boundary_nodes[m.interface_id], 0] = STEPS[name][1]
         st, info = m.step(m.initial_state(), jnp.asarray(s))
         refs[name] = (np.asarray(st.displacement), info)
     space = JaxSpace.create(jax_box((6, 10, 31), (0.0, 0.0, 0.0), (6.0, 10.0, 31.0), 1))
@@ -421,7 +480,7 @@ def jax_refs():
         st = jax_coupled_run(m, ad, output_cb=lambda s, t, i: times.append(
             t.current()))
         refs[name] = (fake.write_history, np.asarray(st.displacement), times)
-    return refs, lam_max
+    return refs
 
 
 def _vcycle_lam_max():
@@ -429,17 +488,48 @@ def _vcycle_lam_max():
     return [lv.lam_max for lv in model._precond.levels]
 
 
+def _linear_ir_lam_max():
+    model = LinearElastodynamics(AllParameters(**LIN_IR), device="cpu")
+    return [lv.lam_max for lv in model._precond.levels]
+
+
 @pytest.fixture(scope="module")
-def worlds(jax_refs, tmp_path_factory):
-    """{world size: every rank's results}: 2 ranks run the cell and the
-    lattice cases, 3 the cell cases, 4 the lattice cases."""
-    lam_max = dict(jax_refs[1], vcycle_bf16=_vcycle_lam_max())
-    out = {}
-    for n, cells, lattice in ((2, True, True), (3, True, False), (4, False, True)):
-        root = tmp_path_factory.mktemp(f"world{n}")
-        out[n] = spawn(_world_cases, n, "cpu", cells, lattice, lam_max,
-                       str(root), init_dir=root, threads=1)
-    return out
+def worlds_and_refs(tmp_path_factory):
+    """({world size: every rank's results}, (the JAX package's references,
+    the lam_max values)). 2 ranks run the cell and the lattice cases, 3
+    the cell cases, 4 the lattice cases, one world after the other on a
+    thread of this process, while this thread computes the JAX package's
+    single-device steps and coupled runs (its XLA compilations release the
+    interpreter; the ranks are processes of their own)."""
+    models, jax_lam = _jax_models()
+    lam_max = dict(jax_lam, vcycle_bf16=_vcycle_lam_max(),
+                   linear_ir=_linear_ir_lam_max())
+    roots = {n: tmp_path_factory.mktemp(f"world{n}") for n in (2, 3, 4)}
+
+    def run_worlds():
+        return {n: spawn(_world_cases, n, "cpu", cells, lattice, lam_max,
+                         str(roots[n]), init_dir=roots[n], threads=1)
+                for n, cells, lattice in ((2, True, True), (3, True, False),
+                                          (4, False, True))}
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_worlds)
+        refs = _jax_steps(models)
+        return ranks.result(), (refs, jax_lam)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(worlds_and_refs):
+    """The JAX package's single-device steps (and the lam_max values of
+    its multigrid hierarchies), its structured operator and coupled
+    runs."""
+    return worlds_and_refs[1]
+
+
+@pytest.fixture(scope="module")
+def worlds(worlds_and_refs):
+    """{world size: every rank's results} (`worlds_and_refs`)."""
+    return worlds_and_refs[0]
 
 
 def test_backend_rule_and_launch_hint():
@@ -621,6 +711,27 @@ def test_one_loop_on_gloo_ranks_equals_one_device(worlds, jax_refs):
         assert abs(info[6] - info_ref[6]) <= 2 * info[1]
         np.testing.assert_allclose(u, u_ref, rtol=0,
                                    atol=1e-8 * np.abs(u_ref).max())
+
+
+def test_linear_refinement_on_gloo_ranks_equals_one_device(worlds):
+    """The linear step with the f32 defect correction on the device
+    (`ChunkedIRCG`) under `cg_loop="host"` on 2 gloo ranks, two steps:
+    every rank takes the same decisions (its end-of-loop guess reads
+    all-reduced residuals) and so reads back equally often, at most its
+    CG iterations + 2 a step; the `StepInfo` is one device's (the same
+    CG iterations, the max norm and ||u||^2 within 1e-12). The final
+    residual, a few 1e-14 here, is met on both, but its digits are the
+    summation order's (its two values differ by ~5%)."""
+    ref, _ = _linear_ir_host(None, _linear_ir_lam_max())
+    ranks = [r["linear_ir_host"] for r in worlds[2]]
+    assert ranks[0][1] == ranks[1][1]
+    for steps, syncs in ranks:
+        assert steps == ranks[0][0]
+        for (u2, info), (u2_ref, info_ref), n in zip(steps, ref, syncs):
+            assert info[0] == info_ref[0] and n <= info[0] + 2
+            assert info[1] <= 1e-10 and info_ref[1] <= 1e-10
+            assert info[2] == pytest.approx(info_ref[2], rel=1e-12)
+            assert u2 == pytest.approx(u2_ref, rel=1e-12) and u2 > 0
 
 
 @pytest.mark.parametrize("name", COUPLED_CASES)

@@ -14,8 +14,9 @@ and each run's peak device memory.
 `chip_smoke.py`'s main path (scale 9 unless `--scale`); `--model linear`
 runs the linear theta-step on each of `--cells` (`chip_smoke.LINEAR_CELLS`:
 bench_torch.py's two linear cells and linear2d, each at its own scale
-unless `--scale`), where "graphs" is the step on the device with its
-defect-correction loop (`solvers/cg.py:ChunkedIRCG`) around the chunks.
+unless `--scale`), where "graphs" replays the one step's bodies from
+CUDA graphs (its defect-correction loop, `solvers/cg.py:ChunkedIRCG`,
+around the chunks) and "host" runs the same step eagerly (chunks of 1).
 Each configuration runs 1 warmup and 3 timed steps from rest on one mesh
 with the first model's lam_max values; the configurations run in order
 and then in reverse (`--rounds 2`), the host loop first and last, so that

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The linear theta-step of `chip_smoke.py`'s linear cells on the card,
-with each CG loop, and one profiled step of each: where a linear step's
-time goes.
+replayed from CUDA graphs (`cg_loop="graphs"`) and eager (`"host"`), and
+one profiled step of each: where a linear step's time goes.
 
     python3 tools/linear_step_profile.py [--cells bench_linear_q2,...]
                                          [--loops graphs,host] [--steps 3]

@@ -48,8 +48,6 @@ def main():
 
     import torch
 
-    from dealii_adapter_tpu_torch.solvers import cg
-
     dev = torch.device(args.device)
 
     def sync():
@@ -58,18 +56,20 @@ def main():
 
     t0 = time.perf_counter()
     if args.model == "linear":
+        # eager bodies, so that the trace may read the status back
         model = cs.build_linear_model(dev, scale=scale, cg_loop="host",
                                       **over)
-        inner = cg.cg_solve
+        ir = model._solve
+        refinement = ir._refinement
 
-        def traced(op, b, x0, tol, max_iter, preconditioner=None,
-                   dot=cg._dot):
-            r = inner(op, b, x0, tol, max_iter, preconditioner, dot)
-            print(f"   inner CG {r.iterations} tol {tol:.3e} "
-                  f"residual {r.residual_norm:.3e}", flush=True)
-            return r
+        def traced():
+            # the inner solve that just ended, before its refinement
+            k, resn, tol = ir.inner.read_status()[:3]
+            print(f"   inner CG {int(k)} tol {tol:.3e} residual {resn:.3e}",
+                  flush=True)
+            refinement()
 
-        cg.cg_solve = traced  # ir_cg_solve's inner solves (the host loop)
+        ir._refinement = traced  # ChunkedIRCG runs it after each inner solve
     else:
         model = cs.build_model(dev, dim=args.dim, scale=scale, **over)
     where = (dev.type if dev.type == "cuda"
