@@ -43,7 +43,14 @@ script exits non-zero without printing a result):
    kernels of K3, K4b and K5, K4's plane-marching kernel, K6's pointwise
    kernel); K5's bf16 bound is
    its tensor-core design's (bf16 products at 989 TFLOP/s against the
-   bytes), with the f32-FMA bound beside it.
+   bytes), with the f32-FMA bound beside it. The f64 instantiation of the
+   Q1 level kernels (`f64_level_records`: records `K3 q1_structured f64`,
+   `K4 q1_plane f64`, `K4b q1_structured_2d f64`, `K6 q1_stencil f64`)
+   at every Q1 level lattice of the f64 paths (`F64_LEVELS_3D`,
+   `F64_LEVELS_2D`) on seeded f64 inputs: within 1e-12 relative L2 of
+   the plain version (`F64_RTOL`), K4 and K6 bit for bit K3's (K4b's);
+   device and per-call times; the bound at f64's 34 TFLOP/s
+   (`F64_FLOPS`) and the f64 CSR SpMV library time.
 4. main    — `NonlinearElasticity` with the benchmark configuration
    (`bench_torch.py:build_model`, bench.py's: 3D Neo-Hookean perpendicular
    flap, Q2, scale 9: 1,018,875 DoF), traction 1000 in x on the
@@ -120,7 +127,16 @@ script exits non-zero without printing a result):
      counts at most phase 4's + 2 a step, ||u||^2 within rtol 1e-4 of the
      JAX package's value, fewer tangent assemblies than Newton iterations
      over the timed steps, K1 (CG and fine level) and K3 launched, K5
-     not.
+     not;
+   - f64mg3d — f64jvp3d with the f64 multigrid hierarchy (`F64_MG`:
+     `precond_dtype=""`) on its own lam_max estimates: K3's f64
+     instantiation on every Q1 level (levels among phase 3's lattices),
+     the plain f64 fine proxy (K5, K1 and K3's f32/bf16 form not
+     launched); ||u||^2 within rtol 1e-4 of the JAX package's value, CG
+     and Newton counts beside f64jvp3d's; one V-cycle of the hierarchy on
+     a seeded vector within 1e-12 relative L2 of the same hierarchy built
+     on the CPU from the same lam_max values (`f64_hierarchy_check`),
+     with its device time.
    Each prints CG and Newton counts per step against phase 4's, tangent
    assemblies and host syncs per step; f64jvp3d and jvp3d also the device
    time of one application of their CG operator (one per CG iteration;
@@ -172,10 +188,11 @@ script exits non-zero without printing a result):
    - shard3d — the lattice partition (`parallel/lattice.py`) at full
      size on `SHARD_RANKS` ranks spawned on the card over gloo (the
      kernels built once before the spawn), the host CG loop (gloo cannot
-     be captured); each rank first holds K5, K3 (every distributed level)
-     and K1 at its slab's shapes against their plain versions, then runs
-     `SHARD3D_STEPS` steps (1 warmup and 1 timed: cut from 4 steps, ~6.5 s
-     each, to keep the script within its time): every step converged,
+     be captured); each rank first holds K5, K3 (every distributed level,
+     also in f64) and K1 at its slab's shapes against their plain
+     versions, then runs `SHARD3D_STEPS` steps (1 warmup and 1 timed:
+     cut from 4 steps, ~6.5 s each, to keep the script within its time):
+     every step converged,
      Newton counts equal to phase 4's, CG within +-2 (`SHARD_CG_SLACK`) a
      step, ||u||^2 after the last step within rtol 1e-7 (`SHARD_RTOL`,
      tests/test_sharding.py's field tolerance) of phase 4's after the same
@@ -247,15 +264,26 @@ script exits non-zero without printing a result):
    and the velocity bit for bit; then one step of the replayed model's
    subcycling clone (half the step), with the peak device memory before
    and after it.
+16. f64mg (run after linear_loops) — the linear model with the f64
+   multigrid hierarchy (`phase_f64mg`): f64mg2d (`LINEAR_2D`, 999,362
+   DoF, K4b in f64 on every Q1 level, replayed and eager on one mesh,
+   bit for bit, ||u||^2 against the JAX package's `F64MG2D_REF`) and
+   f64mg_stencil (bench_linear_q2, 97,875 DoF, `mg_level_backend=
+   "stencil"`: K6 in f64 on every Q1 level, K3 never; against the same
+   cell on K3 in f64 within 1e-10 and the JAX package's
+   `F64MG_STENCIL_REF`), 1 warmup and 3 timed steps each, every residual
+   <= 1e-10.
 
 Every path but `main3d host`, shard3d, shard_cells, dryrun,
-coupled_shard, cli_ranks and the eager forms of linear_loops
+coupled_shard, cli_ranks, f64mg2d eager and the eager forms of linear_loops
 (`cg_loop="host"`: the Neo-Hookean paths' host CG loop with the Newton
 loop's bodies run eagerly, the linear step's bodies and CG chunks run
-eagerly; all but the first and linear_loops on gloo ranks) runs its CG
+eagerly; all but the first, f64mg2d eager and linear_loops on gloo
+ranks) runs its CG
 in CUDA graphs and its Newton loop's or linear step's bodies replayed
 from CUDA graphs; f64jvp3d,
-jvp3d, reuse_fine3d and gather3d then run their 4 steps again from rest
+jvp3d, reuse_fine3d, f64mg3d and gather3d then run their 4 steps again
+from rest
 with the Newton loop's bodies run eagerly on the same model and CG graphs
 (`newton_eager_twin`): the same `NewtonInfo` in every step, ||u||^2
 within `LOOPS_RTOL`. On the host CG paths the Neo-Hookean steps read
@@ -306,6 +334,17 @@ GOLDEN_RTOL = 1e-9  # tests/test_golden_trajectory.py's linear tolerance
 #   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py linear --scale 24 \
 #       --steps 1 --precond-dtype bfloat16
 VCYCLE_BF16_REF = 160
+# ||u||^2 after 4 steps of the f64 multigrid paths (F64_MG), JAX package on
+# the CPU, at LINEAR2D_RTOL (every solve meets the absolute 1e-10 residual):
+# f64mg2d, LINEAR_2D with the f64 solve and hierarchy,
+#   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py linear --scale 48 \
+#       --solve-dtype "" --precond-dtype ""
+F64MG2D_REF = 4.903851334663094
+# f64mg_stencil, bench_linear_q2 (3D Q2, scale 4) with the f64 solve and
+# hierarchy (the JAX package's levels on XLA: the same operator),
+#   BENCH_SOLVE_DTYPE= BENCH_PRECOND_DTYPE= JAX_PLATFORMS=cpu \
+#       python tools/jax_reference_bench.py linear --degree 2 --scale 4
+F64MG_STENCIL_REF = 0.3215443820392788
 # the same for the Neo-Hookean model (NONLINEAR_2D with the bf16
 # hierarchy): CG over step 0's Newton iterations, and those iterations
 #   JAX_PLATFORMS=cpu python tools/jax_reference_2d.py nonlinear \
@@ -326,6 +365,7 @@ SCALE = 9  # 3D main path: 1,018,875 DoF
 SCALE_2D = 48  # 2D paths: 999,362 DoF
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM f64 outside the tensor cores (half the f32 rate)
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 # bench_torch.py's cells: bench.py's build_model and build_linear_model
@@ -365,6 +405,10 @@ TANGENT_VARIANTS = (
 _HEALTH = ("C1 health_scale", "C2 health_add_one")
 _MG3D = ("K3 q1_structured", "K5 q2_structured")
 _STENCIL3D = _HEALTH + ("K1 tangent_matvec", "K5 q2_structured", "K6 q1_stencil")
+# the f64 paths launch neither the tangent kernel (the f64 jvp tangent, the
+# linear model's matrix-free operator) nor K5 (the f64 fine proxy is the
+# plain operator), nor a level kernel's f32/bf16 form
+_F64_EXCLUDES = ("K1 tangent_matvec", "K5 q2_structured")
 # which kernels each path must launch
 PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
@@ -385,11 +429,33 @@ PATH_KERNELS = {
 # sum factorization; with the tangents capped below their 1.03 GB, so that
 # `auto` falls back to the f32 jvp; with Newton tangent reuse and the
 # tangent as the V-cycle's fine operator
+# The f64 multigrid hierarchy: the solve and the hierarchy in the model's
+# f64 (the JAX package's MG for an f64 solve without `precond_dtype`)
+F64_MG = dict(solve_dtype="", precond_dtype="")
 JVP_PATHS = {
     "f64jvp3d": dict(solve_dtype="", use_sumfact=True),
     "jvp3d": dict(assembled_tangent_max_gb=0.5),
     "reuse_fine3d": dict(newton_tangent_reuse=True, mg_fine_tangent=True),
+    # f64jvp3d with the f64 hierarchy (its own lam_max estimates): K3's f64
+    # instantiation on every Q1 level, the plain f64 fine proxy
+    "f64mg3d": dict(F64_MG, use_sumfact=True),
 }
+# Every Q1 level lattice of the f64 paths, where phase 3 holds the f64
+# level kernels against their plain versions: f64mg3d's (main3d's
+# hierarchy, scale 9), f64mg_stencil's (bench_linear_q2, 3D Q2 scale 4)
+# and f64mg2d's (the 2D flap at scale 48); each f64 path requires its
+# hierarchy's lattices to be among them
+F64_LEVELS_3D = ((19, 325, 55), (19, 163, 28), (19, 82, 15), (19, 42, 8),
+                 (10, 22, 5), (9, 145, 25), (9, 73, 13), (9, 37, 7),
+                 (9, 19, 4))
+F64_LEVELS_2D = ((1729, 289), (865, 145), (433, 73), (217, 37), (109, 19),
+                 (55, 10))
+# an f64 level kernel against its plain version, the f64 V-cycle on the
+# card against the CPU's: f64 roundoff in another summation order
+F64_RTOL = 1e-12
+# f64mg_stencil (K6 on every Q1 level) against the same cell on K3 in the
+# same run: the same kernel and tables, so the same bits are expected
+F64_STENCIL_RTOL = 1e-10
 # jvp3d against main3d's own checksum in the same run: the bound of the
 # JAX package's tests/test_assembled_tangent.py::
 # test_model_step_equivalent_backends (the same linearization)
@@ -426,6 +492,11 @@ PATH_KERNELS.update({
     "coupled_nccl1": _STENCIL3D,
     "cli_ranks": _HEALTH + ("K4b q1_structured_2d",),
     "golden_nl": _HEALTH,
+    "f64mg3d": _HEALTH + ("K3 q1_structured f64",),
+    "f64mg2d": _HEALTH + ("K4b q1_structured_2d f64",),
+    "f64mg2d eager": _HEALTH + ("K4b q1_structured_2d f64",),
+    "f64mg_stencil": _HEALTH + ("K6 q1_stencil f64",),
+    "f64mg_stencil auto": _HEALTH + ("K3 q1_structured f64",),
     "linear_loops bench_linear_q2": _HEALTH + _MG3D,
     "linear_loops bench_linear_q3": _HEALTH + ("K3 q1_structured",),
     "linear_loops linear2d": _HEALTH + ("K4b q1_structured_2d",),
@@ -458,7 +529,16 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                                "K5 q2_structured", "K4b q1_structured_2d"),
                  "linear_loops bench_linear_q2": ("K1 tangent_matvec",),
                  "linear_loops bench_linear_q3": ("K1 tangent_matvec",
-                                                  "K5 q2_structured")}
+                                                  "K5 q2_structured"),
+                 "f64mg3d": _F64_EXCLUDES + ("K3 q1_structured",),
+                 "f64mg2d": _F64_EXCLUDES + ("K4b q1_structured_2d",),
+                 "f64mg2d eager": _F64_EXCLUDES + ("K4b q1_structured_2d",),
+                 "f64mg_stencil": _F64_EXCLUDES + (
+                     "K3 q1_structured", "K3 q1_structured f64",
+                     "K6 q1_stencil"),
+                 "f64mg_stencil auto": _F64_EXCLUDES + (
+                     "K3 q1_structured", "K6 q1_stencil",
+                     "K6 q1_stencil f64")}
 for _cell in LINEAR_CELLS:
     if f"linear_loops {_cell}" in PATH_EXCLUDES:
         PATH_EXCLUDES[f"linear_loops {_cell} eager"] = PATH_EXCLUDES[
@@ -733,11 +813,12 @@ def compare(out, ref):
     return max_abs, rel
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flops_per_s=F32_FLOPS):
     """(ms, what bounds it): the least time for moving `n_bytes` once and
-    doing `flops` f32 operations on the card."""
+    doing `flops` operations on the card (f32 unless `flops_per_s` says
+    otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -797,10 +878,10 @@ def lattice_E(p, h, lmbda, mu, mass_coeff):
     return mu * el.K_e + mass_coeff * el.M_e
 
 
-def assembled_csr(E, grid_shape, p, dev):
+def assembled_csr(E, grid_shape, p, dev, dtype=None):
     """The assembled global matrix of a constant element matrix over a
-    lattice of degree-p cells, as an f32 CSR tensor on the card (node-major
-    dofs, the layout the kernels read)."""
+    lattice of degree-p cells, as a CSR tensor on the card (node-major
+    dofs, the layout the kernels read), f32 unless `dtype` is given."""
     import torch
 
     from dealii_adapter_tpu_torch.ops.structured import extract_cell_patches_T
@@ -818,20 +899,21 @@ def assembled_csr(E, grid_shape, p, dev):
     idx = torch.stack([gd[:, :, None].expand(-1, ed, ed).reshape(-1),
                        gd[:, None, :].expand(-1, ed, ed).reshape(-1)])
     del gd
-    vals = torch.as_tensor(E, dtype=torch.float32, device=dev).expand(
-        n_cells, ed, ed).reshape(-1)
+    vals = torch.as_tensor(E, dtype=dtype or torch.float32,
+                           device=dev).expand(n_cells, ed, ed).reshape(-1)
     n = math.prod(grid_shape) * dim
     A = torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce()
     del idx, vals
     return A.to_sparse_csr()
 
 
-def library_spmv_ms(E, grid_shape, p, dev):
-    """Device time of one CSR SpMV (f32) of the assembled matrix."""
+def library_spmv_ms(E, grid_shape, p, dev, dtype=None):
+    """Device time of one CSR SpMV (f32 unless `dtype` is given) of the
+    assembled matrix."""
     import torch
 
-    A = assembled_csr(E, grid_shape, p, dev)
-    x = torch.randn(A.shape[1], 1, device=dev)
+    A = assembled_csr(E, grid_shape, p, dev, dtype)
+    x = torch.randn(A.shape[1], 1, device=dev, dtype=A.dtype)
     ms = device_ms(lambda: A @ x)
     del A, x
     torch.cuda.empty_cache()
@@ -880,14 +962,15 @@ def fmt_old(o):
             f"in turns {[round(t, 4) for t in o['turns_old_new_new_old']]}")
 
 
-def stencil_work(grid_shape, io_bytes):
-    """Bytes (u read once, y written once, the class tables) and f32
-    operations (3^dim neighbours x dim^2 FMA per node: 243 in 3D, 36 in
-    2D) of one assembled-stencil apply."""
+def stencil_work(grid_shape, io_bytes, table_bytes=4):
+    """Bytes (u read once, y written once, the class tables, f32 unless
+    `table_bytes` says otherwise) and operations (3^dim neighbours x dim^2
+    FMA per node: 243 in 3D, 36 in 2D) of one assembled-stencil apply."""
     dim = len(grid_shape)
     n_nodes = math.prod(grid_shape)
     n_off = 3**dim
-    return (2 * n_nodes * dim * io_bytes + 4 * n_off * n_off * dim * dim,
+    return (2 * n_nodes * dim * io_bytes
+            + table_bytes * n_off * n_off * dim * dim,
             2 * n_nodes * n_off * dim * dim)
 
 
@@ -957,6 +1040,91 @@ def q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3, lib2):
         library_call="CSR SpMV (torch sparse, f32)",
         **k6[0], other_checks=k6[1:] + k6_2d,
     ))
+    return records
+
+
+def f64_level_records(dev, E1, E4):
+    """The Q1 level kernels' f64 instantiation (io mode 3, f64 tables): K3,
+    K4 and K6 at every 3D Q1 level lattice of the f64 paths
+    (`F64_LEVELS_3D`, with E1), K4b and K6 at every 2D one
+    (`F64_LEVELS_2D`, with E4), on seeded f64 inputs: each within
+    `F64_RTOL` relative L2 of its plain version, K4 and K6 bit for bit K3's
+    (K6 in 2D K4b's) output, each lattice's device time (`device_ms`) and
+    time per call (`cuda_ms`); at the largest lattice of each the plain
+    version's time per call, the bound (bytes at 3.35 TB/s against f64
+    operations at 34 TFLOP/s, the larger) and the device time of an f64
+    CSR SpMV of the assembled level matrix (`library_ms`). One record per
+    kernel, named as its f64 launch count (`K3 q1_structured f64`, ...)."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.q1_structured import (
+        Q1PlaneOperator,
+        Q1StructuredOperator,
+        Q1StructuredOperator2D,
+    )
+    from dealii_adapter_tpu_torch.ops.stencil import StencilQ1Operator
+
+    f64 = torch.float64
+    g = torch.Generator(device="cpu").manual_seed(64)
+    log(f"kernels: SM clock {sm_clock()} before the f64 level kernels")
+    checks = {"K3": [], "K4": [], "K4b": [], "K6": []}
+    for lattices, E, dim in ((F64_LEVELS_3D, E1, 3), (F64_LEVELS_2D, E4, 2)):
+        for i, lat in enumerate(lattices):
+            u = torch.randn(math.prod(lat), dim, generator=g,
+                            dtype=f64).to(dev)
+            level = (Q1StructuredOperator if dim == 3
+                     else Q1StructuredOperator2D)(E, lat, f64, dev)
+            ref = level(u)
+            ops = {"K3" if dim == 3 else "K4b": level,
+                   "K6": StencilQ1Operator(E, lat, f64, device=dev)}
+            if dim == 3:
+                ops["K4"] = Q1PlaneOperator(E, lat, f64, dev)
+            for name, op in ops.items():
+                out = op(u)
+                mx, rel = compare(out, op.plain(u))
+                chk = dict(dtype="float64", lattice=tuple(lat),
+                           max_abs_err=mx, rel_l2_err=rel, limit=F64_RTOL,
+                           equal_to_level_kernel=bool(torch.equal(out, ref)),
+                           ms=device_ms(lambda: op(u)),
+                           call_ms=cuda_ms(lambda: op(u)))
+                b_ms, b_by = bound(*stencil_work(lat, 8, table_bytes=8),
+                                   flops_per_s=F64_FLOPS)
+                chk.update(bound_ms=b_ms, bound_by=b_by,
+                           share_of_bound=b_ms / chk["ms"])
+                if i == 0:
+                    chk["plain_ms"] = cuda_ms(lambda: op.plain(u))
+                require(rel <= F64_RTOL and chk["equal_to_level_kernel"],
+                        f"{name} f64 {lat}: {chk}")
+                checks[name].append(chk)
+                log(f"kernel {name} f64 {lat}: rel_l2 {rel:.3e} max_abs "
+                    f"{mx:.3e} (bitwise the level kernel's "
+                    f"{chk['equal_to_level_kernel']})  {chk['ms']:.4f} ms "
+                    f"(per call {chk['call_ms']:.4f})"
+                    + (f" vs plain {chk['plain_ms']:.4f}" if i == 0 else "")
+                    + f", bound {b_ms:.4f} ms ({b_by}, "
+                    f"{chk['share_of_bound']:.1%} of it)")
+    lib3 = library_spmv_ms(E1, F64_LEVELS_3D[0], 1, dev, f64)
+    lib2 = library_spmv_ms(E4, F64_LEVELS_2D[0], 1, dev, f64)
+    log(f"kernels: f64 CSR SpMV of the assembled level: {lib3:.4f} ms at "
+        f"{F64_LEVELS_3D[0]}, {lib2:.4f} ms at {F64_LEVELS_2D[0]}")
+    records = []
+    for name, kernel, replaces, lattices, lib in (
+            ("K3", "q1_structured", "ops/pallas_structured.py:345",
+             F64_LEVELS_3D, lib3),
+            ("K4", "q1_plane", "ops/pallas_structured.py:445",
+             F64_LEVELS_3D, lib3),
+            ("K4b", "q1_structured_2d", "ops/pallas_structured.py:488",
+             F64_LEVELS_2D, lib2),
+            ("K6", "q1_stencil", "ops/stencil.py:244", F64_LEVELS_3D, lib3)):
+        first, *rest = checks[name]
+        records.append(dict(
+            name=f"{name} {kernel} f64", route="cuda",
+            source="dealii_adapter_tpu_torch/csrc/q1_structured.cu",
+            replaces=f"dealii_adapter_tpu/{replaces}",
+            shape=f"lattice {lattices[0]} x {len(lattices[0])}, "
+                  f"{3 ** len(lattices[0])}-point, f64 I/O and tables",
+            library_ms=lib, library_call="CSR SpMV (torch sparse, f64)",
+            **first, other_checks=rest))
     return records
 
 
@@ -1168,6 +1336,8 @@ def phase_kernels():
     # also at K4b's 2D shape
     records += q1_level_records(randn, dev, E1, lattice, E4, lattice2, lib3,
                                 lib2)
+    # the f64 instantiation of K3, K4, K4b and K6 at the f64 paths' levels
+    records += f64_level_records(dev, E1, E4)
 
     # K5: 3D Q2 fine proxy with the small-strain proxy element matrix, bf16
     # (every 3D path) on the tensor cores and f32 in f32 FMA
@@ -1299,15 +1469,18 @@ def build_linear_model(device, scale=None, cg_loop=None, **overrides):
         overrides=dict(LINEAR_2D, **overrides), **loop)
 
 
-def build_linear_cell(name, device, scale=None, mesh_tags=None, **model_kw):
+def build_linear_cell(name, device, scale=None, mesh_tags=None,
+                      overrides=None, **model_kw):
     """The linear cell `name` of `LINEAR_CELLS` (at its full scale unless
-    given), `bench_torch.py:build_linear_model` with `model_kw` for the
-    constructor (`cg_loop`, `mg_lam_max`, ...)."""
+    given), `bench_torch.py:build_linear_model` with `overrides` of its
+    parameters and `model_kw` for the constructor (`cg_loop`,
+    `mg_lam_max`, ...)."""
     dim, degree, full = LINEAR_CELLS[name]
     return bench_torch.build_linear_model(
         full if scale is None else scale, LINEAR["dtype"], degree,
         device=device, mesh_tags=mesh_tags,
-        overrides=LINEAR_2D if dim == 2 else None, **model_kw)
+        overrides=dict(LINEAR_2D if dim == 2 else {}, **(overrides or {})),
+        **model_kw)
 
 
 # traction 1000 in x on the interface, as bench_torch.py loads its cells
@@ -2204,6 +2377,53 @@ def tangent_operator_ms(tag, model, state):
            f"iteration"))
 
 
+def f64_hierarchy_check(tag, model, lattices, cpu_twin=None):
+    """The f64 hierarchy of a model on the card: f64 on every level, a
+    plain f64 fine proxy (no K5), every Q1 level lattice among `lattices`
+    (those phase 3 held the f64 kernels at). With `cpu_twin` (lam_max
+    values -> the same model built on the CPU), one V-cycle on a seeded
+    masked f64 vector against the same hierarchy built on the CPU from the
+    same lam_max values, where the plain versions run, within `F64_RTOL`
+    relative L2, with the card's device time of the V-cycle."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.q2_structured import _PlainDegreeOperator
+
+    mg = model._precond
+    shapes = [lv.grid_shape for lv in mg.levels[1:]]
+    require(mg.dtype == torch.float64
+            and all(lv.diag.dtype == torch.float64 for lv in mg.levels),
+            f"{tag}: every level of the hierarchy in f64")
+    require(all(s in lattices for s in shapes),
+            f"{tag}: Q1 levels {shapes} among phase 3's {lattices}")
+    if getattr(model, "_fine_proxy", None) is not None:
+        require(isinstance(model._fine_proxy, _PlainDegreeOperator),
+                f"{tag}: the fine proxy is the plain operator")
+    lam = [lv.lam_max for lv in mg.levels]
+    log(f"{tag}: f64 hierarchy, levels {[lv.grid_shape for lv in mg.levels]}, "
+        f"lam_max {lam}")
+    if cpu_twin is None:
+        return
+    t0 = time.perf_counter()
+    cpu = cpu_twin(lam)
+    t_build = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(31)
+    r = cpu.mask * torch.randn(cpu.space.n_nodes, cpu.space.dim, generator=g,
+                               dtype=torch.float64)
+    t0 = time.perf_counter()
+    z_cpu = cpu._precond(r)
+    t_cpu = time.perf_counter() - t0
+    r_dev = r.to(model.device)
+    z_dev = mg(r_dev).cpu()
+    mx, rel = compare(z_dev, z_cpu)
+    ms = device_ms(lambda: mg(r_dev), reps=5, warmup_s=0.1)
+    log(f"{tag}: one V-cycle on the card against the same hierarchy on the "
+        f"CPU (built in {t_build:.1f} s, its V-cycle {t_cpu:.2f} s on the "
+        f"host): rel_l2 {rel:.3e} max_abs {mx:.3e} (limit {F64_RTOL}); "
+        f"device time {ms!r} ms a V-cycle")
+    require(rel <= F64_RTOL, f"{tag}: the f64 V-cycle against the CPU's: {rel}")
+
+
 def phase_jvp(main):
     """The jvp paths (`JVP_PATHS`) on the main path's mesh and lam_max
     values, 1 warmup and 3 timed steps each, with their checks; returns
@@ -2222,11 +2442,13 @@ def phase_jvp(main):
     got = forward_jvp(lambda y: 3.0 * y.detach() + y * y, x, t)
     require(torch.equal(got, 2.0 * x * t),
             "forward_jvp drops the tangent of a detached operand")
-    by_path = {}
+    by_path, counts = {}, {}
     for path, overrides in JVP_PATHS.items():
         t0 = time.perf_counter()
+        # f64mg3d's f64 hierarchy takes its own lam_max estimates
         model = build_model(dev, mesh_tags=main["mesh_tags"],
-                            mg_lam_max=main["lam_max"], **overrides)
+                            mg_lam_max=(None if path == "f64mg3d"
+                                        else main["lam_max"]), **overrides)
         torch.cuda.synchronize()
         describe(path, model, time.perf_counter() - t0)
         log(f"{path}: tangent "
@@ -2264,10 +2486,21 @@ def phase_jvp(main):
             main["jvp3d"] = dict(newton=newton, cg=cg, checksum=checksum)
         else:
             check_checksum(path, checksum, CHECKSUM_REF, CHECKSUM_RTOL)
-        if path == "f64jvp3d":
+        counts[path] = dict(cg=cg, newton=newton)
+        if path in ("f64jvp3d", "f64mg3d"):
             require(model.solve_dtype == torch.float64
                     and not model._use_assembled and model._sumfact is not None,
-                    "f64jvp3d: the f64 jvp tangent with sum factorization")
+                    f"{path}: the f64 jvp tangent with sum factorization")
+        if path == "f64mg3d":
+            f64_hierarchy_check(
+                path, model, F64_LEVELS_3D,
+                lambda lam: build_model(torch.device("cpu"),
+                                        mesh_tags=main["mesh_tags"],
+                                        mg_lam_max=lam, **overrides))
+            log(f"f64mg3d: CG per step {cg} and Newton {newton} with the f64 "
+                f"hierarchy; f64jvp3d's (bf16 hierarchy) CG "
+                f"{counts['f64jvp3d']['cg']}, Newton "
+                f"{counts['f64jvp3d']['newton']}")
         if path == "reuse_fine3d":
             require(all(n <= m + 2 for n, m in zip(newton, main["newton"])),
                     "reuse_fine3d: Newton counts at most main3d's + 2 a step")
@@ -2276,7 +2509,7 @@ def phase_jvp(main):
                 f"against {sum(newton[1:])} Newton iterations")
             require(asm < sum(newton[1:]),
                     "reuse_fine3d: fewer assemblies than Newton iterations")
-        else:
+        elif path != "f64mg3d":  # f64jvp3d's operator
             tangent_operator_ms(path, model, state)
         newton_eager_twin(path, model, stress, infos, checksum)
         del model, state
@@ -2747,6 +2980,80 @@ def phase_linear_loops():
     return by_path
 
 
+def phase_f64mg():
+    """The linear model's f64 multigrid paths (`F64_MG`; returns {path:
+    launches}):
+    - f64mg2d: `LINEAR_2D` (the 2D flap, scale 48) replayed
+      (`cg_loop="graphs"`) and the same step eager (`cg_loop="host"`),
+      two models on one mesh with the same lam_max values, 1 warmup and 3
+      timed steps each: K4b's f64 instantiation on every Q1 level; the
+      same `StepInfo` and states bit for bit, every residual <= 1e-10,
+      ||u||^2 within `LINEAR2D_RTOL` of the JAX package's
+      (`F64MG2D_REF`);
+    - f64mg_stencil: bench_linear_q2 (3D Q2, scale 4) with
+      `mg_level_backend="stencil"` (K6's f64 instantiation on every Q1
+      level, K3 never) and the same cell with `"auto"` (K3 in f64, path
+      `f64mg_stencil auto`), 1 warmup and 3 timed steps each: every
+      residual <= 1e-10, the two checksums within `F64_STENCIL_RTOL` and
+      the stencil's within `LINEAR2D_RTOL` of the JAX package's
+      (`F64MG_STENCIL_REF`).
+    Each model's hierarchy passes `f64_hierarchy_check` (f64 throughout,
+    levels among phase 3's lattices)."""
+    import torch
+
+    dev = torch.device("cuda")
+    by_path, runs = {}, {}
+    mesh_tags, lam_max = None, None
+    for path, cell, model_kw in (
+            ("f64mg2d", "linear2d", dict(cg_loop="graphs")),
+            ("f64mg2d eager", "linear2d", dict(cg_loop="host")),
+            ("f64mg_stencil", "bench_linear_q2", {}),
+            ("f64mg_stencil auto", "bench_linear_q2", {})):
+        if path == "f64mg_stencil":
+            mesh_tags = lam_max = None
+        overrides = dict(F64_MG, mg_level_backend=(
+            "stencil" if path == "f64mg_stencil" else "auto"))
+        t0 = time.perf_counter()
+        model = build_linear_cell(cell, dev, mesh_tags=mesh_tags,
+                                  overrides=overrides, mg_lam_max=lam_max,
+                                  **model_kw)
+        torch.cuda.synchronize()
+        describe(path, model, time.perf_counter() - t0)
+        f64_hierarchy_check(path, model, F64_LEVELS_2D if cell == "linear2d"
+                            else F64_LEVELS_3D)
+        if path == "f64mg2d":
+            mesh_tags = (model.mesh, model.tags)
+            lam_max = [lv.lam_max for lv in model._precond.levels]
+        stress = interface_traction(model)
+        start_counts()
+        state, infos, _, checksum = run_steps(path, model, stress, linear_fmt)
+        by_path[path] = read_counts(path)
+        log(f"{path}: launches {by_path[path]}")
+        require(all(i.residual <= 1e-10 for i in infos),
+                f"{path}: every step's residual <= 1e-10")
+        runs[path] = dict(state=state, infos=infos, checksum=checksum)
+        del model
+        torch.cuda.empty_cache()
+    g, h = runs["f64mg2d"], runs["f64mg2d eager"]
+    same = all(torch.equal(a, b) for a, b in zip(g["state"], h["state"]))
+    log(f"f64mg2d: replayed against eager: StepInfo equal "
+        f"{g['infos'] == h['infos']}, states bitwise {same}")
+    require(g["infos"] == h["infos"] and same,
+            "f64mg2d: the replayed step equals the eager one bit for bit")
+    check_checksum("f64mg2d", g["checksum"], F64MG2D_REF, LINEAR2D_RTOL)
+    k6, k3 = runs["f64mg_stencil"], runs["f64mg_stencil auto"]
+    rel = abs(k6["checksum"] - k3["checksum"]) / k3["checksum"]
+    log(f"f64mg_stencil: checksum {k6['checksum']!r} against the K3 "
+        f"hierarchy's {k3['checksum']!r}: rel. difference {rel:.3e} (limit "
+        f"{F64_STENCIL_RTOL}); CG {[i.iterations for i in k6['infos']]} "
+        f"against {[i.iterations for i in k3['infos']]}")
+    require(rel <= F64_STENCIL_RTOL,
+            "f64mg_stencil: checksum against the K3 hierarchy's")
+    check_checksum("f64mg_stencil", k6["checksum"], F64MG_STENCIL_REF,
+                   LINEAR2D_RTOL)
+    return by_path
+
+
 def phase_nonlinear2d(profile):
     import torch
 
@@ -2810,10 +3117,12 @@ def slab_kernel_checks(model, seed):
     inputs: bf16 in and f32 out, the variant the lattice partition runs
     for the bf16 V-cycle (its partial sums stay f32), limit 1e-5 (the f32
     accumulation; K5's split E is ~2.3e-6 relative); and f32 and bf16 I/O
-    at phase 3's limits. Not counted."""
+    at phase 3's limits; K3's f64 instantiation at the same slab shapes
+    with each level's element matrix (`F64_RTOL`). Not counted."""
     import torch
 
     from dealii_adapter_tpu_torch.ops import assembled_tangent as at
+    from dealii_adapter_tpu_torch.ops.q1_structured import q1_lattice_operator
     from dealii_adapter_tpu_torch.parallel.lattice import SlabOperator
 
     dev = model.device
@@ -2834,6 +3143,16 @@ def slab_kernel_checks(model, seed):
                              ms=cuda_ms(lambda: op(x, out_dtype=out))))
             require(rel <= tol, f"{name} at the slab {op.grid_shape} {io}: "
                     f"rel. L2 error {rel:.3e} > {tol}")
+    f64 = torch.float64
+    for _, op, _ in ops[1:]:
+        k3 = q1_lattice_operator(op.E_host, op.grid_shape, f64, dev)
+        x = torch.randn(op._u_shape, generator=g, device=dev, dtype=f64)
+        max_abs, rel = compare(k3(x), k3.plain(x))
+        rows.append(dict(name="K3 q1_structured f64", shape=list(op.grid_shape),
+                         dtype="float64", max_abs_err=max_abs, rel_l2_err=rel,
+                         limit=F64_RTOL, ms=cuda_ms(lambda: k3(x))))
+        require(rel <= F64_RTOL, f"K3 f64 at the slab {op.grid_shape}: rel. "
+                f"L2 error {rel:.3e} > {F64_RTOL}")
     edofs = 3 * model.space.tab.n_nodes
     n_cells = math.prod(model._lat.slab_reps)
     KT = torch.randn((edofs, edofs, n_cells), generator=g, device=dev)
@@ -3135,6 +3454,7 @@ def main():
     torch.cuda.empty_cache()
     by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
     by_path.update(timed("linear_loops", phase_linear_loops))
+    by_path.update(timed("f64mg", phase_f64mg))
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"], cli_u2 = timed("cli", phase_cli)

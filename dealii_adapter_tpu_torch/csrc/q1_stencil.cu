@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(kStencilThreads)
           const T* up = u + (row + jx) * NDIM;
           float uv[NDIM];
 #pragma unroll
-          for (int e = 0; e < NDIM; ++e) uv[e] = dat::load_f32(up + e);
+          for (int e = 0; e < NDIM; ++e) uv[e] = dat::load(up + e);
           const float* w = tc + off * NDIM * NDIM;
 #pragma unroll
           for (int d = 0; d < NDIM; ++d) {
@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(kStencilThreads)
     }
     T* yp = y + node * NDIM;
 #pragma unroll
-    for (int d = 0; d < NDIM; ++d) dat::store_f32(yp + d, acc[d]);
+    for (int d = 0; d < NDIM; ++d) dat::store(yp + d, acc[d]);
   }
 }
 

@@ -33,7 +33,18 @@
 //   launch and an out-of-lattice neighbour is a zero in shared memory. One
 //   float4 a row: in 3D (27 classes, 27 offsets, 3 output components) rows
 //   of 3 source components and a zero; in 2D (9 classes, 9 offsets) rows
-//   holding the 2 x 2 block (d0e0, d0e1, d1e0, d1e1).
+//   holding the 2 x 2 block (d0e0, d0e1, d1e0, d1e1). An f64 operator's
+//   table holds the same rows in f64, four doubles a row (32 bytes).
+//
+// The f64 instantiation (io mode 3, dat::kIoF64: an f64 multigrid
+//   hierarchy, which the JAX package runs outside its Pallas kernels, on
+//   XLA): the same tiles, classes and boundary handling with the compute
+//   type, the shared-memory node records and the table rows in f64 (Level
+//   below), FMA in double. Twice the bytes a node plane and a table class:
+//   the 3D f64 form raises its shared-memory cap so that every lattice
+//   launches (kLevelMaxSmemF64). Its result agrees with the plain version
+//   to f64 roundoff (the sums in another order, the folded coefficients
+//   exact in f64).
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s f32):
 //   K3 at the largest 3D level, the (19, 325, 55) FEM-SEM lattice: 339,625
@@ -42,6 +53,10 @@
 //   The 2D kernel at the largest 2D level, the (1729, 289) FEM-SEM lattice:
 //   499,681 nodes x 36 FMA is 0.54 us, against 8.0 MB in f32 (2.39 us) and
 //   4.0 MB in bf16 (1.19 us): bytes. Its aim is to move each byte once.
+//   In f64 (34 TFLOP/s outside the tensor cores, half the f32 rate): K3 at
+//   (19, 325, 55) moves 16.3 MB (4.87 us) and does 0.165 GFLOP (4.86 us),
+//   both at once; the 2D kernel at (1729, 289) moves 16.0 MB (4.77 us)
+//   against 0.036 GFLOP (1.06 us): bytes.
 //
 // What held the first designs back (kept as entry points that only
 //   chip_smoke.py's timing calls: dat_q1_structured_gather and
@@ -65,10 +80,10 @@
 //   of a thread's loads in flight before the first store to shared memory,
 //   together with the coefficient classes its nodes use (at most 2 per
 //   axis on a large level, 3 when the tile spans an axis), then passes one
-//   __syncthreads. The nodes are kept in f32 in shared memory. A thread
+//   __syncthreads. The nodes are kept in f32 (f64) in shared memory. A thread
 //   computes up to 4 nodes of its column along the slowest axis, split into
 //   runs of one class, so each coefficient row and each neighbour column is
-//   read once for all of them. Accumulation in f32 in a fixed order
+//   read once for all of them. Accumulation in f32 (f64) in a fixed order
 //   (offsets, then source components), 32-bit lattice arithmetic inside a
 //   block, no atomics: two launches give the same bits. The result agrees
 //   with the cell-wise plain version to f32 roundoff (the sums are taken
@@ -120,22 +135,48 @@
 
 namespace {
 
+// The level kernels' compute type and its vectors, chosen by the input
+// type: f32 (float4 node records and table rows, float2 2D nodes) for the
+// f32 and bf16 modes, f64 (32-byte node records and table rows, double2 2D
+// nodes) for f64 I/O.
+struct alignas(32) Double4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct Level {
+  using C = float;
+  using V4 = float4;
+  using V2 = float2;
+};
+template <>
+struct Level<double> {
+  using C = double;
+  using V4 = Double4;
+  using V2 = double2;
+};
+__device__ __forceinline__ float fma_c(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_c(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // ---------------------------------------------------------------- K3 ----
 
 constexpr int kLevelThreads = 128;
-constexpr int kLevelCoefRows = 81;  // float4 rows per class: 27 offsets x 3
+constexpr int kLevelCoefRows = 81;  // V4 rows per class: 27 offsets x 3
 
 __device__ __forceinline__ int node_class(int i, int n) {
   return i == 0 ? 0 : (i == n - 1 ? 2 : 1);
 }
 
 // Node planes z0 - 1 .. z0 + np - 2 of the tile (TY + 2 rows of TX + 2
-// nodes with the halo) as float4 per node (w unused) into `dst`, zeros
+// nodes with the halo) as a V4 per node (w unused) into `dst`, zeros
 // outside the lattice. A warp copies whole halo rows (contiguous in device
 // memory); each lane's column offsets are computed once, and 32 loads per
 // lane (32 / KJ rows) are in flight before any is stored.
-template <int TX, typename T>
-__device__ __forceinline__ void level_load_planes(float* dst,
+template <int TX, typename T, typename C = typename Level<T>::C>
+__device__ __forceinline__ void level_load_planes(C* dst,
                                                   const T* __restrict__ u,
                                                   int z0, int np, int nz,
                                                   int ny, int nx, int y0,
@@ -156,7 +197,7 @@ __device__ __forceinline__ void level_load_planes(float* dst,
   }
   const int rows = np * HY;
   for (int r0 = warp; r0 < rows; r0 += WARPS * R) {
-    float v[R][KJ];
+    C v[R][KJ];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int r = r0 + q * WARPS, p = r / HY, hy = r - p * HY;
@@ -166,7 +207,7 @@ __device__ __forceinline__ void level_load_planes(float* dst,
                           (row_ok ? gy : 0)) * nx * 3;
 #pragma unroll
       for (int k = 0; k < KJ; ++k)
-        v[q][k] = row_ok && ok[k] ? dat::load_f32(src + goff[k]) : 0.0f;
+        v[q][k] = row_ok && ok[k] ? dat::load(src + goff[k]) : C(0);
     }
 #pragma unroll
     for (int q = 0; q < R; ++q) {
@@ -183,41 +224,42 @@ __device__ __forceinline__ void level_load_planes(float* dst,
 // B consecutive nodes (z .. z + B - 1) of one thread's column, all of one
 // class: each coefficient row and each neighbour is read once for the B
 // nodes (a z column of B + 2 planes per in-plane offset).
-template <int B, int TX, typename TO>
-__device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
-                                            const float4* planes, int p0,
+template <int B, int TX, typename T, typename TO,
+          typename V4 = typename Level<T>::V4, typename C = typename Level<T>::C>
+__device__ __forceinline__ void level_nodes(const V4* __restrict__ tc,
+                                            const V4* planes, int p0,
                                             int plast, int col,
                                             TO* __restrict__ y, long long node,
                                             long long plane_nodes, int cnt) {
   constexpr int TY = kLevelThreads / TX, HX = TX + 2, HY = TY + 2;
   constexpr int PLANE = HY * HX;
-  float acc[B][3];
+  C acc[B][3];
 #pragma unroll
-  for (int q = 0; q < B; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.0f;
+  for (int q = 0; q < B; ++q) acc[q][0] = acc[q][1] = acc[q][2] = C(0);
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
-      float4 v[B + 2];  // planes p0 .. p0 + B + 1 (node z - 1 .. z + B)
+      V4 v[B + 2];  // planes p0 .. p0 + B + 1 (node z - 1 .. z + B)
 #pragma unroll
       for (int q = 0; q < B + 2; ++q)
         v[q] = planes[min(p0 + q, plast) * PLANE + col + dy * HX + dx];
 #pragma unroll
       for (int dz = 0; dz < 3; ++dz) {
-        const float4* c = tc + ((dz * 3 + dy) * 3 + dx) * 3;
-        const float4 c0 = c[0], c1 = c[1], c2 = c[2];
+        const V4* c = tc + ((dz * 3 + dy) * 3 + dx) * 3;
+        const V4 c0 = c[0], c1 = c[1], c2 = c[2];
 #pragma unroll
         for (int q = 0; q < B; ++q) {
-          const float4 w = v[q + dz];
-          acc[q][0] = fmaf(c0.x, w.x, acc[q][0]);
-          acc[q][0] = fmaf(c0.y, w.y, acc[q][0]);
-          acc[q][0] = fmaf(c0.z, w.z, acc[q][0]);
-          acc[q][1] = fmaf(c1.x, w.x, acc[q][1]);
-          acc[q][1] = fmaf(c1.y, w.y, acc[q][1]);
-          acc[q][1] = fmaf(c1.z, w.z, acc[q][1]);
-          acc[q][2] = fmaf(c2.x, w.x, acc[q][2]);
-          acc[q][2] = fmaf(c2.y, w.y, acc[q][2]);
-          acc[q][2] = fmaf(c2.z, w.z, acc[q][2]);
+          const V4 w = v[q + dz];
+          acc[q][0] = fma_c(c0.x, w.x, acc[q][0]);
+          acc[q][0] = fma_c(c0.y, w.y, acc[q][0]);
+          acc[q][0] = fma_c(c0.z, w.z, acc[q][0]);
+          acc[q][1] = fma_c(c1.x, w.x, acc[q][1]);
+          acc[q][1] = fma_c(c1.y, w.y, acc[q][1]);
+          acc[q][1] = fma_c(c1.z, w.z, acc[q][1]);
+          acc[q][2] = fma_c(c2.x, w.x, acc[q][2]);
+          acc[q][2] = fma_c(c2.y, w.y, acc[q][2]);
+          acc[q][2] = fma_c(c2.z, w.z, acc[q][2]);
         }
       }
     }
@@ -226,9 +268,9 @@ __device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
   for (int q = 0; q < B; ++q) {
     if (q < cnt) {
       TO* yp = y + (node + q * plane_nodes) * 3;
-      dat::store_f32(yp, acc[q][0]);
-      dat::store_f32(yp + 1, acc[q][1]);
-      dat::store_f32(yp + 2, acc[q][2]);
+      dat::store(yp, acc[q][0]);
+      dat::store(yp + 1, acc[q][1]);
+      dat::store(yp + 2, acc[q][2]);
     }
   }
 }
@@ -236,24 +278,26 @@ __device__ __forceinline__ void level_nodes(const float4* __restrict__ tc,
 template <int TX, typename T, typename TO>
 __global__ void __launch_bounds__(kLevelThreads)
     q1_level_kernel(const T* __restrict__ u, TO* __restrict__ y,
-                    const float4* __restrict__ coef, int nz, int ny, int nx,
-                    int zc) {
+                    const typename Level<T>::V4* __restrict__ coef, int nz,
+                    int ny, int nx, int zc) {
+  using V4 = typename Level<T>::V4;
   constexpr int TY = kLevelThreads / TX, HX = TX + 2, HY = TY + 2;
-  constexpr int PLANE = HY * HX;  // float4 per node plane of the tile
-  extern __shared__ float4 level_smem[];
+  constexpr int PLANE = HY * HX;  // V4 per node plane of the tile
+  extern __shared__ __align__(32) unsigned char level_smem[];
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * zc;
   const int z1 = min(z0 + zc, nz);
-  float4* planes = level_smem;  // [z1 - z0 + 2][HY][HX]
+  V4* planes = reinterpret_cast<V4*>(level_smem);  // [z1 - z0 + 2][HY][HX]
   // the classes of this block's nodes form a range per axis
   const int cxl = node_class(x0, nx), cxh = node_class(min(x0 + TX, nx) - 1, nx);
   const int cyl = node_class(y0, ny), cyh = node_class(min(y0 + TY, ny) - 1, ny);
   const int czl = node_class(z0, nz), czh = node_class(z1 - 1, nz);
   const int ncx = cxh - cxl + 1, ncy = cyh - cyl + 1;
-  // the classes used: the first 8 float4 per thread are loaded before the
-  // node planes and stored after them, so both wait on memory together
-  float4* tabs = level_smem + (z1 - z0 + 2) * PLANE;  // [classes used][81]
+  // the classes used: the first 128 bytes of rows per thread (8 float4, 4
+  // in f64) are loaded before the node planes and stored after them, so
+  // both wait on memory together
+  V4* tabs = planes + (z1 - z0 + 2) * PLANE;  // [classes used][81]
   const int ntab = ncx * ncy * (czh - czl + 1) * kLevelCoefRows;
   auto tab_src = [&](int k) {
     const int l = k / kLevelCoefRows, r = k - l * kLevelCoefRows;
@@ -261,15 +305,15 @@ __global__ void __launch_bounds__(kLevelThreads)
     return coef[(((czl + lz) * 3 + (cyl + ly)) * 3 + (cxl + lx)) *
                     kLevelCoefRows + r];
   };
-  constexpr int CK = 8;
-  float4 cv[CK];
+  constexpr int CK = 128 / sizeof(V4);
+  V4 cv[CK];
 #pragma unroll
   for (int k = 0; k < CK; ++k) {
     const int i = k * kLevelThreads + threadIdx.x;
     if (i < ntab) cv[k] = tab_src(i);
   }
-  level_load_planes<TX>(reinterpret_cast<float*>(planes), u, z0, z1 - z0 + 2,
-                        nz, ny, nx, y0, x0);
+  level_load_planes<TX>(reinterpret_cast<typename Level<T>::C*>(planes), u,
+                        z0, z1 - z0 + 2, nz, ny, nx, y0, x0);
 #pragma unroll
   for (int k = 0; k < CK; ++k) {
     const int i = k * kLevelThreads + threadIdx.x;
@@ -289,19 +333,19 @@ __global__ void __launch_bounds__(kLevelThreads)
   for (int z = z0; z < z1;) {
     const int cz = node_class(z, nz);
     const int run_end = cz == 1 ? min(z1, nz - 1) : z + 1;
-    const float4* tc =
+    const V4* tc =
         tabs + (((cz - czl) * ncy + (cy - cyl)) * ncx + (cx - cxl)) * kLevelCoefRows;
     while (z < run_end) {
       const int left = run_end - z, p0 = z - z0;
       const long long node = z * plane_nodes + static_cast<long long>(iy) * nx + ix;
       if (left >= 4) {
-        level_nodes<4, TX>(tc, planes, p0, plast, col, y, node, plane_nodes, 4);
+        level_nodes<4, TX, T>(tc, planes, p0, plast, col, y, node, plane_nodes, 4);
         z += 4;
       } else if (left >= 2) {
-        level_nodes<2, TX>(tc, planes, p0, plast, col, y, node, plane_nodes, 2);
+        level_nodes<2, TX, T>(tc, planes, p0, plast, col, y, node, plane_nodes, 2);
         z += 2;
       } else {
-        level_nodes<1, TX>(tc, planes, p0, plast, col, y, node, plane_nodes, 1);
+        level_nodes<1, TX, T>(tc, planes, p0, plast, col, y, node, plane_nodes, 1);
         z += 1;
       }
     }
@@ -312,16 +356,26 @@ __global__ void __launch_bounds__(kLevelThreads)
 int level_axis_classes(int n, int t) { return n <= t ? 3 : 2; }
 
 constexpr int kLevelMaxSmem = 96 * 1024;
+// f64: twice the bytes a node and a row. The most any lattice needs, the
+// widest tile's 10 node planes (6 x 34 nodes) and all 27 classes' tables:
+// 135,264 bytes (a block may have 227 KB), so no lattice is refused for
+// its shared memory; the largest main-path level, (19, 325, 55), takes 86
+// KB (10 planes and 8 classes).
+constexpr int kLevelMaxSmemF64 =
+    (10 * 6 * 34 + 27 * kLevelCoefRows) * static_cast<int>(sizeof(Double4));
 
 template <int TX, typename T, typename TO>
 cudaError_t launch_q1_level_tx(const void* u, void* y, const void* coef,
                                int nz, int ny, int nx, cudaStream_t s) {
+  using V4 = typename Level<T>::V4;
   constexpr int TY = kLevelThreads / TX;
+  constexpr int max_smem =
+      sizeof(V4) == sizeof(float4) ? kLevelMaxSmem : kLevelMaxSmemF64;
   static bool attr_set = false;  // > 48 KB only when a tile spans each axis
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         q1_level_kernel<TX, T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kLevelMaxSmem);
+        max_smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -333,11 +387,11 @@ cudaError_t launch_q1_level_tx(const void* u, void* y, const void* coef,
   const int ncls = level_axis_classes(nx, TX) * level_axis_classes(ny, TY) *
                    level_axis_classes(nz, zc);
   const size_t smem = ((min(zc, nz) + 2) * (TY + 2) * (TX + 2) +
-                       ncls * kLevelCoefRows) * sizeof(float4);
-  if (smem > static_cast<size_t>(kLevelMaxSmem)) return cudaErrorInvalidValue;
+                       ncls * kLevelCoefRows) * sizeof(V4);
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
   q1_level_kernel<TX, T, TO><<<grid, kLevelThreads, smem, s>>>(
       static_cast<const T*>(u), static_cast<TO*>(y),
-      static_cast<const float4*>(coef), nz, ny, nx, zc);
+      static_cast<const V4*>(coef), nz, ny, nx, zc);
   return cudaGetLastError();
 }
 
@@ -353,6 +407,8 @@ cudaError_t launch_q1_level_io(const void* u, void* y, const void* coef,
       return launch_q1_level_tx<TX, bf16, bf16>(u, y, coef, nz, ny, nx, s);
     case dat::kIoBf16InF32Out:
       return launch_q1_level_tx<TX, bf16, float>(u, y, coef, nz, ny, nx, s);
+    case dat::kIoF64:
+      return launch_q1_level_tx<TX, double, double>(u, y, coef, nz, ny, nx, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -368,33 +424,34 @@ cudaError_t launch_q1_level(const void* u, void* y, const void* coef, int nz,
 
 // ------------------------------------------------- 2D level operator ----
 
-constexpr int kLevel2dRows = 9;    // float4 rows per class: 9 offsets
+constexpr int kLevel2dRows = 9;    // V4 rows per class: 9 offsets
 constexpr int kLevel2dMaxRun = 4;  // rows a thread computes, at most
 
 // The tile's halo rows y0 - 1 .. y0 + rows - 2 (HX = TX + 2 nodes each,
-// zeros outside the lattice) as float2 per node into `dst`. The flattened
+// zeros outside the lattice) as a V2 per node into `dst`. The flattened
 // (row, node) index runs over the block's threads, so consecutive threads
 // read consecutive addresses of a row, and every load of a thread is
 // issued before its first store.
-template <int TX, typename T>
-__device__ __forceinline__ void level2d_load_rows(float2* dst,
+template <int TX, typename T, typename V2 = typename Level<T>::V2>
+__device__ __forceinline__ void level2d_load_rows(V2* dst,
                                                   const T* __restrict__ u,
                                                   int rows, int ny, int nx,
                                                   int y0, int x0) {
+  using C = typename Level<T>::C;
   constexpr int TY = kLevelThreads / TX, HX = TX + 2;
   constexpr int K =
       ((TY * kLevel2dMaxRun + 2) * HX + kLevelThreads - 1) / kLevelThreads;
   const int total = rows * HX;
-  float2 v[K];
+  V2 v[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int i = k * kLevelThreads + threadIdx.x;
     const int r = i / HX, hx = i - r * HX;
     const int gy = y0 - 1 + r, gx = x0 - 1 + hx;
-    v[k] = make_float2(0.0f, 0.0f);
+    v[k] = V2{C(0), C(0)};
     if (i < total && gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
       const T* p = u + (gy * nx + gx) * 2;
-      v[k] = make_float2(dat::load_f32(p), dat::load_f32(p + 1));
+      v[k] = V2{dat::load(p), dat::load(p + 1)};
     }
   }
 #pragma unroll
@@ -407,49 +464,51 @@ __device__ __forceinline__ void level2d_load_rows(float2* dst,
 // B consecutive nodes (y .. y + B - 1) of one thread's column, all of one
 // class, whose first node sits in halo row r0 + 1: each coefficient row and
 // each neighbour column (B + 2 halo rows) is read once for the B nodes.
-template <int B, int TX, typename TO>
-__device__ __forceinline__ void level2d_nodes(const float4* __restrict__ tc,
-                                              const float2* rows, int r0,
-                                              int col, TO* __restrict__ y,
-                                              int node, int nx) {
+template <int B, int TX, typename T, typename TO,
+          typename L = Level<T>>
+__device__ __forceinline__ void level2d_nodes(
+    const typename L::V4* __restrict__ tc, const typename L::V2* rows, int r0,
+    int col, TO* __restrict__ y, int node, int nx) {
+  using C = typename L::C;
   constexpr int HX = TX + 2;
-  float acc[B][2];
+  C acc[B][2];
 #pragma unroll
-  for (int q = 0; q < B; ++q) acc[q][0] = acc[q][1] = 0.0f;
+  for (int q = 0; q < B; ++q) acc[q][0] = acc[q][1] = C(0);
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) {
-    float2 v[B + 2];  // halo rows r0 .. r0 + B + 1 (nodes y - 1 .. y + B)
+    typename L::V2 v[B + 2];  // halo rows r0 .. r0 + B + 1 (nodes y - 1 .. y + B)
 #pragma unroll
     for (int q = 0; q < B + 2; ++q) v[q] = rows[(r0 + q) * HX + col + dx];
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
-      const float4 c = tc[dy * 3 + dx];
+      const typename L::V4 c = tc[dy * 3 + dx];
 #pragma unroll
       for (int q = 0; q < B; ++q) {
-        const float2 w = v[q + dy];
-        acc[q][0] = fmaf(c.x, w.x, acc[q][0]);
-        acc[q][0] = fmaf(c.y, w.y, acc[q][0]);
-        acc[q][1] = fmaf(c.z, w.x, acc[q][1]);
-        acc[q][1] = fmaf(c.w, w.y, acc[q][1]);
+        const typename L::V2 w = v[q + dy];
+        acc[q][0] = fma_c(c.x, w.x, acc[q][0]);
+        acc[q][0] = fma_c(c.y, w.y, acc[q][0]);
+        acc[q][1] = fma_c(c.z, w.x, acc[q][1]);
+        acc[q][1] = fma_c(c.w, w.y, acc[q][1]);
       }
     }
   }
 #pragma unroll
   for (int q = 0; q < B; ++q) {
     TO* yp = y + (node + q * nx) * 2;
-    dat::store_f32(yp, acc[q][0]);
-    dat::store_f32(yp + 1, acc[q][1]);
+    dat::store(yp, acc[q][0]);
+    dat::store(yp + 1, acc[q][1]);
   }
 }
 
 template <int TX, typename T, typename TO>
 __global__ void __launch_bounds__(kLevelThreads)
     q1_level_kernel_2d(const T* __restrict__ u, TO* __restrict__ y,
-                       const float4* __restrict__ coef, int ny, int nx,
-                       int yc) {
+                       const typename Level<T>::V4* __restrict__ coef, int ny,
+                       int nx, int yc) {
+  using V4 = typename Level<T>::V4;
   constexpr int TY = kLevelThreads / TX, HX = TX + 2;
-  __shared__ float2 rows[(TY * kLevel2dMaxRun + 2) * HX];
-  __shared__ float4 tabs[9 * kLevel2dRows];  // [classes used][9 offsets]
+  __shared__ typename Level<T>::V2 rows[(TY * kLevel2dMaxRun + 2) * HX];
+  __shared__ V4 tabs[9 * kLevel2dRows];  // [classes used][9 offsets]
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * (TY * yc);
@@ -460,7 +519,7 @@ __global__ void __launch_bounds__(kLevelThreads)
   const int cyl = node_class(y0, ny), cyh = node_class(y1 - 1, ny);
   const int ncx = cxh - cxl + 1;
   const int ntab = ncx * (cyh - cyl + 1) * kLevel2dRows;
-  float4 cv;
+  V4 cv;
   if (static_cast<int>(threadIdx.x) < ntab) {
     const int l = threadIdx.x / kLevel2dRows;
     const int r = threadIdx.x - l * kLevel2dRows;
@@ -480,17 +539,17 @@ __global__ void __launch_bounds__(kLevelThreads)
   for (int iy = ys; iy < ye;) {
     const int cy = node_class(iy, ny);
     const int run_end = cy == 1 ? min(ye, ny - 1) : iy + 1;
-    const float4* tc = tabs + ((cy - cyl) * ncx + (cx - cxl)) * kLevel2dRows;
+    const V4* tc = tabs + ((cy - cyl) * ncx + (cx - cxl)) * kLevel2dRows;
     while (iy < run_end) {
       const int left = run_end - iy, r0 = iy - y0, node = iy * nx + ix;
       if (left >= 4) {
-        level2d_nodes<4, TX>(tc, rows, r0, tx, y, node, nx);
+        level2d_nodes<4, TX, T>(tc, rows, r0, tx, y, node, nx);
         iy += 4;
       } else if (left >= 2) {
-        level2d_nodes<2, TX>(tc, rows, r0, tx, y, node, nx);
+        level2d_nodes<2, TX, T>(tc, rows, r0, tx, y, node, nx);
         iy += 2;
       } else {
-        level2d_nodes<1, TX>(tc, rows, r0, tx, y, node, nx);
+        level2d_nodes<1, TX, T>(tc, rows, r0, tx, y, node, nx);
         iy += 1;
       }
     }
@@ -509,7 +568,7 @@ cudaError_t launch_q1_level_2d_tx(const void* u, void* y, const void* coef,
   const dim3 grid(bx, (ny + TY * yc - 1) / (TY * yc));
   q1_level_kernel_2d<TX, T, TO><<<grid, kLevelThreads, 0, s>>>(
       static_cast<const T*>(u), static_cast<TO*>(y),
-      static_cast<const float4*>(coef), ny, nx, yc);
+      static_cast<const typename Level<T>::V4*>(coef), ny, nx, yc);
   return cudaGetLastError();
 }
 
@@ -524,6 +583,8 @@ cudaError_t launch_q1_level_2d_io(const void* u, void* y, const void* coef,
       return launch_q1_level_2d_tx<TX, bf16, bf16>(u, y, coef, ny, nx, s);
     case dat::kIoBf16InF32Out:
       return launch_q1_level_2d_tx<TX, bf16, float>(u, y, coef, ny, nx, s);
+    case dat::kIoF64:
+      return launch_q1_level_2d_tx<TX, double, double>(u, y, coef, ny, nx, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -560,7 +621,7 @@ __device__ void load_plane(float (*planes)[3][kPlaneHY][kPlaneHX], int buf,
     const T* p = u + ((static_cast<long long>(k) * ny + gy) * nx + gx) * 3;
 #pragma unroll
     for (int e = 0; e < 3; ++e)
-      planes[buf][e][hy][hx] = in ? dat::load_f32(p + e) : 0.0f;
+      planes[buf][e][hy][hx] = in ? dat::load(p + e) : 0.0f;
   }
 }
 
@@ -617,7 +678,7 @@ __global__ void __launch_bounds__(kPlaneTX * kPlaneTY)
       }
       T* yp = y + (k * plane_nodes + col) * 3;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) dat::store_f32(yp + d, carry[d] + low[d]);
+      for (int d = 0; d < 3; ++d) dat::store(yp + d, carry[d] + low[d]);
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d) carry[d] = high[d];
@@ -626,7 +687,7 @@ __global__ void __launch_bounds__(kPlaneTX * kPlaneTY)
   if (active) {
     T* yp = y + ((nz - 1) * plane_nodes + col) * 3;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) dat::store_f32(yp + d, carry[d]);
+    for (int d = 0; d < 3; ++d) dat::store(yp + d, carry[d]);
   }
 }
 
@@ -669,17 +730,19 @@ extern "C" cudaError_t dat_q1_plane_marching(const void* u, void* y,
   return launch_q1_plane(u, y, E, nz, ny, nx, io_bf16, stream);
 }
 
-// K3: `coef` is the (27 classes, 27 offsets, 3, 4) f32 table of
-// ops/stencil.py:kernel_table (Q1StructuredOperator._coefficients); `io`,
-// here and in K4, K4b and K6, a dat::IoMode
+// K3: `coef` is the (27 classes, 27 offsets, 3, 4) table of
+// ops/stencil.py:kernel_table (Q1StructuredOperator._coefficients), f64 for
+// io mode 3 and f32 otherwise; `io`, here and in K4, K4b and K6, a
+// dat::IoMode
 extern "C" cudaError_t dat_q1_structured(const void* u, void* y,
                                          const void* coef, int nz, int ny,
                                          int nx, int io, void* stream) {
   return launch_q1_level(u, y, coef, nz, ny, nx, io, stream);
 }
 
-// K4b: `coef` is the (9 classes, 9 offsets, 4) f32 table of
-// ops/stencil.py:kernel_table (Q1StructuredOperator2D._coefficients)
+// K4b: `coef` is the (9 classes, 9 offsets, 4) table of
+// ops/stencil.py:kernel_table (Q1StructuredOperator2D._coefficients), f64
+// for io mode 3 and f32 otherwise
 extern "C" cudaError_t dat_q1_structured_2d(const void* u, void* y,
                                             const void* coef, int ny, int nx,
                                             int io, void* stream) {

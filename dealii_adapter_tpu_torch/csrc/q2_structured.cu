@@ -296,9 +296,9 @@ __global__ void __launch_bounds__(kQ2Threads)
       }
     }
     TO* yp = y + ((static_cast<long long>(gz) * ny + gy) * nx + gx) * 3;
-    dat::store_f32(yp, a0);
-    dat::store_f32(yp + 1, a1);
-    dat::store_f32(yp + 2, a2);
+    dat::store(yp, a0);
+    dat::store(yp + 1, a1);
+    dat::store(yp + 2, a2);
   }
 }
 

@@ -31,21 +31,32 @@
 
 namespace dat {
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+// Loads and stores in a kernel's compute type: f32 for f32 and bf16 I/O,
+// f64 for f64 I/O
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ double load(const double* p) { return __ldg(p); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
 
 // The I/O of the level and fine kernels (K3, K4, K4b, K5, K6): f32 in and
-// out, bf16 in and out, or bf16 in with the f32 accumulation written out
+// out, bf16 in and out, bf16 in with the f32 accumulation written out
 // unrounded (the lattice partition's slabs: their partial sums are added in
-// f32 across the ranks and rounded to bf16 once). The first designs kept
-// for timing take the first two only.
-enum IoMode : int { kIoF32 = 0, kIoBf16 = 1, kIoBf16InF32Out = 2 };
+// f32 across the ranks and rounded to bf16 once), or f64 in and out (the
+// Q1 level kernels only: an f64 multigrid hierarchy; K5 returns
+// cudaErrorInvalidValue for it). The first designs kept for timing take
+// the first two only.
+enum IoMode : int {
+  kIoF32 = 0,
+  kIoBf16 = 1,
+  kIoBf16InF32Out = 2,
+  kIoF64 = 3,
+};
 
 constexpr int kGatherThreads = 128;
 
@@ -95,7 +106,7 @@ __global__ void structured_gather_kernel(const T* __restrict__ u,
               const T* up = u + (row + tx) * DIM;
               float uv[DIM];
 #pragma unroll
-              for (int e = 0; e < DIM; ++e) uv[e] = load_f32(up + e);
+              for (int e = 0; e < DIM; ++e) uv[e] = dat::load(up + e);
               const int col = t * DIM;
 #pragma unroll
               for (int d = 0; d < DIM; ++d) {
@@ -111,7 +122,7 @@ __global__ void structured_gather_kernel(const T* __restrict__ u,
   }
   T* yp = y + node * DIM;
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) store_f32(yp + d, acc[d]);
+  for (int d = 0; d < DIM; ++d) dat::store(yp + d, acc[d]);
 }
 
 // nz must be 1 for DIM == 2.

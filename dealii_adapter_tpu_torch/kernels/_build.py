@@ -51,9 +51,9 @@ _SIGNATURES = {
                                       ctypes.c_longlong, _P),
     # K2/K2b (ptrs[n_upper_blocks], u, out, dim, npc, n_cells, stream)
     "dat_tangent_matvec_sym_f32": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
-    # (u, y, coefficients, nz, ny, nx, io_bf16, stream): K3 and K4 (class
-    # tables), and the first designs of K4 (plane marching), K3 and K5
-    # (gathers) (E)
+    # (u, y, coefficients, nz, ny, nx, io, stream): K3 and K4 (class
+    # tables, `io` a dat::IoMode), and the first designs of K4 (plane
+    # marching), K3 and K5 (gathers) (E; `io` 0 or 1)
     "dat_q1_structured": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q1_plane": (_P, _P, _P, _I, _I, _I, _I, _P),
     "dat_q1_plane_marching": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -204,19 +204,22 @@ def check(err: int, what: str) -> None:
 def io_mode(in_dtype, out_dtype) -> int:
     """The `dat::IoMode` (csrc/structured_gather.cuh) of the level and fine
     kernels K3, K4, K4b, K5 and K6 for an input and output dtype: f32 in
-    and out (0), bf16 in and out (1), or bf16 in and the f32 accumulation
-    out (2)."""
+    and out (0), bf16 in and out (1), bf16 in and the f32 accumulation
+    out (2), or f64 in and out (3: the Q1 level kernels' f64
+    instantiation; K5 refuses it). Any other pair raises."""
     import torch
 
     modes = {(torch.float32, torch.float32): 0,
              (torch.bfloat16, torch.bfloat16): 1,
-             (torch.bfloat16, torch.float32): 2}
+             (torch.bfloat16, torch.float32): 2,
+             (torch.float64, torch.float64): 3}
     try:
         return modes[(in_dtype, out_dtype)]
     except KeyError:
         raise TypeError(
             f"the level kernels take float32 or bfloat16 input and output "
-            f"float32 or the input dtype, got {in_dtype} -> {out_dtype}") from None
+            f"float32 or the input dtype, or float64 in and out, got "
+            f"{in_dtype} -> {out_dtype}") from None
 
 
 def stream_of(t) -> int:

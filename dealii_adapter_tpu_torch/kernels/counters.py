@@ -13,9 +13,22 @@ graph's launches per replay, and every replay adds them again (`add`).
 The counts therefore stay device launches: a replay of a CG chunk adds
 the launches of all its iterations, the masked ones after convergence
 included, since those really run.
+
+The Q1 level kernels count by io mode: their f64 launches (io mode 3,
+the f64 instantiation) under the kernel's name with ` f64` appended
+(`K3 q1_structured f64`, ...), the f32 and bf16 ones under the kernel's
+name; no launch counts twice, so the counts still sum to the launches.
 """
 
 from __future__ import annotations
+
+
+class Launches:
+    """A launch count of its own (`launches`), for a count that is not a
+    wrapper's: the f64 launches of a level kernel."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def counters() -> dict:
@@ -43,6 +56,10 @@ def counters() -> dict:
         "K4b q1_structured_2d": Q1StructuredOperator2D,
         "K5 q2_structured": Q2StructuredOperator,
         "K6 q1_stencil": StencilQ1Operator,
+        "K3 q1_structured f64": Q1StructuredOperator.f64,
+        "K4 q1_plane f64": Q1PlaneOperator.f64,
+        "K4b q1_structured_2d f64": Q1StructuredOperator2D.f64,
+        "K6 q1_stencil f64": StencilQ1Operator.f64,
     }
 
 

@@ -8,8 +8,11 @@ y = A u for a constant element matrix (24 x 24 in 3D, 8 x 8 in 2D) over a
 Q1 node lattice:
 
 * on a CUDA tensor it launches csrc/q1_structured.cu (bf16 or f32 I/O, or
-  bf16 in and f32 out, f32 accumulation; the level's coefficients are a runtime argument, so one
-  kernel serves every level): K3 in 3D and K4b in 2D, the folded 27- and
+  bf16 in and f32 out, f32 accumulation; or, for an operator built in
+  f64, f64 I/O and accumulation, the kernels' f64 instantiation with f64
+  tables: an f64 multigrid hierarchy; the level's coefficients are a
+  runtime argument, so one kernel serves every level): K3 in 3D and K4b
+  in 2D, the folded 27- and
   9-point stencils with the per-node-class tables K6 reads
   (`ops/stencil.py:class_tables`, laid out by `kernel_table`); K4, the 3D
   operator of `make_q1_plane_operator`, computes K3's function and
@@ -32,10 +35,14 @@ import torch
 from ..device import resolve_device
 from ..fem.dofspace import DofSpace
 from ..kernels import _build
-from .stencil import class_tables, kernel_table, q1_stencil_tables
+from ..kernels.counters import Launches
+from .stencil import (
+    check_kernel_dtype,
+    class_tables,
+    kernel_table,
+    q1_stencil_tables,
+)
 from .structured import _grid_shape, structured_operator_from_lattice
-
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class StructuredKernelOperator:
@@ -48,11 +55,15 @@ class StructuredKernelOperator:
     launches on PyTorch's current stream and never synchronises, so that
     whole V-cycles can be captured in a CUDA graph. `out_dtype` float32
     with a bf16 u returns the kernel's f32 accumulation unrounded (the
-    lattice partition adds its slabs' partial sums in f32)."""
+    lattice partition adds its slabs' partial sums in f32). The Q1
+    operators built in f64 take f64 u (their tables are f64), the others
+    f32 or bf16 (`check_kernel_dtype`); `f64_kernel` False (K5) refuses
+    f64 on the card."""
 
     p: int
     dim: int
     entry: str  # C entry point in the kernel library
+    f64_kernel = True  # the kernel has an f64 instantiation (io mode 3)
     launches: int = 0
 
     def __init__(self, E: np.ndarray, grid_shape, dtype=torch.float32,
@@ -93,11 +104,12 @@ class StructuredKernelOperator:
             return self.plain(u, out_dtype)
         if not u.is_cuda:
             raise ValueError(f"{type(self).__name__}: unsupported device {u.device}")
-        if u.dtype not in _KERNEL_DTYPES:
+        if u.dtype == torch.float64 and not self.f64_kernel:
             raise TypeError(
                 f"{type(self).__name__} kernel takes float32 or bfloat16 I/O, "
                 f"got {u.dtype}"
             )
+        check_kernel_dtype(type(self).__name__, self.dtype, u.dtype)
         if u.shape != self._u_shape or not u.is_contiguous():
             raise ValueError(
                 f"{type(self).__name__}: u must be a contiguous "
@@ -119,7 +131,7 @@ class StructuredKernelOperator:
             torch.cuda.current_stream(u.device).cuda_stream,
         )
         _build.check(err, self.entry)
-        type(self).launches += 1
+        (type(self).f64 if io == 3 else type(self)).launches += 1
         return y
 
     def diagonal(self) -> torch.Tensor:
@@ -146,9 +158,10 @@ class Q1StructuredOperator(StructuredKernelOperator):
     dim = 3
     entry = "dat_q1_structured"
     launches = 0
+    f64 = Launches()  # its f64 launches, not in `launches`
 
     def _coefficients(self, E):
-        return _folded_table(E, 3, self.device)
+        return _folded_table(E, 3, self.dtype, self.device)
 
 
 class Q1StructuredOperator2D(StructuredKernelOperator):
@@ -159,15 +172,19 @@ class Q1StructuredOperator2D(StructuredKernelOperator):
     dim = 2
     entry = "dat_q1_structured_2d"
     launches = 0
+    f64 = Launches()  # its f64 launches, not in `launches`
 
     def _coefficients(self, E):
-        return _folded_table(E, 2, self.device)
+        return _folded_table(E, 2, self.dtype, self.device)
 
 
-def _folded_table(E: np.ndarray, dim: int, device) -> Tuple[torch.Tensor]:
+def _folded_table(E: np.ndarray, dim: int, dtype,
+                  device) -> Tuple[torch.Tensor]:
     """K6's per-node-class tables of the element matrix E in the kernels'
-    f32 layout (`kernel_table`), the argument tuple of K3 and K4b."""
-    table = kernel_table(class_tables(q1_stencil_tables(E, dim, dim), dim))
+    layout (`kernel_table`), f64 for an f64 operator and f32 otherwise:
+    the argument tuple of K3 and K4b."""
+    table = kernel_table(class_tables(q1_stencil_tables(E, dim, dim), dim),
+                         dtype)
     return (torch.as_tensor(table, device=device),)
 
 
@@ -180,9 +197,10 @@ class Q1PlaneOperator(StructuredKernelOperator):
     dim = 3
     entry = "dat_q1_plane"
     launches = 0
+    f64 = Launches()  # its f64 launches, not in `launches`
 
     def _coefficients(self, E):
-        return _folded_table(E, 3, self.device)
+        return _folded_table(E, 3, self.dtype, self.device)
 
 
 def q1_lattice_operator(

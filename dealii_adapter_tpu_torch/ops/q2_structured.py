@@ -13,11 +13,15 @@ matrix over a 3D Q2 node lattice:
   all;
 * on a CPU tensor it runs the plain version, `ops/structured.py`'s
   `StructuredOperator`, in f32 (f64 for f64 I/O), rounded to the I/O
-  dtype.
+  dtype. Called with f64 on the card it raises: K5 has no f64 form.
 
-Other degrees, and Q2 in 2D, take the plain `StructuredOperator` on every
-device, as the JAX package computes them outside any Pallas kernel (its
-phase kernel is 3D only, `pallas_phase.py:pallas_q2_supported`).
+`q2_lattice_operator` dispatches by degree, dimension and dtype as the JAX
+package's `pallas_phase.py:pallas_q2_supported` does: K5 for 3D Q2 in f32
+or bf16; other degrees, Q2 in 2D and an f64 fine proxy (an f64 multigrid
+hierarchy) take the plain `StructuredOperator` on every device, as the
+JAX package computes them with XLA outside any Pallas kernel. That is a
+dispatch by dtype, not a fallback: on the CPU both compute the same f64
+result bit for bit.
 """
 
 from __future__ import annotations
@@ -66,11 +70,15 @@ def q2_mma_fragments(E: np.ndarray) -> np.ndarray:
 
 
 class Q2StructuredOperator(StructuredKernelOperator):
-    """K5: the 3D Q2 fine-level operator (csrc/q2_structured.cu)."""
+    """K5: the 3D Q2 fine-level operator (csrc/q2_structured.cu), f32 and
+    bf16 only: an f64 input on the card raises (`q2_lattice_operator`
+    gives an f64 fine proxy the plain operator instead, as the JAX
+    package's gate does)."""
 
     p = 2
     dim = 3
     entry = "dat_q2_structured"
+    f64_kernel = False
     launches = 0
 
     def _coefficients(self, E):
@@ -79,8 +87,10 @@ class Q2StructuredOperator(StructuredKernelOperator):
 
 
 class _PlainDegreeOperator:
-    """A fine operator without a kernel (2D, or degree != 2): the plain
-    `StructuredOperator` on every device, computing in the I/O dtype as
+    """A fine operator without a kernel (2D, degree != 2, or an f64 3D Q2
+    proxy, as `pallas_q2_supported` sends those to XLA in the JAX package):
+    the plain `StructuredOperator` on every device, computing in the I/O
+    dtype as
     the JAX package's `StructuredOperator` does: for a bf16 hierarchy the
     element matrix is held in bf16, the cell products are summed in f32
     and rounded once (`StructuredOperator.__call__`) and the overlap-add
@@ -106,9 +116,11 @@ class _PlainDegreeOperator:
 def q2_lattice_operator(E: np.ndarray, grid_shape, p: int,
                         dtype=torch.float32, device=None):
     """MG fine-level operator of a degree-p node lattice (a whole level, or
-    one rank's slab of it): `Q2StructuredOperator` for 3D Q2, the plain
-    structured operator otherwise."""
-    if p == 2 and len(grid_shape) == 3:
+    one rank's slab of it): `Q2StructuredOperator` (K5) for 3D Q2 in f32 or
+    bf16, the plain structured operator otherwise (the JAX package's
+    `pallas_q2_supported` gate: f64 is not a K5 dtype)."""
+    if p == 2 and len(grid_shape) == 3 and dtype in (torch.float32,
+                                                      torch.bfloat16):
         return Q2StructuredOperator(E, grid_shape, dtype, device)
     return _PlainDegreeOperator(E, grid_shape, p, dtype, device)
 

@@ -24,7 +24,10 @@ JAX package's host function).
   slices of a zero-padded tensor and the corrections above, in f32 for
   bf16/f32 I/O and in f64 for f64, rounded once to the I/O dtype.
 * On a CUDA tensor it launches K6 (entry `dat_q1_stencil`) for bf16/f32
-  I/O and raises for any other dtype. K6 applies the whole operator in
+  I/O and, for an f64 operator, f64 I/O (the kernels' f64 instantiation,
+  f64 tables), and raises for any other dtype, and where the input's
+  precision is not the operator's (an f64 operator takes f64 only, the
+  others f32/bf16 only). K6 applies the whole operator in
   one launch: the host folds the corrections into one stencil table per
   node class (low face, interior or high face along each axis: 27 classes
   in 3D, 9 in 2D; `class_tables`, laid out for the kernels by
@@ -53,10 +56,11 @@ import torch
 
 from ..device import resolve_device
 from ..fem.dofspace import DofSpace
+from ..kernels.counters import Launches
 from .structured import _grid_shape
 
 STRATEGIES = ("shift", "conv", "banded", "flat", "flatx", "vmem")
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def _slots(ndim: int):
@@ -168,18 +172,33 @@ def class_tables(tables, ndim: int) -> np.ndarray:
     return out.reshape(3**ndim, 3**ndim, dim, dim)
 
 
-def kernel_table(tables: np.ndarray) -> np.ndarray:
-    """`class_tables` as the level kernels read them (csrc/q1_structured.cu),
-    in f32, one float4 a row: in 3D (27 classes, 27 offsets, 3 output
-    components, 4), each row's 3 source components padded with a zero; in
-    2D (9 classes, 9 offsets, 4), the 2 x 2 block row-major (d0e0, d0e1,
-    d1e0, d1e1)."""
+def kernel_table(tables: np.ndarray, dtype=torch.float32) -> np.ndarray:
+    """`class_tables` as the level kernels of an operator of `dtype` read
+    them (csrc/q1_structured.cu), four values a row: in 3D (27 classes, 27
+    offsets, 3 output components, 4), each row's 3 source components
+    padded with a zero; in 2D (9 classes, 9 offsets, 4), the 2 x 2 block
+    row-major (d0e0, d0e1, d1e0, d1e1). In f32 (one float4 a row) for the
+    f32 and bf16 kernels, in f64 for an f64 operator (the f64
+    instantiation: the f64 values exactly)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
     n_cls, n_off, dim, _ = tables.shape
     if dim == 2:
-        return tables.astype(np.float32).reshape(n_cls, n_off, 4)
-    table = np.zeros((n_cls, n_off, dim, 4), dtype=np.float32)
+        return tables.astype(npdt).reshape(n_cls, n_off, 4)
+    table = np.zeros((n_cls, n_off, dim, 4), dtype=npdt)
     table[..., :dim] = tables
     return table
+
+
+def check_kernel_dtype(name: str, op_dtype, u_dtype) -> None:
+    """Raise unless a level kernel built for `op_dtype` (its table's
+    precision) takes an input of `u_dtype`: f32 or bf16 for an f32 or
+    bf16 operator, f64 for an f64 one."""
+    if u_dtype not in _KERNEL_DTYPES or (
+            (u_dtype == torch.float64) != (op_dtype == torch.float64)):
+        raise TypeError(
+            f"{name} kernel takes float32 or bfloat16 I/O, or float64 I/O "
+            f"for a float64 operator; this operator is {op_dtype}, got "
+            f"{u_dtype}")
 
 
 def _conv_nd(g: torch.Tensor, S: np.ndarray, cdt) -> torch.Tensor:
@@ -223,6 +242,7 @@ class StencilQ1Operator:
 
     p = 1
     launches = 0
+    f64 = Launches()  # its f64 launches, not in `launches`
 
     def __init__(self, E: np.ndarray, grid_shape, dtype=torch.float64,
                  strategy: str = "shift", device=None):
@@ -238,7 +258,7 @@ class StencilQ1Operator:
         self.tables = q1_stencil_tables(E, self.ndim, self.dim)
         self.class_tables = class_tables(self.tables, self.ndim)
         self._tables_dev = torch.as_tensor(
-            kernel_table(self.class_tables), device=self.device
+            kernel_table(self.class_tables, dtype), device=self.device
         )
 
     def plain(self, u: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -273,11 +293,7 @@ class StencilQ1Operator:
             return self.plain(u, out_dtype)
         if not u.is_cuda:
             raise ValueError(f"StencilQ1Operator: unsupported device {u.device}")
-        if u.dtype not in _KERNEL_DTYPES:
-            raise TypeError(
-                f"StencilQ1Operator kernel (K6) takes float32 or bfloat16 "
-                f"I/O, got {u.dtype}"
-            )
+        check_kernel_dtype("StencilQ1Operator (K6)", self.dtype, u.dtype)
         n_nodes = int(np.prod(self.grid_shape))
         if tuple(u.shape) != (n_nodes, self.dim) or not u.is_contiguous():
             raise ValueError(
@@ -301,7 +317,7 @@ class StencilQ1Operator:
             nx, self.ndim, io, stream_of(u),
         )
         check(err, "dat_q1_stencil")
-        StencilQ1Operator.launches += 1
+        (StencilQ1Operator.f64 if io == 3 else StencilQ1Operator).launches += 1
         return y
 
     def diagonal(self) -> torch.Tensor:

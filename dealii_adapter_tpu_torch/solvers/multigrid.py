@@ -3,7 +3,8 @@
 Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
 
 * level 0: the caller's BC-masked fine operator (the Q2 proxy: kernel K5
-  in 3D, the plain structured operator in 2D);
+  in 3D in f32 or bf16, the plain structured operator in 2D and for an
+  f64 hierarchy, `ops/q2_structured.py:q2_lattice_operator`);
 * level 1: Q1 on the same node lattice (FEM-SEM), or at half resolution;
 * levels >= 2: aspect-aware semi-coarsened Q1 lattices, down to a dense
   Cholesky coarse solve;
@@ -31,12 +32,17 @@ Counterpart of `dealii_adapter_tpu/solvers/multigrid.py`:
   slab (`SlabOperator`), its lam_max estimate uses the global inner
   product.
 
-The hierarchy runs in its `dtype` (bf16 on the production path; the
-coarse triangular solves stay f32); on the card only f32 and bf16, the
-level kernels' dtypes. Each level's lam_max comes from a
-12-step power iteration started from a seeded `torch.Generator` vector,
-or from the caller (`lam_max=`, one value per level), which is how tests
-give it the JAX package's values.
+The hierarchy runs in its `dtype`: bf16 on the production path (the
+coarse triangular solves then stay f32), f32, or f64 (the JAX package's
+default, and the models' hierarchy for an f64 solve unless
+`precond_dtype` narrows it): on the card every Q1 level then launches the
+level kernels' f64 instantiation (K3 / K4b, K6 under `stencil*`, with f64
+tables), the transfers, smoother and coarse triangular solves run in f64
+PyTorch, and the 3D Q2 fine proxy is the plain structured operator, as
+the JAX package's Pallas gates keep f64 on XLA. Each level's lam_max
+comes from a 12-step power iteration started from a seeded
+`torch.Generator` vector, or from the caller (`lam_max=`, one value per
+level), which is how tests give it the JAX package's values.
 """
 
 from __future__ import annotations
@@ -317,12 +323,6 @@ class GeometricMultigrid:
                 f"{LEVEL_BACKENDS}"
             )
         device = resolve_device(device)
-        if device.type == "cuda" and dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(
-                f"a {dtype} multigrid hierarchy has no kernel on the card (the "
-                "level kernels K3, K4b, K5 and K6 take float32 or bfloat16): "
-                "set precond_dtype='float32' or 'bfloat16'"
-            )
         self.dtype = dtype
         self.smooth_degree = smooth_degree
         self.smooth_degree_fine = smooth_degree_fine or smooth_degree

@@ -205,6 +205,59 @@ def test_bf16_in_f32_out_mode_on_the_cpu():
         _build.io_mode(f32, bf16)
 
 
+def test_f64_level_operators_and_the_fine_proxy_dispatch():
+    """The f64 multigrid hierarchy's pieces on the CPU: io mode 3 is f64 in
+    and out, and every other pair with f64 or f16 raises; the Q1 level
+    operators (K3, K4, K4b, K6) built in f64 hold f64 tables (the kernels'
+    f64 instantiation) and the others f32; `q2_lattice_operator` sends 3D
+    Q2 in f64 to the plain structured operator, as the JAX package's
+    `pallas_q2_supported` does, which on the CPU gives K5's plain version
+    bit for bit; and a model with an f64 solve and no `precond_dtype`
+    builds its f64 hierarchy on that plain proxy and the f64 level
+    operators."""
+    from dealii_adapter_tpu_torch.ops.q2_structured import (
+        _PlainDegreeOperator,
+        q2_lattice_operator,
+    )
+
+    f64, f32, bf16, f16 = (torch.float64, torch.float32, torch.bfloat16,
+                           torch.float16)
+    assert _build.io_mode(f64, f64) == 3
+    for pair in ((f64, f32), (f32, f64), (bf16, f64), (f64, bf16), (f16, f16),
+                 (f16, f32)):
+        with pytest.raises(TypeError):
+            _build.io_mode(*pair)
+    _, _, lattice, E1, E2, u = _small_inputs(f64)
+    lattice2, E4, u2d = _small_inputs_2d(f64)
+    for dtype, table_dtype in ((f64, f64), (f32, f32), (bf16, f32)):
+        for op in (Q1StructuredOperator(E1, lattice, dtype, "cpu"),
+                   Q1PlaneOperator(E1, lattice, dtype, "cpu"),
+                   Q1StructuredOperator2D(E4, lattice2, dtype, "cpu")):
+            assert op._coef[0].dtype == table_dtype, type(op).__name__
+        for lat in (lattice, lattice2):
+            k6 = StencilQ1Operator(E1 if len(lat) == 3 else E4, lat, dtype,
+                                   device="cpu")
+            assert k6._tables_dev.dtype == table_dtype
+    for op, v in ((Q1StructuredOperator(E1, lattice, f64, "cpu"), u),
+                  (Q1StructuredOperator2D(E4, lattice2, f64, "cpu"), u2d)):
+        assert op(v).dtype == f64
+        assert torch.equal(op(v), op.plain(v))
+    fine = q2_lattice_operator(E2, lattice, 2, f64, "cpu")
+    assert isinstance(fine, _PlainDegreeOperator)
+    assert isinstance(q2_lattice_operator(E2, lattice, 2, f32, "cpu"),
+                      Q2StructuredOperator)
+    assert torch.equal(fine(u), Q2StructuredOperator(E2, lattice, f64, "cpu")(u))
+    params = AllParameters(model="linear", type_lin="CG", scenario="PF",
+                           dim=3, poly_degree=2, preconditioner="MG",
+                           solve_dtype="", precond_dtype="")
+    mg = LinearElastodynamics(params, device="cpu")._precond
+    assert mg.dtype == f64 and len(mg.levels) >= 2
+    for lv in mg.levels[1:]:
+        if lv.raw is not None:
+            assert isinstance(lv.raw, Q1StructuredOperator)
+            assert lv.raw._coef[0].dtype == f64
+
+
 def test_non_cpu_non_cuda_tensors_raise():
     """A tensor that is neither on the CPU nor on a CUDA device never falls
     back to the plain version."""
@@ -221,12 +274,19 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 
 def test_launch_counters_name_every_wrapper():
-    """`kernels.counters` lists each kernel's wrapper once, and `reset`
-    sets every count to 0."""
+    """`kernels.counters` lists each kernel's wrapper once, and the f64
+    launch count of each Q1 level kernel, and `reset` sets every count to
+    0."""
     objs = counters.counters()
-    assert len(objs) == 12 and len({id(o) for o in objs.values()}) == 12
+    assert len(objs) == 16 and len({id(o) for o in objs.values()}) == 16
     assert objs["K4 q1_plane"] is Q1PlaneOperator
     assert objs["K6 q1_stencil"] is StencilQ1Operator
+    # the Q1 level kernels' f64 launches, counted apart
+    for name, cls in (("K3 q1_structured", Q1StructuredOperator),
+                      ("K4 q1_plane", Q1PlaneOperator),
+                      ("K4b q1_structured_2d", Q1StructuredOperator2D),
+                      ("K6 q1_stencil", StencilQ1Operator)):
+        assert objs[name + " f64"] is cls.f64
     StencilQ1Operator.launches = 3
     counters.reset()
     assert set(counters.launch_counts().values()) == {0}
@@ -420,14 +480,32 @@ def _q1_box(reps):
     return space, el.K_e + el.M_e
 
 
+# I/O dtypes of the Q1 level kernels on the card and their relative L2
+# limits against the plain version: f32 roundoff over a few hundred terms
+# (the folded coefficients rounded once to f32), one bf16 output rounding
+# (2^-9) plus the order, and in f64 (the f64 instantiation, f64 tables)
+# f64 roundoff over the same terms
+LEVEL_IO = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+            (torch.float64, 1e-12))
+
+
+def _count(cls, dtype):
+    """The object that counts `cls`'s launches in `dtype`: the f64
+    instantiation's launches are counted apart (kernels/counters.py)."""
+    return cls.f64 if dtype == torch.float64 else cls
+
+
 @pytest.mark.cuda
 def test_k4_k6_match_plain_on_card():
     """Run on the card: `python -m pytest --noconftest -m cuda
     tests/test_torch_package.py`. K6 (3D and 2D, with lattices of a
     2-node axis) and K4 against their plain versions and against K3 / K4b
-    on the same input, bf16 and f32 I/O; f64 I/O and lattices the kernels
-    do not take raise. K4 launches K3's kernel with K3's tables, so at
-    every 3D level lattice of the main path it equals K3 bit for bit."""
+    on the same input, bf16, f32 and f64 I/O (`LEVEL_IO`; f64 through the
+    kernels' f64 instantiation, counted apart); an f64 input to an f32
+    operator, an f32 input to an f64 one, an f16 input, a mixed f64 pair
+    and lattices the kernels do not take raise. K4 launches K3's kernel
+    with K3's tables, so at every 3D level lattice of the main path it
+    equals K3 bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -435,13 +513,13 @@ def test_k4_k6_match_plain_on_card():
     for lattice in MAIN3D_Q1_LATTICES:
         u = torch.randn(int(np.prod(lattice)), 3,
                         generator=torch.Generator().manual_seed(3))
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for dtype, tol in LEVEL_IO:
             x = u.to(dev, dtype)
             k4 = Q1PlaneOperator(E, lattice, dtype, dev)
-            before = Q1PlaneOperator.launches
+            before = _count(Q1PlaneOperator, dtype).launches
             out = k4(x)
             torch.cuda.synchronize()
-            assert Q1PlaneOperator.launches == before + 1
+            assert _count(Q1PlaneOperator, dtype).launches == before + 1
             assert torch.equal(out, Q1StructuredOperator(E, lattice, dtype,
                                                          dev)(x)), lattice
             assert _rel_l2(out, k4.plain(x)) <= tol
@@ -451,21 +529,30 @@ def test_k4_k6_match_plain_on_card():
         dim = len(reps)
         u = torch.randn(space.n_nodes, dim,
                         generator=torch.Generator().manual_seed(2))
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for dtype, tol in LEVEL_IO:
             x = u.to(dev, dtype)
             ref = make_q1_operator(space, E, dtype, dev)(x).double()
             ops = [make_q1_stencil_operator(space, E, dtype, device=dev),
                    make_q1_plane_operator(space, E, dtype, dev)]
             for op in ops:
-                before = type(op).launches
+                before = _count(type(op), dtype).launches
                 out, plain = op(x).double(), op.plain(x).double()
                 torch.cuda.synchronize()
-                assert type(op).launches == before + 1
+                assert _count(type(op), dtype).launches == before + 1
                 assert ((out - plain).norm() / plain.norm()).item() <= tol
                 assert ((out - ref).norm() / ref.norm()).item() <= tol
-        with pytest.raises(TypeError):
-            make_q1_stencil_operator(space, E, torch.float64, device=dev)(
-                u.to(dev, torch.float64))
+        for make in (lambda dt: make_q1_stencil_operator(space, E, dt,
+                                                         device=dev),
+                     lambda dt: make_q1_operator(space, E, dt, dev)):
+            with pytest.raises(TypeError):  # an f64 u, an f32 operator
+                make(torch.float32)(u.to(dev, torch.float64))
+            with pytest.raises(TypeError):  # an f32 u, an f64 operator
+                make(torch.float64)(u.to(dev))
+            with pytest.raises(TypeError):  # f16
+                make(torch.float32)(u.to(dev, torch.float16))
+            with pytest.raises(TypeError):  # f64 in, f32 out
+                make(torch.float64)(u.to(dev, torch.float64),
+                                    out_dtype=torch.float32)
         with pytest.raises(ValueError):
             make_q1_stencil_operator(space, E, torch.float32, device=dev)(
                 u.to(dev)[:-1])
@@ -509,8 +596,11 @@ def test_k3_k5_match_plain_on_card():
     f32 I/O (relative L2 1e-2 and 1e-5: one output rounding, 2^-9, plus
     the summation order, and f32 roundoff over a few hundred terms; K5 in
     bf16 at `K5_BF16_RTOL`, since both outputs round the same f32-accurate
-    sums and differ only where a sum lies near a rounding boundary); each
-    launch counted once; two launches give the same bits. A planted fault
+    sums and differ only where a sum lies near a rounding boundary), and
+    K3 in f64 (its f64 instantiation, 1e-12: `LEVEL_IO`), while K5 with
+    f64 raises (it has no f64 form; an f64 fine proxy is the plain
+    operator); each launch counted once; two launches give the same bits.
+    A planted fault
     shows that K5's bf16 limit holds E's split: with E_lo's fragments
     zeroed, as if its MMA were dropped, K5 errs by E_hi's bf16 rounding
     (2^-9 a coefficient) and fails the limit at every lattice."""
@@ -522,16 +612,22 @@ def test_k3_k5_match_plain_on_card():
                              (Q2StructuredOperator, 2, K5_LATTICES)):
         E = _cell_E(p, (0.004, 0.006, 0.02))
         bf16_tol = K5_BF16_RTOL if p == 2 else 1e-2
+        io = ((torch.float32, 1e-5), (torch.bfloat16, bf16_tol))
+        if p == 1:
+            io += ((torch.float64, 1e-12),)
         for grid in lattices:
             u = torch.randn(int(np.prod(grid)), 3, generator=g)
-            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, bf16_tol)):
+            if p == 2:
+                with pytest.raises(TypeError):
+                    cls(E, grid, torch.float64, dev)(u.to(dev, torch.float64))
+            for dtype, tol in io:
                 op = cls(E, grid, dtype, dev)
                 x = u.to(dev, dtype)
-                before = cls.launches
+                before = _count(cls, dtype).launches
                 out = op(x)
                 again = op(x)
                 torch.cuda.synchronize()
-                assert cls.launches == before + 2
+                assert _count(cls, dtype).launches == before + 2
                 assert torch.equal(out, again), (cls.__name__, grid, dtype)
                 rel = _rel_l2(out, op.plain(x))
                 print(f"{cls.__name__} {grid} {dtype}: rel_l2 {rel:.3e}")
@@ -627,8 +723,9 @@ def test_k4b_matches_plain_on_card():
     level lattice of the paths and at ragged ones, f32 and bf16 I/O
     (relative L2 1e-5 and 1e-2: f32 roundoff over 18 terms a component
     and the folded coefficients rounded once to f32; one output rounding,
-    2^-9, plus the order); each launch counted once; two launches give
-    the same bits."""
+    2^-9, plus the order), and f64 I/O (the f64 instantiation, 1e-12:
+    `LEVEL_IO`); each launch counted once; two launches give the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -636,14 +733,14 @@ def test_k4b_matches_plain_on_card():
     E = _q1_box((1, 1))[1]
     for grid in K4B_LATTICES:
         u = torch.randn(int(np.prod(grid)), 2, generator=g)
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for dtype, tol in LEVEL_IO:
             op = Q1StructuredOperator2D(E, grid, dtype, dev)
             x = u.to(dev, dtype)
-            before = Q1StructuredOperator2D.launches
+            before = _count(Q1StructuredOperator2D, dtype).launches
             out = op(x)
             again = op(x)
             torch.cuda.synchronize()
-            assert Q1StructuredOperator2D.launches == before + 2
+            assert _count(Q1StructuredOperator2D, dtype).launches == before + 2
             assert torch.equal(out, again), (grid, dtype)
             rel = _rel_l2(out, op.plain(x))
             print(f"K4b {grid} {dtype}: rel_l2 {rel:.3e}")
@@ -681,7 +778,8 @@ def test_k6_equals_the_level_kernels_on_card():
     """Run on the card: `python -m pytest --noconftest -m cuda
     tests/test_torch_package.py`. K6 launches the level kernels with the
     same tables: in 3D its output equals K3's bit for bit, in 2D K4b's, on
-    the same input (f32 and bf16), each wrapper counting its own launch."""
+    the same input (f32, bf16 and f64), each wrapper counting its own
+    launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -691,16 +789,16 @@ def test_k6_equals_the_level_kernels_on_card():
         dim = len(grid)
         E = _q1_box((1,) * dim)[1]
         u = torch.randn(int(np.prod(grid)), dim, generator=g)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, _ in LEVEL_IO:
             x = u.to(dev, dtype)
             level = (Q1StructuredOperator if dim == 3
                      else Q1StructuredOperator2D)(E, grid, dtype, dev)
             k6 = StencilQ1Operator(E, grid, dtype, device=dev)
-            before = (type(level).launches, StencilQ1Operator.launches)
+            counts = (_count(type(level), dtype), _count(StencilQ1Operator, dtype))
+            before = [c.launches for c in counts]
             assert torch.equal(k6(x), level(x)), (grid, dtype)
             torch.cuda.synchronize()
-            assert (type(level).launches, StencilQ1Operator.launches) == (
-                before[0] + 1, before[1] + 1)
+            assert [c.launches for c in counts] == [n + 1 for n in before]
 
 
 # bench.py's production configuration (the 3D benchmark step)
@@ -787,8 +885,11 @@ def test_jvp_tangent_on_card():
     (2,331 DoF): forward-mode AD drops a detached operand's tangent on
     the card's torch; the operator captured in a CUDA graph equals the
     eager operator bit for bit, and after the linearization point is
-    refilled the replay follows it; an f64 multigrid hierarchy raises,
-    naming `precond_dtype`."""
+    refilled the replay follows it; with the f64 multigrid hierarchy
+    (`precond_dtype=""`: the f64 fine proxy on the plain operator, every
+    Q1 level on K3's f64 instantiation; `mg_coarse_size` 500, so that the
+    V-cycle runs Q1 levels above its coarse solve at this size) one step
+    from rest converges, launching K3 in f64 and not K5."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
@@ -827,10 +928,19 @@ def test_jvp_tangent_on_card():
         graph.replay()
         assert torch.equal(out, K(v))
         refill(model.mask * field(1e-4), state, stress)
-    with pytest.raises(ValueError, match="precond_dtype"):
-        NonlinearElasticity(AllParameters(**dict(
-            PRODUCTION_3D, solve_dtype="", precond_dtype="")),
-            mesh=mesh, tags=tags, device=dev)
+    f64_mg = NonlinearElasticity(AllParameters(**dict(
+        PRODUCTION_3D, solve_dtype="", precond_dtype="", mg_coarse_size=500)),
+        mesh=mesh, tags=tags, device=dev)
+    assert f64_mg._precond.dtype == torch.float64
+    stress = torch.zeros((n, 3), dtype=torch.float64, device=dev)
+    stress[torch.as_tensor(f64_mg.space.boundary_nodes[f64_mg.interface_id],
+                           device=dev), 0] = 1000.0
+    counters.reset()
+    _, info = f64_mg.step(f64_mg.initial_state(), stress)
+    torch.cuda.synchronize()
+    assert info.converged, info
+    assert Q1StructuredOperator.f64.launches > 0
+    assert Q2StructuredOperator.launches == 0
 
 
 @pytest.mark.cuda

@@ -162,6 +162,11 @@ MATVECS = ("q3", "six_cells", "two_cells")
 # a bf16 hierarchy whose distributed level (19, 4) restricts across the
 # split axis into the replicated coarse level (10, 3)
 VCYCLE = dict(PRODUCTION, dim=2)
+# the linear model's f64 hierarchy in 3D (the f64 solve's, no
+# `precond_dtype`), its coarse size cut so that two Q1 levels are
+# distributed (K3 on each rank's slab, `SlabOperator`) above the
+# replicated coarse one
+VCYCLE_F64 = dict(LIN, dim=3, preconditioner="MG", mg_coarse_size=500)
 
 
 def _matvec_space(case):
@@ -340,6 +345,21 @@ def _vcycle_bf16(mesh, lam_max):
     return z, mg._restrict(li, g).float().numpy()
 
 
+def _vcycle_f64(mesh, lam_max):
+    """VCYCLE_F64's f64 V-cycle applied to a seeded f64 vector, gathered,
+    and the lattices of its distributed Q1 levels (one device with `mesh`
+    None); lam_max is the one-device hierarchy's."""
+    model = LinearElastodynamics(AllParameters(**VCYCLE_F64), device="cpu",
+                                 device_mesh=mesh, mg_lam_max=lam_max)
+    mg = model._precond
+    assert mg.dtype == torch.float64
+    r = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (model.space.n_nodes, 3)))
+    z = model.global_rows(mg(model.local_rows(r))).numpy()
+    return z, [lv.grid_shape for lv in mg.levels[1:]
+               if isinstance(lv.raw, SlabOperator)]
+
+
 def _linear_ir_host(mesh, lam_max, steps=2):
     """`steps` LIN_IR steps under `cg_loop="host"` on `mesh` (None: one
     device): (||u||^2 and `StepInfo` of each step, the read-backs of
@@ -381,6 +401,7 @@ def _world_cases(mesh, cells, lattice, lam_max, root):
         out["structured"] = _structured_op(mesh)
         if mesh.world == 2:
             out["vcycle_bf16"] = _vcycle_bf16(mesh, lam_max["vcycle_bf16"])
+            out["vcycle_f64"] = _vcycle_f64(mesh, lam_max["vcycle_f64"])
         for name in LATTICE_STEPS[mesh.world]:
             out[name] = _step(mesh, name, lam_max)
         if mesh.world == 2:
@@ -488,6 +509,11 @@ def _vcycle_lam_max():
     return [lv.lam_max for lv in model._precond.levels]
 
 
+def _vcycle_f64_lam_max():
+    model = LinearElastodynamics(AllParameters(**VCYCLE_F64), device="cpu")
+    return [lv.lam_max for lv in model._precond.levels]
+
+
 def _linear_ir_lam_max():
     model = LinearElastodynamics(AllParameters(**LIN_IR), device="cpu")
     return [lv.lam_max for lv in model._precond.levels]
@@ -503,6 +529,7 @@ def worlds_and_refs(tmp_path_factory):
     interpreter; the ranks are processes of their own)."""
     models, jax_lam = _jax_models()
     lam_max = dict(jax_lam, vcycle_bf16=_vcycle_lam_max(),
+                   vcycle_f64=_vcycle_f64_lam_max(),
                    linear_ir=_linear_ir_lam_max())
     roots = {n: tmp_path_factory.mktemp(f"world{n}") for n in (2, 3, 4)}
 
@@ -668,6 +695,20 @@ def test_bf16_vcycle_two_ranks_within_one_ulp(worlds):
     for rank in worlds[2]:
         got = rank["vcycle_bf16"][0]
         assert np.abs(got - ref).max() <= _bf16_ulp(np.abs(ref).max())
+
+
+def test_f64_vcycle_two_ranks_equals_one_device(worlds):
+    """The f64 hierarchy on the lattice partition (the 3D linear model
+    without `precond_dtype`): its V-cycle on 2 ranks, with two Q1 levels
+    on each rank's slab (`SlabOperator` over K3 in f64) and f64 transfers
+    across the split and into the replicated coarse level, against one
+    device on the same lam_max: f64 roundoff in another summation order
+    (1e-12 relative L2)."""
+    ref, _ = _vcycle_f64(None, _vcycle_f64_lam_max())
+    for rank in worlds[2]:
+        got, slabs = rank["vcycle_f64"]
+        assert len(slabs) == 2, slabs
+        assert np.linalg.norm(got - ref) <= 1e-12 * np.linalg.norm(ref)
 
 
 @pytest.mark.parametrize("name", ONE_DEVICE_STEPS)

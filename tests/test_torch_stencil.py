@@ -5,8 +5,8 @@ JAX package: the stencil tables bitwise, the operator against
 interpret mode, in 3D; `shift` in 2D) in f64 (atol 1e-12 x max) and bf16
 (relative L2 1e-2), its diagonal (1e-12), the folded per-class tables K6
 reads (a numpy mirror of the kernel's loop, 1e-12) and K3 and K4b read
-in f32 (against the JAX `StructuredOperator`, 1e-6; at every level of a 3D
-and a 2D hierarchy), the K4 factory against
+in f32 and f64 (against the JAX `StructuredOperator`, 1e-6 and 1e-13; at
+every level of a 3D and a 2D hierarchy), the K4 factory against
 `make_pallas_q1_operator(..., interpret=True)` (1e-13) and a V-cycle with
 `level_backend="stencil_vmem"` (atol 1e-11 x max). K4 and K6 against
 their plain versions on the card: tests/test_torch_package.py."""
@@ -139,32 +139,37 @@ def test_stencil_matches_jax_f64(dim, reps):
 
 
 def _k3_table_check(E, shape, jspace, seed):
-    """K3 (3D) and K4b (2D) read K6's tables: the f32 class tables, one
-    float4 a row (3D: each row of 3 source components padded with a zero;
-    2D: the 2 x 2 block), bitwise the table K6 itself reads. Applied by the
-    kernels' loop (in f64, from the f32 table) they match the JAX package's
-    f64 `StructuredOperator` (the per-cell form, K3's and K4b's plain
-    version) to 1e-6 relative L2: one f32 rounding per coefficient
-    (2^-24), summed over 27 x 3 (9 x 2) terms a component."""
+    """K3 (3D) and K4b (2D) read K6's tables: the class tables four values
+    a row (3D: each row of 3 source components padded with a zero; 2D:
+    the 2 x 2 block), bitwise the table K6 itself reads of the same dtype.
+    In f32 (one float4 a row), applied by the kernels' loop (in f64, from
+    the f32 table), they match the JAX package's f64 `StructuredOperator`
+    (the per-cell form, K3's and K4b's plain version) to 1e-6 relative L2:
+    one f32 rounding per coefficient (2^-24), summed over 27 x 3 (9 x 2)
+    terms a component. The f64 operators' tables (the kernels' f64
+    instantiation) hold `class_tables` bit for bit and match the same
+    reference to 1e-13: f64 roundoff over those terms."""
     dim = len(shape)
     cls = Q1StructuredOperator if dim == 3 else Q1StructuredOperator2D
-    table = cls(E, shape, torch.float32, "cpu")._coef[0].numpy()
-    k6 = StencilQ1Operator(E, shape, torch.float64, device="cpu")
-    np.testing.assert_array_equal(table, k6._tables_dev.numpy())
     n_cls = 3**dim
-    assert table.dtype == np.float32
-    if dim == 3:
-        assert table.shape == (n_cls, n_cls, 3, 4)
-        assert not table[..., 3].any()  # the float4 padding
-        folded = table[..., :3]
-    else:
-        assert table.shape == (n_cls, n_cls, 4)
-        folded = table.reshape(n_cls, n_cls, 2, 2)
-    np.testing.assert_array_equal(folded, k6.class_tables.astype(np.float32))
     u = np.random.default_rng(seed).standard_normal((int(np.prod(shape)), dim))
     ref = np.asarray(jax_structured(jspace, E, jnp.float64)(jnp.asarray(u)))
-    got = _class_apply(folded.astype(np.float64), shape, u)
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-6
+    for dtype, npdt, rtol in ((torch.float32, np.float32, 1e-6),
+                              (torch.float64, np.float64, 1e-13)):
+        table = cls(E, shape, dtype, "cpu")._coef[0].numpy()
+        k6 = StencilQ1Operator(E, shape, dtype, device="cpu")
+        np.testing.assert_array_equal(table, k6._tables_dev.numpy())
+        assert table.dtype == npdt
+        if dim == 3:
+            assert table.shape == (n_cls, n_cls, 3, 4)
+            assert not table[..., 3].any()  # the row padding
+            folded = table[..., :3]
+        else:
+            assert table.shape == (n_cls, n_cls, 4)
+            folded = table.reshape(n_cls, n_cls, 2, 2)
+        np.testing.assert_array_equal(folded, k6.class_tables.astype(npdt))
+        got = _class_apply(folded.astype(np.float64), shape, u)
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= rtol
 
 
 @pytest.mark.parametrize("reps", [(1, 1, 1), (1, 2, 4), (3, 1, 2), (4, 3, 5),

@@ -97,24 +97,30 @@ def test_plain_q1_matches_pallas_slab_interpret():
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_plain_q2_matches_structured(dim):
-    """The Q2 fine operator against the JAX structured Q2 operator: K5's
-    plain version in 3D (the Pallas phase kernel's interpret run is slow;
-    both compute this), the plain operator without a kernel in 2D (the
-    JAX package has no 2D Q2 kernel either)."""
+    """The Q2 fine operator against the JAX structured Q2 operator: the f64
+    fine operator is the plain operator without a kernel in 2D and 3D
+    (the JAX package's `pallas_q2_supported` admits f32 and bf16 only, and
+    it has no 2D Q2 kernel), and K5's plain version in 3D (the Pallas
+    phase kernel's interpret run is slow; both compute this)."""
     js, ts = _spaces(dim, 2)
     E = _E(ts, ElementMatrices)
     jop = jst.make_structured_operator(js, E, jnp.float64)
     top = make_q2_operator(ts, E, torch.float64, "cpu")
-    assert isinstance(top, Q2StructuredOperator if dim == 3 else _PlainDegreeOperator)
+    assert isinstance(top, _PlainDegreeOperator)
+    ops = [top]
+    if dim == 3:
+        ops.append(Q2StructuredOperator(E, tst._grid_shape(ts), torch.float64,
+                                        "cpu"))
     v = np.random.default_rng(4).standard_normal((ts.n_nodes, dim))
     a = np.asarray(jop(jnp.asarray(v)))
     Q2StructuredOperator.launches = 0
-    b = top(torch.from_numpy(v)).numpy()
+    for op in ops:
+        b = op(torch.from_numpy(v)).numpy()
+        np.testing.assert_allclose(b, a, rtol=RTOL, atol=RTOL * np.abs(a).max())
+        np.testing.assert_allclose(
+            op.diagonal().numpy(), np.asarray(jop.diagonal()), rtol=RTOL
+        )
     assert Q2StructuredOperator.launches == 0
-    np.testing.assert_allclose(b, a, rtol=RTOL, atol=RTOL * np.abs(a).max())
-    np.testing.assert_allclose(
-        top.diagonal().numpy(), np.asarray(jop.diagonal()), rtol=RTOL
-    )
 
 
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])

@@ -2,12 +2,15 @@
 """Reference values of the PyTorch port's 2D checks, from the JAX package.
 
     JAX_PLATFORMS=cpu python tools/jax_reference_2d.py {linear,nonlinear} \
-        [--dim 2] [--scale 48] [--steps 4] [--precond-dtype float32]
+        [--dim 2] [--scale 48] [--steps 4] [--precond-dtype float32] \
+        [--solve-dtype float32]
 
 Runs the JAX package's model on the 2D perpendicular flap (Q2, `scale`
 times the tutorial's 3 x 18 cells) with the parameters `chip_smoke.py`
 gives the port (`LINEAR_2D` and `NONLINEAR_2D` there; `--precond-dtype`
-overrides their multigrid hierarchy's dtype), or with `--dim 3` the
+overrides their multigrid hierarchy's dtype and `--solve-dtype` their
+inner solve's, `""` for each the model's f64, as `chip_smoke.py`'s
+`f64mg2d` runs it), or with `--dim 3` the
 Neo-Hookean benchmark configuration `NONLINEAR` on the 3D flap, traction
 1000 in x on the interface, and prints per step the iteration counts and
 at the end the checksum ||u||^2 that `chip_smoke.py` holds the port's run
@@ -39,6 +42,7 @@ def main():
     ap.add_argument("--scale", type=int, default=48)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--precond-dtype", default=None)
+    ap.add_argument("--solve-dtype", default=None)
     args = ap.parse_args()
     if args.model == "linear" and args.dim == 3:
         ap.error("the linear configuration is 2D")
@@ -58,13 +62,16 @@ def main():
         solver = "neo-Hookean"
     if args.precond_dtype is not None:
         params = dict(params, precond_dtype=args.precond_dtype)
+    if args.solve_dtype is not None:
+        params = dict(params, solve_dtype=args.solve_dtype)
     params = AllParameters(**params)
     mesh, tags = make_scenario_grid("PF", args.dim, 2, scale=args.scale,
                                     solver=solver)
     t0 = time.perf_counter()
     model = Model(params, mesh=mesh, tags=tags)
     print(f"{args.model} {args.dim}D scale {args.scale} precond_dtype "
-          f"{params.precond_dtype}: {model.space.n_dofs} DoF, "
+          f"{params.precond_dtype!r} solve_dtype {params.solve_dtype!r}: "
+          f"{model.space.n_dofs} DoF, "
           f"built in {time.perf_counter() - t0:.1f} s (CPU)", flush=True)
     stress = np.zeros((model.space.n_nodes, args.dim))
     stress[model.space.boundary_nodes[model.interface_id], 0] = 1000.0
