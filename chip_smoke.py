@@ -71,13 +71,19 @@ script exits non-zero without printing a result):
    launches, the peak device memory of its first 4 steps, and, after all
    timed steps, the device busy share of one more step under
    torch.profiler tracing the card only (`--profile` prints its kernel
-   table). Then a model of its own with the host CG loop (`cg_loop=
-   "host"`: the Newton loop's bodies eager, the CG `cg_solve`; path
-   `main3d host`), on the same mesh and lam_max values, 1 warmup and 1
-   timed step from rest (`MAIN_HOST_STEPS`): the same `NewtonInfo` as
-   main3d's in both steps, ||u||^2 within `LOOPS_RTOL` of main3d's after
-   step 1, and at most Newton iterations + 2 read-backs a step outside
-   the CG (`host_outside`).
+   table). Then a model of its own with `cg_loop="host"` (the Newton
+   loop's bodies and the CG chunks, the same `ChunkedCG`, run eagerly;
+   path `main3d host`), on the same mesh and lam_max values, 1 warmup
+   and 1 timed step from rest (`MAIN_HOST_STEPS`): the same `NewtonInfo`
+   as main3d's in both steps, ||u||^2 within `LOOPS_RTOL` of main3d's
+   after step 1 (bit for bit expected; logged), and at most Newton
+   iterations + 2 read-backs a step outside the CG (`host_outside`).
+   Then the same once more with the host-loop `cg_solve` as the model's
+   CG (path `main3d oracle`: `cg_solve_oracle` replaces the `make_cg`
+   the model's module imported while the model steps; the package builds
+   no such solve), so that the CG graphs stay held against the plain
+   loop at full size: the same `NewtonInfo` as main3d's, ||u||^2 within
+   `LOOPS_RTOL`.
    bench — `bench_torch.py`'s other cells (`BENCH_CELLS`: the Neo-Hookean
    Q4 model at scale 4, 722,211 DoF; the linear model at Q2 scale 4,
    97,875 DoF, and Q3 scale 3, 136,920 DoF) through its functions, 1
@@ -187,7 +193,7 @@ script exits non-zero without printing a result):
      ||u||^2 within rtol 1e-6 (`JVP_RTOL`) of jvp3d's;
    - shard3d — the lattice partition (`parallel/lattice.py`) at full
      size on `SHARD_RANKS` ranks spawned on the card over gloo (the
-     kernels built once before the spawn), the host CG loop (gloo cannot
+     kernels built once before the spawn), the eager CG (gloo cannot
      be captured); each rank first holds K5, K3 (every distributed level,
      also in f64) and K1 at its slab's shapes against their plain
      versions, then runs `SHARD3D_STEPS` steps (1 warmup and 1 timed:
@@ -215,7 +221,7 @@ script exits non-zero without printing a result):
    golden trajectories:
    - coupled_shard — phase 10's coupled run (phase 9's configuration, K6
      on every Q1 level, phase 4's lam_max values) on the lattice partition
-     on `SHARD_RANKS` gloo ranks sharing the card, the host CG loop, cut
+     on `SHARD_RANKS` gloo ranks sharing the card, the eager CG, cut
      to its first window (window 0.01, 2 implicit iterations, so one
      rollback; 2 steps of ~6.5 s: the 4 windows would cost about a
      minute); rank 0 alone holds the participant: the window's time and
@@ -228,8 +234,8 @@ script exits non-zero without printing a result):
      the write history and ||u||^2 bit for bit phase 10's first window;
    - cli_ranks — `torchrun --standalone --nproc-per-node 2 -m
      dealii_adapter_tpu_torch` on `CLI_PRM` with `--devices 2` in a
-     subprocess (gloo ranks sharing the card, the host CG loop): exit code
-     0, one banner, naming the card, 2 ranks and the host CG loop, each
+     subprocess (gloo ranks sharing the card, the eager CG): exit code
+     0, one banner, naming the card, 2 ranks and `CG loop: host`, each
      VTU file written once, at most CG iterations + 2 read-backs a step
      (the step lines' `read_backs`, printed), the final ||u||^2 within
      1e-9 (`CLI_RANKS_RTOL`) of phase 11's; rank 0's closing `kernel
@@ -272,21 +278,40 @@ script exits non-zero without printing a result):
    "stencil"`: K6 in f64 on every Q1 level, K3 never; against the same
    cell on K3 in f64 within 1e-10 and the JAX package's
    `F64MG_STENCIL_REF`), 1 warmup and 3 timed steps each, every residual
-   <= 1e-10.
+   <= 1e-10. The K3 twin (`f64mg_stencil auto`) is the one-device
+   reference of the f64 hierarchy on the lattice partition:
+   - f64mg_nccl1 (run in shard3d_nccl1's world of one on NCCL, in the
+     script's own process) — the same cell, mesh and lam_max values,
+     the CG and the step's bodies in CUDA graphs (the f64 all-reduces
+     captured): `StepInfo` and ||u||^2 after every step bit for bit
+     `f64mg_stencil auto`'s;
+   - f64mg_shard (run after shard_cells) — the same cell on
+     `SHARD_RANKS` gloo ranks sharing the card (`cg_loop="host"`: the
+     step's bodies and the f64 `ChunkedCG` eager), each rank's hierarchy
+     on its own lam_max estimates (the power iterations through the
+     all-reduced inner product), within `F64MG_LAM_RTOL` of one
+     device's; each rank first holds K3's f64 instantiation at its
+     slabs' shapes against the plain version (`slab_f64_checks`,
+     `F64_RTOL`; into the kernel record's `slab_checks`), then runs 1
+     warmup and 3 timed steps: every residual <= 1e-10, CG within
+     `SHARD_CG_SLACK` a step of `f64mg_stencil auto`'s and ||u||^2
+     within `F64MG_SHARD_RTOL` of its after every step; each rank's
+     launches (K3 f64 and C1/C2, no other), collectives a step, step
+     times and read-backs.
 
-Every path but `main3d host`, shard3d, shard_cells, dryrun,
-coupled_shard, cli_ranks, f64mg2d eager and the eager forms of linear_loops
-(`cg_loop="host"`: the Neo-Hookean paths' host CG loop with the Newton
-loop's bodies run eagerly, the linear step's bodies and CG chunks run
-eagerly; all but the first, f64mg2d eager and linear_loops on gloo
-ranks) runs its CG
+Every path but `main3d host`, `main3d oracle`, shard3d, shard_cells,
+dryrun, coupled_shard, cli_ranks, f64mg_shard, f64mg2d eager and the
+eager forms of linear_loops (`cg_loop="host"`: the Newton loop's or the
+linear step's bodies and the CG chunks run eagerly, `main3d oracle`'s CG
+the host-loop `cg_solve`; all but the first two, f64mg2d eager and
+linear_loops on gloo ranks) runs its CG
 in CUDA graphs and its Newton loop's or linear step's bodies replayed
 from CUDA graphs; f64jvp3d,
 jvp3d, reuse_fine3d, f64mg3d and gather3d then run their 4 steps again
 from rest
 with the Newton loop's bodies run eagerly on the same model and CG graphs
 (`newton_eager_twin`): the same `NewtonInfo` in every step, ||u||^2
-within `LOOPS_RTOL`. On the host CG paths the Neo-Hookean steps read
+within `LOOPS_RTOL`. On the eager CG paths the Neo-Hookean steps read
 back at most Newton iterations + 2 times a step outside the CG (one a
 pass, one more where an f32 residual stalls), logged a step with the
 step times (shard3d, shard_cells, coupled_shard per rank). A graph replay adds the launches its capture recorded to
@@ -414,6 +439,7 @@ PATH_KERNELS = {
     "main3d": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "main3d newton eager": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     "main3d host": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
+    "main3d oracle": _HEALTH + ("K1 tangent_matvec",) + _MG3D,
     **{f"tangent3d {sym} {kind}": _HEALTH + (kern,) + _MG3D
        for sym, kind, kern in TANGENT_VARIANTS},
     "linear2d": _HEALTH + ("K4b q1_structured_2d",),
@@ -476,6 +502,8 @@ LINEAR_CELLS = {
     "linear2d": (2, 2, SCALE_2D),
 }
 PATH_KERNELS.update({
+    "f64mg_shard": _HEALTH + ("K3 q1_structured f64",),
+    "f64mg_nccl1": _HEALTH + ("K3 q1_structured f64",),
     "bench_q4": _HEALTH + ("K1 tangent_matvec", "K3 q1_structured"),
     "bench_linear_q2": _HEALTH + _MG3D,
     "bench_linear_q3": _HEALTH + ("K3 q1_structured",),
@@ -539,6 +567,8 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                  "f64mg_stencil auto": _F64_EXCLUDES + (
                      "K3 q1_structured", "K6 q1_stencil",
                      "K6 q1_stencil f64")}
+for _path in ("f64mg_shard", "f64mg_nccl1"):
+    PATH_EXCLUDES[_path] = PATH_EXCLUDES["f64mg_stencil auto"]
 for _cell in LINEAR_CELLS:
     if f"linear_loops {_cell}" in PATH_EXCLUDES:
         PATH_EXCLUDES[f"linear_loops {_cell} eager"] = PATH_EXCLUDES[
@@ -550,10 +580,11 @@ NL_DEFAULT_RTOL = 1e-7
 # the coupled3d phase: window, end time, implicit iterations per window
 COUPLED_WINDOW, COUPLED_END, COUPLED_ITERATIONS = 0.01, 0.04, 2
 COUPLED_RTOL = 1e-10  # against stencil3d's checksum: the same 4 steps
-# main3d's checksum under CUDA graphs against the host loop's: the same
-# kernels on the same inputs, so they should agree bit for bit
+# main3d's checksum under CUDA graphs against the eager CG's and the
+# host-loop `cg_solve`'s: the same kernels on the same inputs, so they
+# should agree bit for bit
 LOOPS_RTOL = 1e-12
-# the steps of `main3d host` (the host CG loop), 1 warmup included: cut
+# the steps of `main3d host` and `main3d oracle`, 1 warmup included: cut
 # from main3d's 7 to keep the script's time
 MAIN_HOST_STEPS = 2
 # read-backs a Neo-Hookean step outside the CG beyond its Newton
@@ -569,6 +600,15 @@ SHARD_RTOL = 1e-7
 SHARD_CELLS_SCALE = 2
 SHARD_CELLS_STEPS = 2
 SHARD3D_STEPS = 2  # shard3d's steps (phase 13's docstring)
+# f64mg_shard (phase 16): the f64 hierarchy's linear cell on SHARD_RANKS
+# gloo ranks against `f64mg_stencil auto` on one device: ||u||^2 after
+# every step (every solve meets the absolute 1e-10 residual, the
+# inner products sum in another order), and each rank's lam_max
+# estimates (the power iterations through the all-reduced inner product
+# from the same start vector: f64 roundoff)
+F64MG_SHARD_CELL = "bench_linear_q2"
+F64MG_SHARD_RTOL = 1e-9
+F64MG_LAM_RTOL = 1e-9
 # cli_ranks (phase 14): the cli phase's case on this many ranks under
 # torchrun; its final ||u||^2 against the cli phase's
 CLI_RANKS = 2
@@ -1816,6 +1856,8 @@ def phase_main(profile):
     torch.cuda.empty_cache()
     launches["main3d host"] = main_host_cg(mesh_tags, lam_max, infos,
                                            checksums)
+    launches["main3d oracle"] = main_host_cg(mesh_tags, lam_max, infos,
+                                             checksums, oracle=True)
     return launches, dict(
         mesh_tags=mesh_tags, checksum=checksum, checksums=checksums,
         lam_max=lam_max, cg=[i.cg_iterations for i in infos],
@@ -1823,52 +1865,96 @@ def phase_main(profile):
     )
 
 
-def main_host_cg(mesh_tags, lam_max, infos, checksums):
-    """The main configuration with its CG loop on the host (`cg_loop=
-    "host"`, and so the Newton loop's bodies eager: path `main3d host`),
-    on main3d's mesh and lam_max values, `MAIN_HOST_STEPS` steps from rest
-    (1 warmup): the same `NewtonInfo` as main3d's (`infos`) in every step,
-    ||u||^2 within `LOOPS_RTOL` of main3d's after the same step
-    (`checksums`), so that the CG graphs stay held against their plain
-    loop at full size, and at most Newton iterations + `NEWTON_SYNC_SLACK`
-    read-backs a step outside the CG; returns the path's launches."""
+def cg_solve_oracle(model):
+    """`model` (`cg_loop="host"`) with the host-loop `cg_solve` as its CG
+    in place of the eager `ChunkedCG`: the model builds its CG at its
+    first solve from the `make_cg` its module imported by name, so each
+    of its steps runs with that name replaced by a builder of `cg_solve`
+    over the same operator, preconditioner and inner product. The
+    package builds no such solve; `cg_solve` is the oracle."""
+    import dealii_adapter_tpu_torch.models.nonlinear_elasticity as nl
+    from dealii_adapter_tpu_torch.solvers.cg import cg_solve
+
+    def make_cg_solve(loop, operator, preconditioner=None, chunk=None,
+                      dot=nl._dot, pool=None):
+        def solve(b, x0, tol, max_iter):
+            return cg_solve(operator, b, x0, tol, max_iter, preconditioner,
+                            dot)
+
+        return solve
+
+    step = model.step
+
+    def oracle_step(*args):
+        real, nl.make_cg = nl.make_cg, make_cg_solve
+        try:
+            return step(*args)
+        finally:
+            nl.make_cg = real
+
+    model.step = oracle_step
+    return model
+
+
+def main_host_cg(mesh_tags, lam_max, infos, checksums, oracle=False):
+    """The main configuration with `cg_loop="host"` (the Newton loop's
+    bodies and the CG chunks eager: path `main3d host`), or with the
+    host-loop `cg_solve` as its CG (`oracle`: path `main3d oracle`,
+    `cg_solve_oracle`), on main3d's mesh and lam_max values,
+    `MAIN_HOST_STEPS` steps from rest (1 warmup): the same `NewtonInfo`
+    as main3d's (`infos`) in every step, ||u||^2 within `LOOPS_RTOL` of
+    main3d's after the same step (`checksums`; bit for bit expected,
+    logged), so that the CG graphs stay held against the eager chunks
+    and against their plain loop at full size, and at most Newton
+    iterations + `NEWTON_SYNC_SLACK` read-backs a step outside the CG;
+    returns the path's launches."""
     import torch
 
+    from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG
+
+    tag, path = (("main oracle", "main3d oracle") if oracle
+                 else ("main host", "main3d host"))
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     model = build_model(dev, mesh_tags=mesh_tags, mg_lam_max=lam_max,
                         cg_loop="host")
+    if oracle:
+        cg_solve_oracle(model)
     torch.cuda.synchronize()
-    describe("main host", model, time.perf_counter() - t0)
+    describe(tag, model, time.perf_counter() - t0)
     require(model.cg_loop == "host" and model._graphs.eager,
-            "main host: the CG loop on the host, the Newton loop's bodies "
-            "eager")
+            f"{tag}: the CG chunks and the Newton loop's bodies eager")
     stress = interface_traction(model)
     start_counts()
     _, host_infos, steps, checksum = run_steps(
-        "main host", model, stress, newton_fmt, n=MAIN_HOST_STEPS)
-    launches = read_counts("main3d host")
+        tag, model, stress, newton_fmt, n=MAIN_HOST_STEPS)
+    launches = read_counts(path)
+    solve = model._tangent[1]
+    require(not isinstance(solve, ChunkedCG) if oracle else (
+        isinstance(solve, ChunkedCG) and solve.eager and solve._graphs is None),
+        f"{tag}: the CG is " + ("the host-loop cg_solve" if oracle
+                                else "the eager ChunkedCG"))
     ref = checksums[MAIN_HOST_STEPS - 1]
     rel = abs(checksum - ref) / ref
     outside = outside_cg(steps)
-    log(f"main host: launches {launches}; NewtonInfo equal main3d's "
+    log(f"{tag}: launches {launches}; NewtonInfo equal main3d's "
         f"{host_infos == infos[:MAIN_HOST_STEPS]}; checksum {checksum!r} "
         f"against main3d's {ref!r} after step {MAIN_HOST_STEPS - 1}: rel. "
         f"difference {rel:.3e} (limit {LOOPS_RTOL}), bitwise {checksum == ref}"
         f"; step times {steps['times']} s, Newton "
-        f"{[i.iterations for i in host_infos]}, read-backs outside the CG "
+        f"{[i.iterations for i in host_infos]}, CG "
+        f"{[i.cg_iterations for i in host_infos]}, read-backs outside the CG "
         f"{outside} a step (the CG's {steps['cg_syncs']})")
     require(all(o <= i.iterations + NEWTON_SYNC_SLACK
                 for o, i in zip(outside, host_infos)),
-            f"main host: at most Newton iterations + {NEWTON_SYNC_SLACK} "
+            f"{tag}: at most Newton iterations + {NEWTON_SYNC_SLACK} "
             "read-backs a step outside the CG")
     require(all(i.converged for i in host_infos),
-            "main host: every step converged")
+            f"{tag}: every step converged")
     require(host_infos == infos[:MAIN_HOST_STEPS],
-            "main host: the host CG loop's NewtonInfo equals main3d's")
-    require(rel <= LOOPS_RTOL,
-            "main host: the host CG loop's checksum against main3d's")
-    del model
+            f"{tag}: the NewtonInfo equals main3d's")
+    require(rel <= LOOPS_RTOL, f"{tag}: the checksum against main3d's")
+    del model, solve
     torch.cuda.empty_cache()
     return launches
 
@@ -2215,7 +2301,7 @@ def phase_coupled3d(model, stencil_checksum):
 
 def _coupled_shard_rank(mesh, lam_max):
     """One rank of coupled_shard (a spawned process): phase 10's model on
-    the lattice partition with the host CG loop, its first window."""
+    the lattice partition with the eager CG, its first window."""
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
 
     t0 = time.perf_counter()
@@ -2285,8 +2371,8 @@ def phase_coupled_shard(parallel):
     t0 = time.perf_counter()
     out = spawn(_coupled_shard_rank, SHARD_RANKS, "cuda", ref["lam_max"],
                 backend="gloo")
-    log(f"coupled_shard: {SHARD_RANKS} ranks on the card over gloo, host CG "
-        f"loop, ran in {time.perf_counter() - t0:.1f} s (spawn, build and "
+    log(f"coupled_shard: {SHARD_RANKS} ranks on the card over gloo, eager "
+        f"CG, ran in {time.perf_counter() - t0:.1f} s (spawn, build and "
         "window)")
     total = {}
     for r in out:
@@ -2654,7 +2740,7 @@ def phase_cli_ranks(cli_u2):
             "cli_ranks: one banner (rank 0's)")
     require(torch.cuda.get_device_name(0) in text, "cli_ranks: banner names the card")
     require(f"{CLI_RANKS} ranks over gloo; CG loop: host" in text,
-            "cli_ranks: banner names the ranks and the host CG loop")
+            "cli_ranks: banner names the ranks and the eager CG loop")
     require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"]
             and "2 VTU files" in text, f"cli_ranks: files {files}")
     steps = step_read_backs(text)
@@ -2998,7 +3084,9 @@ def phase_f64mg():
       the stencil's within `LINEAR2D_RTOL` of the JAX package's
       (`F64MG_STENCIL_REF`).
     Each model's hierarchy passes `f64_hierarchy_check` (f64 throughout,
-    levels among phase 3's lattices)."""
+    levels among phase 3's lattices). Returns ({path: launches}, the run
+    of `f64mg_stencil auto`: the reference of f64mg_shard and f64mg_nccl1:
+    its `StepInfo`s, ||u||^2 after every step, lam_max values and mesh)."""
     import torch
 
     dev = torch.device("cuda")
@@ -3026,12 +3114,16 @@ def phase_f64mg():
             lam_max = [lv.lam_max for lv in model._precond.levels]
         stress = interface_traction(model)
         start_counts()
-        state, infos, _, checksum = run_steps(path, model, stress, linear_fmt)
+        state, infos, steps, checksum = run_steps(path, model, stress,
+                                                  linear_fmt)
         by_path[path] = read_counts(path)
         log(f"{path}: launches {by_path[path]}")
         require(all(i.residual <= 1e-10 for i in infos),
                 f"{path}: every step's residual <= 1e-10")
-        runs[path] = dict(state=state, infos=infos, checksum=checksum)
+        runs[path] = dict(state=state, infos=infos, checksum=checksum,
+                          checksums=steps["checksums"],
+                          lam_max=[lv.lam_max for lv in model._precond.levels],
+                          mesh_tags=(model.mesh, model.tags))
         del model
         torch.cuda.empty_cache()
     g, h = runs["f64mg2d"], runs["f64mg2d eager"]
@@ -3051,7 +3143,8 @@ def phase_f64mg():
             "f64mg_stencil: checksum against the K3 hierarchy's")
     check_checksum("f64mg_stencil", k6["checksum"], F64MG_STENCIL_REF,
                    LINEAR2D_RTOL)
-    return by_path
+    return by_path, {k: k3[k] for k in ("infos", "checksums", "lam_max",
+                                        "mesh_tags")}
 
 
 def phase_nonlinear2d(profile):
@@ -3122,7 +3215,6 @@ def slab_kernel_checks(model, seed):
     import torch
 
     from dealii_adapter_tpu_torch.ops import assembled_tangent as at
-    from dealii_adapter_tpu_torch.ops.q1_structured import q1_lattice_operator
     from dealii_adapter_tpu_torch.parallel.lattice import SlabOperator
 
     dev = model.device
@@ -3143,16 +3235,7 @@ def slab_kernel_checks(model, seed):
                              ms=cuda_ms(lambda: op(x, out_dtype=out))))
             require(rel <= tol, f"{name} at the slab {op.grid_shape} {io}: "
                     f"rel. L2 error {rel:.3e} > {tol}")
-    f64 = torch.float64
-    for _, op, _ in ops[1:]:
-        k3 = q1_lattice_operator(op.E_host, op.grid_shape, f64, dev)
-        x = torch.randn(op._u_shape, generator=g, device=dev, dtype=f64)
-        max_abs, rel = compare(k3(x), k3.plain(x))
-        rows.append(dict(name="K3 q1_structured f64", shape=list(op.grid_shape),
-                         dtype="float64", max_abs_err=max_abs, rel_l2_err=rel,
-                         limit=F64_RTOL, ms=cuda_ms(lambda: k3(x))))
-        require(rel <= F64_RTOL, f"K3 f64 at the slab {op.grid_shape}: rel. "
-                f"L2 error {rel:.3e} > {F64_RTOL}")
+    rows += slab_f64_checks([op for _, op, _ in ops[1:]], g)
     edofs = 3 * model.space.tab.n_nodes
     n_cells = math.prod(model._lat.slab_reps)
     KT = torch.randn((edofs, edofs, n_cells), generator=g, device=dev)
@@ -3167,10 +3250,36 @@ def slab_kernel_checks(model, seed):
     return rows
 
 
+def slab_f64_checks(ops, g):
+    """K3's f64 instantiation at the slab shapes of the level operators
+    `ops` (each distributed level's operator on this rank's slab) with
+    each level's element matrix, on seeded f64 inputs from `g`, against
+    its plain version (`F64_RTOL`); the time of a call on the card (None
+    on the CPU, where both are the plain version). Not counted."""
+    import torch
+
+    from dealii_adapter_tpu_torch.ops.q1_structured import q1_lattice_operator
+
+    rows = []
+    f64 = torch.float64
+    for op in ops:
+        dev = g.device
+        k3 = q1_lattice_operator(op.E_host, op.grid_shape, f64, dev)
+        x = torch.randn(op._u_shape, generator=g, device=dev, dtype=f64)
+        max_abs, rel = compare(k3(x), k3.plain(x))
+        rows.append(dict(name="K3 q1_structured f64", shape=list(op.grid_shape),
+                         dtype="float64", max_abs_err=max_abs, rel_l2_err=rel,
+                         limit=F64_RTOL, ms=cuda_ms(lambda: k3(x))
+                         if dev.type == "cuda" else None))
+        require(rel <= F64_RTOL, f"K3 f64 at the slab {op.grid_shape}: rel. "
+                f"L2 error {rel:.3e} > {F64_RTOL}")
+    return rows
+
+
 def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
     """One rank of shard3d (a spawned process): the slab checks, then
     `n_steps` steps of phase 4's configuration (at `scale`, by default
-    phase 4's) on the lattice partition with the host CG loop; returns
+    phase 4's) on the lattice partition with the eager CG; returns
     what the parent checks and logs (also `tools/port_shard_steps.py`'s,
     which runs it on the CPU too)."""
     import torch
@@ -3234,7 +3343,7 @@ def phase_shard3d(main, records):
     out = spawn(_shard3d_rank, SHARD_RANKS, "cuda", main["lam_max"],
                 SHARD3D_STEPS, backend="gloo")
     ref = main["checksums"][SHARD3D_STEPS - 1]  # main3d's after that step
-    log(f"shard3d: {SHARD_RANKS} ranks on the card over gloo, host CG loop, "
+    log(f"shard3d: {SHARD_RANKS} ranks on the card over gloo, eager CG, "
         f"ran in {time.perf_counter() - t0:.1f} s (spawn, build and steps)")
     by_name = {rec["name"]: rec for rec in records}
     total = {}
@@ -3277,12 +3386,12 @@ def phase_shard3d(main, records):
     return total
 
 
-def phase_shard3d_nccl1(main):
+def phase_shard3d_nccl1(main, f64_ref):
     """shard3d_nccl1 (phase 13): a world of one on NCCL in this process,
     the CG in CUDA graphs, bit for bit phase 4; then shard_cells'
-    configuration on that world, its one-rank reference, and phase 14's
-    coupled_nccl1. Returns (launches, the reference, coupled_nccl1's
-    launches)."""
+    configuration on that world, its one-rank reference, phase 14's
+    coupled_nccl1 and phase 16's f64mg_nccl1 (against `f64_ref`). Returns
+    (launches, the reference, coupled_nccl1's launches, f64mg_nccl1's)."""
     import torch
     import torch.distributed as dist
 
@@ -3331,9 +3440,189 @@ def phase_shard3d_nccl1(main):
         t0 = time.perf_counter()
         coupled = coupled_nccl1(mesh, main)
         log(f"coupled_nccl1: took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        f64 = f64mg_nccl1(mesh, f64_ref)
+        log(f"f64mg_nccl1: took {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
-    return launches, ref, coupled
+    return launches, ref, coupled, f64
+
+
+def _f64mg_shard_rank(mesh, n_steps, scale=None):
+    """One rank of f64mg_shard (a spawned process): `F64MG_SHARD_CELL` (at
+    `scale`, by default its own) with the f64 hierarchy (`F64_MG`, K3 on
+    every Q1 level) on the lattice partition, `cg_loop="host"`, on its own
+    lam_max estimates; the slab checks of K3 f64, then `n_steps` steps
+    from rest. Returns what the parent checks and logs (on the CPU too,
+    where the kernels run their plain versions and nothing is counted)."""
+    import torch
+
+    import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
+    from dealii_adapter_tpu_torch.kernels import counters
+    from dealii_adapter_tpu_torch.parallel.lattice import SlabOperator
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    model = build_linear_cell(
+        F64MG_SHARD_CELL, dev, scale=scale, cg_loop="host", device_mesh=mesh,
+        overrides=dict(F64_MG, mg_level_backend="auto"))
+    mg = model._precond
+    slabs = [lv.raw.op for lv in mg.levels[1:]
+             if isinstance(lv.raw, SlabOperator)]
+    g = torch.Generator(device=dev).manual_seed(41 + mesh.rank)
+    out = dict(rank=mesh.rank, build_s=time.perf_counter() - t0,
+               n_dofs=model.space.n_dofs, eager=bool(
+                   model._graphs.eager and model._cg.eager),
+               levels=[(lv.grid_shape, lv.layout.slab_shape if lv.layout
+                        else None, str(lv.diag.dtype)) for lv in mg.levels],
+               dtype=str(mg.dtype), lam_max=[lv.lam_max for lv in mg.levels],
+               checks=slab_f64_checks(slabs, g))
+    stress = model.local_rows(interface_traction(model))
+    if cuda:
+        start_counts()
+    else:  # the CPU rehearsal: no library to bind
+        counters.reset()
+    state = model.initial_state()
+    for k in ("cg", "residual", "times", "checksums", "calls", "syncs"):
+        out[k] = []
+    for _ in range(n_steps):
+        sync()
+        calls0, syncs0 = dict(mesh.calls), model.host_syncs
+        ts = time.perf_counter()
+        state, info = model.step(state, stress)
+        sync()
+        out["times"].append(time.perf_counter() - ts)
+        out["syncs"].append(model.host_syncs - syncs0)
+        out["calls"].append({k: mesh.calls[k] - calls0[k] for k in calls0})
+        u = state.displacement.reshape(-1)
+        out["checksums"].append(float(mesh.all_reduce(torch.dot(u, u))))
+        out["cg"].append(info.iterations)
+        out["residual"].append(info.residual)
+    out["launches"] = counters.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    return out
+
+
+def phase_f64mg_shard(ref, records, device="cuda", scale=None):
+    """f64mg_shard (phase 16): `F64MG_SHARD_CELL` with the f64 hierarchy on
+    `SHARD_RANKS` gloo ranks sharing the card, against `ref`, the run of
+    `f64mg_stencil auto` on one device (`phase_f64mg`); the slab checks go
+    into the kernel records (`slab_checks`); returns the launches of all
+    ranks. `device="cpu"` with a small `scale` (and a reference of that
+    scale) rehearses it on the CPU."""
+    from dealii_adapter_tpu_torch.parallel import spawn
+
+    n_steps = len(ref["checksums"])
+    t0 = time.perf_counter()
+    out = spawn(_f64mg_shard_rank, SHARD_RANKS, device, n_steps, scale,
+                backend="gloo")
+    log(f"f64mg_shard: {SHARD_RANKS} ranks on the {device} device over gloo, "
+        f"eager CG, {out[0]['n_dofs']} DoF, ran in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, build and steps)")
+    cuda = device == "cuda"
+    by_name = {rec["name"]: rec for rec in records}
+    ref_cg = [i.iterations for i in ref["infos"]]
+    total = {}
+    for r in out:
+        tag = f"f64mg_shard rank {r['rank']}"
+        lam_rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(r["lam_max"], ref["lam_max"]))
+        log(f"{tag}: model built in {r['build_s']:.1f} s; hierarchy "
+            f"{r['dtype']}, levels (lattice, slab or None = replicated, "
+            f"dtype) {r['levels']}; lam_max {r['lam_max']} (one device: "
+            f"{ref['lam_max']}, largest rel. difference {lam_rel:.3e}, limit "
+            f"{F64MG_LAM_RTOL})")
+        for c in r["checks"]:
+            log(f"{tag}: {c['name']} at the slab {c['shape']} {c['dtype']}: "
+                f"max abs err {c['max_abs_err']:.3e}, rel. L2 "
+                f"{c['rel_l2_err']:.3e} (limit {c['limit']}); "
+                + (f"{c['ms']:.4f} ms a call (CUDA events, median of 15; "
+                   "ranks share the card)" if c["ms"] is not None else
+                   "not timed"))
+            if c["name"] in by_name:
+                by_name[c["name"]].setdefault("slab_checks", []).append(
+                    dict(c, rank=r["rank"], ranks=SHARD_RANKS,
+                         path="f64mg_shard"))
+        rels = [abs(a - b) / b for a, b in zip(r["checksums"],
+                                               ref["checksums"])]
+        log(f"{tag}: step times {r['times']} s (ranks sharing one card, not "
+            f"a scaling result); CG {r['cg']} (one device: {ref_cg}); "
+            f"residuals {r['residual']}; read-backs {r['syncs']} a step; "
+            f"collectives a step {r['calls']}; checksums {r['checksums']} "
+            f"against one device's {ref['checksums']}: rel. differences "
+            f"{[f'{x:.3e}' for x in rels]} (limit {F64MG_SHARD_RTOL}); peak "
+            f"device memory {r['peak_gib']:.2f} GiB")
+        if cuda:
+            read_counts("f64mg_shard", r["launches"])
+            log(f"{tag}: launches {r['launches']}")
+        require(r["eager"], f"{tag}: the step's bodies and CG run eagerly")
+        require(r["dtype"] == "torch.float64"
+                and all(d == "torch.float64" for _, _, d in r["levels"]),
+                f"{tag}: every level of the hierarchy in f64")
+        require(any(sl is not None for _, sl, _ in r["levels"][1:])
+                and r["checks"], f"{tag}: a Q1 level on the rank's slab")
+        if cuda:
+            require(all(shape in F64_LEVELS_3D
+                        for shape, _, _ in r["levels"][1:]),
+                    f"{tag}: Q1 levels among phase 3's lattices")
+        require(lam_rel <= F64MG_LAM_RTOL,
+                f"{tag}: lam_max against one device's")
+        require(all(x <= 1e-10 for x in r["residual"]),
+                f"{tag}: every step's residual <= 1e-10")
+        require(all(abs(a - b) <= SHARD_CG_SLACK
+                    for a, b in zip(r["cg"], ref_cg)),
+                f"{tag}: CG within {SHARD_CG_SLACK} a step of one device's")
+        require(max(rels) <= F64MG_SHARD_RTOL,
+                f"{tag}: checksums against one device's")
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    require(all(r["checksums"] == out[0]["checksums"]
+                and r["cg"] == out[0]["cg"] for r in out),
+            "f64mg_shard: every rank read the same reduced values")
+    return total
+
+
+def f64mg_nccl1(mesh, ref):
+    """f64mg_nccl1 (phase 16): `f64mg_stencil auto`'s cell, mesh and lam_max
+    values on the world of one `mesh` (NCCL, this process), the CG and the
+    step's bodies in CUDA graphs: `StepInfo` and ||u||^2 after every step
+    bit for bit `ref`'s; returns the path's launches."""
+    import torch
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    model = build_linear_cell(
+        F64MG_SHARD_CELL, dev, mesh_tags=ref["mesh_tags"],
+        mg_lam_max=ref["lam_max"], device_mesh=mesh,
+        overrides=dict(F64_MG, mg_level_backend="auto"))
+    torch.cuda.synchronize()
+    describe("f64mg_nccl1", model, time.perf_counter() - t0)
+    require(model.cg_loop == "graphs" and mesh.backend == "nccl"
+            and not model._graphs.eager,
+            "f64mg_nccl1: NCCL, the CG and the step's bodies in CUDA graphs")
+    f64_hierarchy_check("f64mg_nccl1", model, F64_LEVELS_3D)
+    stress = model.local_rows(interface_traction(model))
+    start_counts()
+    _, infos, steps, _ = run_steps("f64mg_nccl1", model, stress, linear_fmt,
+                                   n=len(ref["checksums"]))
+    launches = read_counts("f64mg_nccl1")
+    same = (infos == ref["infos"] and steps["checksums"] == ref["checksums"])
+    log(f"f64mg_nccl1: launches {launches}; CG "
+        f"{[i.iterations for i in infos]}, checksums {steps['checksums']} "
+        f"against f64mg_stencil auto's {ref['checksums']}; bitwise {same}; "
+        f"collectives {mesh.calls} (Python calls: those in the CUDA graphs "
+        "counted once, at capture)")
+    require(same, "f64mg_nccl1: StepInfo and checksums bit for bit "
+            "f64mg_stencil auto's")
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _shard_cells_rank(mesh):
@@ -3376,7 +3665,7 @@ def phase_shard_cells(ref):
     t0 = time.perf_counter()
     out = spawn(_shard_cells_rank, SHARD_RANKS, "cuda", backend="gloo")
     log(f"shard_cells: {SHARD_RANKS} ranks over gloo at scale "
-        f"{SHARD_CELLS_SCALE} ({ref['n_dofs']} DoF), host CG loop, ran in "
+        f"{SHARD_CELLS_SCALE} ({ref['n_dofs']} DoF), eager CG, ran in "
         f"{time.perf_counter() - t0:.1f} s (spawn, build and steps)")
     total = {}
     for r in out:
@@ -3454,7 +3743,8 @@ def main():
     torch.cuda.empty_cache()
     by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
     by_path.update(timed("linear_loops", phase_linear_loops))
-    by_path.update(timed("f64mg", phase_f64mg))
+    paths, f64_ref = timed("f64mg", phase_f64mg)
+    by_path.update(paths)
     by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
     by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"], cli_u2 = timed("cli", phase_cli)
@@ -3463,9 +3753,12 @@ def main():
     by_path["golden_nl"] = timed("golden_nl", phase_golden_nl)
     by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
     by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
-    by_path["shard3d_nccl1"], cells_ref, by_path["coupled_nccl1"] = timed(
-        "shard3d_nccl1", phase_shard3d_nccl1, parallel)
+    (by_path["shard3d_nccl1"], cells_ref, by_path["coupled_nccl1"],
+     by_path["f64mg_nccl1"]) = timed("shard3d_nccl1", phase_shard3d_nccl1,
+                                     parallel, f64_ref)
     by_path["shard_cells"] = timed("shard_cells", phase_shard_cells, cells_ref)
+    by_path["f64mg_shard"] = timed("f64mg_shard", phase_f64mg_shard, f64_ref,
+                                   records)
     by_path["dryrun"] = timed("dryrun", phase_dryrun)
     by_path["coupled_shard"] = timed("coupled_shard", phase_coupled_shard,
                                      parallel)

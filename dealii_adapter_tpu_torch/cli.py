@@ -26,10 +26,10 @@ backend `parallel/partition.py:choose_backend` picks: NCCL when every rank
 has a card of its own, gloo when the ranks share one card or run on the
 CPU. Without either it raises, saying how to launch. A gloo world on the
 card cannot capture its collectives in CUDA graphs, so there the models
-run the host CG loop (`cg_loop="host"`), which the banner says. Rank 0
-holds the participant (`adapter/adapter.py`) and alone prints the banner,
-the table and the closing lines and writes the VTU files, from the
-gathered fields.
+run their CG chunks eagerly (`cg_loop="host"`), which the banner says.
+Rank 0 holds the participant (`adapter/adapter.py`) and alone prints the
+banner, the table and the closing lines and writes the VTU files, from
+the gathered fields.
 
 Usage: python -m dealii_adapter_tpu_torch <case.prm> [options]
 """

@@ -63,15 +63,17 @@ and K3 in 3D, K4b in 2D; K6 on the Q1 levels under a `stencil*`
 computes the f64 internal force and mass by sum factorization
 (`ops/sumfact.py`).
 
-The CG runs as `cg_loop` says: "graphs" (the default) runs
-`solvers/cg.py:ChunkedCG`, fixed-length chunks of guarded CG iterations
-captured once per model in CUDA graphs on the card (tangent operator, the
-whole V-cycle, dots; run eagerly on the CPU) with one read-back per
-chunk; "host" the host-loop `cg_solve`, one read-back per iteration.
-Both give the same bits. The tangent's state lives in persistent buffers
-per model: the assembly writes into one (the layouts' `out=`), the jvp
-tangent's linearization point is copied into others, so the captured
-operator reads each Newton iteration's tangent at the same address.
+The CG is one loop, `solvers/cg.py:ChunkedCG` (`make_cg`): fixed-length
+chunks of guarded CG iterations with one read-back per chunk. `cg_loop`
+says how the chunks run: "graphs" (the default) captures them once per
+model in CUDA graphs on the card (tangent operator, the whole V-cycle,
+dots), "host" runs them eagerly (`eager=True`: gloo ranks, whose
+collectives cannot be captured); on the CPU both run eagerly. Both give
+the same bits, and those of the host-loop `cg_solve`, the oracle. The
+tangent's state lives in persistent buffers per model: the assembly
+writes into one (the layouts' `out=`), the jvp tangent's linearization
+point is copied into others, so the captured operator reads each Newton
+iteration's tangent at the same address.
 
 The Newton loop is written once (`_newton_solve`, the JAX package's
 `_make_step`): every decision is made on the device in 0-dim f64 tensors
@@ -297,7 +299,7 @@ class NonlinearElasticity:
         check_collective_loop(device_mesh, self.device, cg_loop)
         self.cg_chunk = int(cg_chunk)
         # the Newton loop's CUDA graphs share the CG graphs' memory pool;
-        # beside the host CG loop its bodies run eagerly
+        # beside the eager CG chunks its bodies run eagerly
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         self._graphs = GraphRunner(self.device, self._pool,

@@ -7,7 +7,7 @@ tangent, Eisenstat-Walker forcing, the Newmark predictor) on the lattice
 partition over `n_devices` spawned ranks. The caller names the device;
 nothing re-executes on the CPU by itself. On the card the kernels are
 built once, before the ranks start, and each rank launches them on its
-slab; a gloo world on the card runs the host CG loop.
+slab; a gloo world on the card runs its CG eagerly (`cg_loop="host"`).
 
     python -c "from dealii_adapter_tpu_torch.parallel.dryrun import \\
         dryrun_multichip; dryrun_multichip(2, 'cuda')"

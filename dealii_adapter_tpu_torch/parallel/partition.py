@@ -10,7 +10,7 @@ The backend follows one rule (`choose_backend`): NCCL when every rank has a
 card of its own, gloo when ranks share one card or run on the CPU. It is
 never chosen by catching NCCL's failure. Gloo moves CUDA tensors through
 the host and cannot be captured in a CUDA graph, so a gloo world on the
-card runs the models' host CG loop (`cg_loop="host"`).
+card runs the models' CG chunks eagerly (`cg_loop="host"`).
 
 `CellPartition` is a copy of the JAX package's (numpy only): contiguous
 lexicographic cell blocks, one per rank, with windowed transpose-gather

@@ -36,7 +36,8 @@ MG_CELL_PARTITION = (
 
 def check_collective_loop(device_mesh, device, cg_loop: str) -> None:
     """A gloo world on the card cannot capture its collectives in a CUDA
-    graph: it must run the host CG loop (never swapped in silently)."""
+    graph: it must run its CG eagerly, `cg_loop="host"` (never swapped in
+    silently)."""
     if (device_mesh is not None and device_mesh.backend == "gloo"
             and torch.device(device).type == "cuda" and cg_loop == "graphs"):
         raise ValueError(

@@ -6,8 +6,8 @@ whole solve inside one `lax.while_loop`. Here:
 
 * `cg_solve` is a host loop that reads the residual norm back every
   iteration (`resn > tol`), one device-to-host sync per iteration. It is
-  the oracle of `ChunkedCG` and the Neo-Hookean model's CG under
-  `cg_loop="host"`;
+  the JAX package's function and the oracle of `ChunkedCG`; no model
+  runs it;
 * `ChunkedCG` keeps the loop state (x, r, p, rz, the iteration count and
   the residual norm) and the tolerance and cap in device tensors and runs
   the loop in chunks of `chunk` iterations. Each iteration is the JAX
@@ -24,8 +24,8 @@ whole solve inside one `lax.while_loop`. Here:
   `torch.cuda.CUDAGraph` (operator, preconditioner and dots: on the
   models' paths the tangent kernel and the whole V-cycle) at the first
   solve and replayed for every later one; a capture or replay that fails
-  raises. On the CPU, and on a card when built with `eager=True` (the
-  linear model under `cg_loop="host"`, whose collectives on gloo ranks
+  raises. On the CPU, and on a card when built with `eager=True` (both
+  models under `cg_loop="host"`, `make_cg`: gloo ranks' collectives
   cannot be captured), the same code runs eagerly.
 
 Every solve and `estimate_lambda_max` take the inner product as `dot`
@@ -578,16 +578,13 @@ class ChunkedIRCG:
 def make_cg(loop: str, operator: Callable,
             preconditioner: Optional[Callable] = None,
             chunk: int = CG_CHUNK, dot: Callable = _dot,
-            pool=None) -> Callable:
-    """The models' Krylov solve `solve(b, x0, tol, max_iter) -> CGResult`:
-    `ChunkedCG` for `loop="graphs"` (CUDA graphs on a card, captured into
-    `pool` if given; the same chunks eagerly on the CPU), the host-loop
-    `cg_solve` for `loop="host"`."""
-    if loop == "graphs":
-        return ChunkedCG(operator, preconditioner, chunk, dot, pool)
-    if loop == "host":
-        def solve(b, x0, tol, max_iter):
-            return cg_solve(operator, b, x0, tol, max_iter, preconditioner, dot)
-
-        return solve
-    raise ValueError(f"unknown cg_loop {loop!r}; expected one of {CG_LOOPS}")
+            pool=None) -> ChunkedCG:
+    """The models' Krylov solve `solve(b, x0, tol, max_iter) -> CGResult`,
+    one `ChunkedCG` for both loops: its chunks captured in CUDA graphs on
+    a card (into `pool` if given) for `loop="graphs"`, run eagerly for
+    `loop="host"` (`eager=True`: gloo ranks, whose collectives cannot be
+    captured); on the CPU both run eagerly."""
+    if loop not in CG_LOOPS:
+        raise ValueError(f"unknown cg_loop {loop!r}; expected one of {CG_LOOPS}")
+    return ChunkedCG(operator, preconditioner, chunk, dot, pool,
+                     eager=loop == "host")

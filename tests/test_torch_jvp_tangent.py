@@ -40,6 +40,7 @@ from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
     forward_jvp,
 )
 from dealii_adapter_tpu_torch.ops.assembled_tangent import tangent_bytes
+from test_torch_newton_device import cg_solve_oracle
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -209,15 +210,17 @@ def test_chunked_cg_on_jvp_equals_the_host_loop(kw, steps):
     """A production step with the CG in chunks of 3 (`cg_loop="graphs"`,
     eager on the CPU) over each jvp operator (f64 under an f32 V-cycle, a
     Chebyshev smoother or none in 2D, f32 under the bf16 V-cycle in 3D)
-    gives the host loop's `NewtonInfo` and state bit for bit; the
+    gives the `NewtonInfo` and state of the same model with the host-loop
+    `cg_solve` as its CG (the oracle,
+    `test_torch_newton_device.cg_solve_oracle`) bit for bit; the
     linearization point lives in persistent buffers that every Newton
     iteration refills (a step from rest takes at least 4 Newton
     iterations here, so at least 3 refills)."""
     p = AllParameters(**dict(PRODUCTION, **kw))
     mesh, tags = make_scenario_grid("PF", p.dim, 2, scale=1,
                                     solver="neo-Hookean")
-    host = NonlinearElasticity(p, mesh=mesh, tags=tags, device="cpu",
-                               cg_loop="host")
+    host = cg_solve_oracle(NonlinearElasticity(
+        p, mesh=mesh, tags=tags, device="cpu", cg_loop="host"))
     lam = ([lv.lam_max for lv in host._precond.levels]
            if p.preconditioner == "MG" else None)
     chunked = NonlinearElasticity(p, mesh=mesh, tags=tags, device="cpu",

@@ -1,9 +1,13 @@
 """The Neo-Hookean model's one Newton loop (its decisions on the device)
-beside the host CG loop (`cg_loop="host"`: its bodies run eagerly, the CG
-is `cg_solve`) and beside the CG graphs (`cg_loop="graphs"`: the bodies
-go through the graph runner and the CG is `ChunkedCG`, both eager on the
-CPU): the same `NewtonInfo`, the same iterate bit for bit and the same
-passes, with one read-back a Newton pass outside the CG, on the 3D
+under `cg_loop="host"` (its bodies and its CG, `ChunkedCG`, run eagerly)
+and under `cg_loop="graphs"` (the bodies go through the graph runner and
+the CG chunks are captured on a card; both eager on the CPU), each held
+against the oracle: the same model under `"host"` with its CG replaced
+by the host-loop `cg_solve` (`cg_solve_oracle`, built here; the
+package builds no such solve): the same `NewtonInfo`, the same iterate
+bit for bit and the same passes, with one read-back a Newton pass
+outside the CG and the CG's read-backs exact (k + 1 a solve of k
+iterations on `cg_solve`, max(1, k) on the chunks of 1), on the 3D
 benchmark configuration at scale 1 (2,331 DoF) under f64 residuals, the
 mixed schedule through a stall, tangent reuse at traction 30,000 (two
 stalls), the jvp tangent and the gather backend; the JAX package's counts
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 import dealii_adapter_tpu.models.nonlinear_elasticity as jax_nl
+import dealii_adapter_tpu_torch.models.nonlinear_elasticity as nl
 from dealii_adapter_tpu.config import AllParameters as JaxParams
 from dealii_adapter_tpu.mesh.generator import make_scenario_grid as jax_grid
 from dealii_adapter_tpu_torch.config import AllParameters
@@ -28,6 +33,7 @@ from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
 from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
     NonlinearElasticity,
 )
+from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG, cg_solve
 
 torch.set_num_threads(1)
 
@@ -79,9 +85,39 @@ def _stress(model, magnitude):
     return s
 
 
+def _make_cg_solve(loop, operator, preconditioner=None, chunk=None,
+                   dot=nl._dot, pool=None):
+    """`make_cg`'s signature, returning the host-loop `cg_solve` over the
+    model's operator, preconditioner and inner product: the oracle."""
+    assert loop == "host"
+
+    def solve(b, x0, tol, max_iter):
+        return cg_solve(operator, b, x0, tol, max_iter, preconditioner, dot)
+
+    return solve
+
+
+def cg_solve_oracle(model):
+    """`model` (`cg_loop="host"`) with its CG the host-loop `cg_solve` in
+    place of the eager `ChunkedCG`: the model imports `make_cg` by name
+    and builds its CG at its first solve, so its steps run with that
+    name replaced (the package builds no such solve)."""
+    assert model.cg_loop == "host"
+    step = model.step
+
+    def oracle_step(*args):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(nl, "make_cg", _make_cg_solve)
+            return step(*args)
+
+    model.step = oracle_step
+    return model
+
+
 def _models(mesh_tags, kw):
-    """(the host CG loop's model, the CG graphs' model) on one mesh and one
-    set of lam_max values."""
+    """(the oracle: `cg_loop="host"` with `cg_solve` as its CG, the host
+    loop's model, the CG graphs' model) on one mesh and one set of
+    lam_max values."""
     params = AllParameters(**dict(PRODUCTION, **kw))
     mesh, tags = mesh_tags
     host = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
@@ -90,15 +126,21 @@ def _models(mesh_tags, kw):
            if params.preconditioner == "MG" else None)
     dev = NonlinearElasticity(params, mesh=mesh, tags=tags, device="cpu",
                               mg_lam_max=lam)
-    assert (host.cg_loop, dev.cg_loop) == ("host", "graphs")
-    assert host._graphs.eager and not dev._graphs.eager
-    return host, dev
+    oracle = cg_solve_oracle(NonlinearElasticity(
+        params, mesh=mesh, tags=tags, device="cpu", cg_loop="host",
+        mg_lam_max=lam))
+    assert (oracle.cg_loop, host.cg_loop, dev.cg_loop) == (
+        "host", "host", "graphs")
+    assert oracle._graphs.eager and host._graphs.eager
+    assert not dev._graphs.eager
+    return oracle, host, dev
 
 
 def _record(model):
     """Counts of the Newton loop's passes: [decisions, stall redos, CG
-    read-backs, f64 residuals, solve-dtype residuals]."""
-    counts = [0, 0, 0, 0, 0]
+    read-backs, f64 residuals, solve-dtype residuals, [(CG iterations,
+    the CG's read-backs) of each solve]]."""
+    counts = [0, 0, 0, 0, 0, []]
     decide, solve = model._newton_decide, model._solve
     residual = model._newton_residual
 
@@ -112,9 +154,10 @@ def _record(model):
         return decide(b, *flags)
 
     def recorded_solve(*args):
-        syncs = model.host_syncs
+        syncs, cg_syncs = model.host_syncs, model.cg_host_syncs
         out = solve(*args)
         counts[2] += model.host_syncs - syncs
+        counts[5].append((out[1], model.cg_host_syncs - cg_syncs))
         return out
 
     model._newton_decide, model._solve = recorded_decide, recorded_solve
@@ -124,43 +167,55 @@ def _record(model):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_device_newton_loop_equals_the_host_loop(mesh_tags, case):
-    """The one Newton loop beside the host CG loop (its bodies eager)
-    equals it beside the CG graphs: `NewtonInfo`, states, the passes, the
-    stall redos and the residuals evaluated, and each reads back once a
-    pass outside the CG (once more a stall)."""
+    """The one Newton loop under `cg_loop="host"` (its bodies and CG chunks
+    eager) and under `"graphs"` each equal it beside the host-loop
+    `cg_solve` (the oracle): `NewtonInfo`, states, the passes, the stall
+    redos and the residuals evaluated, and each reads back once a pass
+    outside the CG (once more a stall); the CG reads back k + 1 times a
+    solve of k iterations on the oracle and max(1, k) on the chunks."""
     traction, n_steps, kw, stalls = CASES[case]
     models = _models(mesh_tags, kw)
     counts = [_record(m) for m in models]
     stress = torch.as_tensor(_stress(models[0], traction))
     states = [m.initial_state() for m in models]
     for _ in range(n_steps):
-        before = [(m.host_syncs, c[:], m.uncounted_f32_evals)
+        before = [(m.host_syncs, c[:5], m.uncounted_f32_evals)
                   for m, c in zip(models, counts)]
         out = [m.step(st, stress) for m, st in zip(models, states)]
-        (sh, ih), (sd, idev) = out
-        assert ih.converged
-        assert idev == ih
-        assert all(torch.equal(a, b) for a, b in zip(sd, sh))
-        states = [sh, sd]
+        (so, io_), *others = out
+        assert io_.converged
+        for st, info in others:
+            assert info == io_
+            assert all(torch.equal(a, b) for a, b in zip(st, so))
+        states = [st for st, _ in out]
         for m, c, (syncs, (decided, redos, cg_syncs, n64, n32),
                    uncounted) in zip(models, counts, before):
             # one read-back a pass outside the CG, one more a stall
             passes = c[0] - decided - (c[1] - redos)
             outside = m.host_syncs - syncs - (c[2] - cg_syncs)
-            assert passes == ih.iterations + 1
+            assert passes == io_.iterations + 1
             assert outside == passes + c[1] - redos
             # the residuals evaluated are the ones counted, the
             # solve-dtype ones discarded at u = 0 apart
-            assert c[3] - n64 == ih.f64_evals
-            assert c[4] - n32 == (ih.f32_evals
+            assert c[3] - n64 == io_.f64_evals
+            assert c[4] - n32 == (io_.f32_evals
                                   + m.uncounted_f32_evals - uncounted)
-    # the same passes, redos and residuals; the CG read-backs differ (one
-    # an iteration on the host CG loop, one a chunk on the graphs)
-    assert counts[0][:2] + counts[0][3:] == counts[1][:2] + counts[1][3:]
-    assert counts[1][1] == stalls
+    # the same passes, redos, residuals and CG solves; the CG read-backs
+    # differ by one a solve that iterates (one an iteration and one more
+    # on `cg_solve`, one a chunk of 1 iteration on `ChunkedCG`)
+    oracle, host, dev = models
+    assert isinstance(host._tangent[1], ChunkedCG) and host._tangent[1].eager
+    assert not isinstance(oracle._tangent[1], ChunkedCG)
+    its = [k for k, _ in counts[0][5]]
+    assert all([k for k, _ in c[5]] == its for c in counts)
+    assert [n for _, n in counts[0][5]] == [k + 1 for k in its]
+    for c in counts[1:]:
+        assert [n for _, n in c[5]] == [max(1, k) for k in its]
+        assert counts[0][:2] + counts[0][3:5] == c[:2] + c[3:5]
+        assert counts[0][2] - c[2] == sum(k > 0 for k in its)
+    assert counts[2][1] == stalls
     # only the calibrating pass at rest, step 0's first, evaluates a
     # residual it does not count, and only under the mixed schedule
-    dev = models[1]
     mixed = dev.params.newton_residual == "mixed" and dev._mixed_tangent
     for m in models:
         assert m.uncounted_f32_evals == int(mixed and not dev._cells)
@@ -199,9 +254,10 @@ def test_device_newton_loop_counts_match_jax():
 
 
 def test_newton_loop_option(mesh_tags):
-    """There is one Newton loop: the `newton_loop` keyword is gone, how the
-    loop's bodies run follows `cg_loop`, and a `with_delta_t` clone keeps
-    the model's `cg_loop`."""
+    """There is one Newton loop and one CG loop: the `newton_loop` keyword
+    is gone, how the loop's bodies and CG chunks run follows `cg_loop`
+    (both models build a `ChunkedCG`, eager under "host"), and a
+    `with_delta_t` clone keeps the model's `cg_loop`."""
     mesh, tags = mesh_tags
     # the Jacobi-preconditioned f32 solve: no multigrid hierarchy to build
     params = AllParameters(**dict(PRODUCTION, preconditioner="Jacobi",
@@ -219,6 +275,9 @@ def test_newton_loop_option(mesh_tags):
     clone = graphs.with_delta_t(0.02)
     assert clone.cg_loop == "graphs" and not clone._graphs.eager
     assert not hasattr(graphs, "newton_loop")
+    for model, eager in ((host, True), (graphs, False)):
+        solve = model._make_cg(lambda v: v)
+        assert type(solve) is ChunkedCG and solve.eager is eager
 
 
 # the dense Direct solve on the 2D flap at scale 1 (518 DoF, f64

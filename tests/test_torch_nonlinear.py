@@ -29,6 +29,7 @@ from dealii_adapter_tpu_torch.convert import (
 from dealii_adapter_tpu_torch.models.nonlinear_elasticity import (
     NonlinearElasticity,
 )
+from test_torch_newton_device import cg_solve_oracle
 
 torch.set_num_threads(1)
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_trajectories.json")
@@ -118,8 +119,10 @@ def test_production_steps_3d_match_jax(models_3d):
 @pytest.mark.parametrize("sym,kind", [(False, "auto"), (True, "blocks")])
 def test_chunked_cg_step_equals_the_host_loop(models_3d, sym, kind):
     """A 3D production step with the CG in chunks of 3 (`cg_loop=
-    "graphs"`, run eagerly on the CPU) gives the host loop's `NewtonInfo`
-    and state bit for bit, with the tangent assembled into one persistent
+    "graphs"`, run eagerly on the CPU) gives the `NewtonInfo` and state of
+    the same model with the host-loop `cg_solve` as its CG (the oracle,
+    `test_torch_newton_device.cg_solve_oracle`) bit for bit, with the
+    tangent assembled into one persistent
     buffer: the column-major pack (K1) and the upper blocks (K2b). One
     step from rest takes 5 Newton iterations, so the buffer is refilled
     and the CG run over it four times after the first assembly."""
@@ -131,6 +134,7 @@ def test_chunked_cg_step_equals_the_host_loop(models_3d, sym, kind):
     models = [NonlinearElasticity(p, mg_lam_max=lam, device="cpu",
                                   cg_loop=loop, cg_chunk=3)
               for loop in ("host", "graphs")]
+    cg_solve_oracle(models[0])
     assert models[0].cg_loop == "host" and models[1].cg_loop == "graphs"
     stress = torch.as_tensor(_stress(
         models[0].space.n_nodes, 3,

@@ -813,18 +813,22 @@ PRODUCTION_3D = dict(
 
 
 @pytest.mark.cuda
-def test_cg_graphs_equal_the_eager_chunks_on_card(monkeypatch):
+def test_cg_graphs_equal_the_eager_chunks_on_card():
     """Run on the card: `python -m pytest --noconftest -m cuda
     tests/test_torch_package.py`. The 3D production model at scale 2 on the
     card (14,235 DoF: K1, and the bf16 V-cycle's K5, K3 on its Q1 level and
-    the coarse triangular pair): two steps with the CG in
-    CUDA graphs (chunks of 3) give the host loop's `NewtonInfo` and state
-    bit for bit; one more solve by graph replay equals the same chunks run
-    eagerly on the card and the host loop bit for bit; and the launch
-    counts after it are the launches each capture recorded times the
-    replays."""
+    the coarse triangular pair): two steps with the CG in CUDA graphs
+    (chunks of 3) and two with its chunks eager (`cg_loop="host"`) give
+    the `NewtonInfo` and state of the same model with the host-loop
+    `cg_solve` as its CG (the oracle: `chip_smoke.py:cg_solve_oracle`
+    replaces `make_cg` in the model's module while it steps) bit for bit;
+    one more solve by graph replay equals the same chunks run eagerly on
+    the card and the host loop bit for bit; and the launch counts after
+    it are the launches each capture recorded times the replays."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    sys.path.insert(0, REPO)
+    import chip_smoke
     from dealii_adapter_tpu_torch.solvers.cg import ChunkedCG, cg_solve
 
     from dealii_adapter_tpu_torch.mesh.generator import make_scenario_grid
@@ -832,22 +836,29 @@ def test_cg_graphs_equal_the_eager_chunks_on_card(monkeypatch):
     dev = torch.device("cuda")
     params = AllParameters(**PRODUCTION_3D)
     mesh, tags = make_scenario_grid("PF", 3, 2, scale=2, solver="neo-Hookean")
+    oracle = chip_smoke.cg_solve_oracle(NonlinearElasticity(
+        params, mesh=mesh, tags=tags, device=dev, cg_loop="host"))
+    lam = [lv.lam_max for lv in oracle._precond.levels]
     host = NonlinearElasticity(params, mesh=mesh, tags=tags, device=dev,
-                               cg_loop="host")
-    lam = [lv.lam_max for lv in host._precond.levels]
+                               mg_lam_max=lam, cg_loop="host")
     graphs = NonlinearElasticity(params, mesh=mesh, tags=tags, device=dev,
                                  mg_lam_max=lam, cg_chunk=3)
     assert graphs.cg_loop == "graphs"
-    stress = torch.zeros((host.space.n_nodes, 3), dtype=torch.float64,
+    stress = torch.zeros((oracle.space.n_nodes, 3), dtype=torch.float64,
                          device=dev)
-    stress[host.space.boundary_nodes[host.interface_id], 0] = 1000.0
-    states = [host.initial_state(), graphs.initial_state()]
+    stress[oracle.space.boundary_nodes[oracle.interface_id], 0] = 1000.0
+    states = [m.initial_state() for m in (oracle, host, graphs)]
     for _ in range(2):
-        (sh, ih), (sg, ig) = (m.step(st, stress)
-                              for m, st in zip((host, graphs), states))
-        assert ih.converged and ig == ih
-        assert all(torch.equal(a, b) for a, b in zip(sg, sh))
-        states = [sh, sg]
+        so, io_ = oracle.step(states[0], stress)
+        out = [m.step(st, stress) for m, st in zip((host, graphs), states[1:])]
+        assert io_.converged
+        for st, info in out:
+            assert info == io_
+            assert all(torch.equal(a, b) for a, b in zip(st, so))
+        states = [so] + [st for st, _ in out]
+    assert not isinstance(oracle._tangent[1], ChunkedCG)
+    assert isinstance(host._tangent[1], ChunkedCG) and host._tangent[1].eager
+    assert host._tangent[1]._graphs is None
     solve = graphs._tangent[1]
     assert isinstance(solve, ChunkedCG) and solve._graphs is not None
     b = graphs.mask_t * torch.randn(
@@ -868,8 +879,7 @@ def test_cg_graphs_equal_the_eager_chunks_on_card(monkeypatch):
                 if n and not k.startswith("C")}
     assert launched == {k: per_start.get(k, 0) + r.host_syncs * per_chunk[k]
                         for k in per_chunk}
-    eager = ChunkedCG(solve.operator, solve.M, solve.chunk)
-    monkeypatch.setattr(eager, "_capture", lambda: None)
+    eager = ChunkedCG(solve.operator, solve.M, solve.chunk, eager=True)
     e = eager(b, x0, tol, 1000)
     h = cg_solve(solve.operator, b, x0, tol, 1000, solve.M)
     for other in (e, h):

@@ -26,7 +26,9 @@ running every case of its world once; the cases are parametrized here.
   same ranks' step with the CG graphs' loop, and against one device;
   on 2 ranks the linear MG step with the f32 defect correction on the
   device (`ChunkedIRCG`) under the host loop, its bodies eager, against
-  one device (the same decisions and read-backs on every rank).
+  one device (the same decisions and read-backs on every rank); and on
+  2 ranks the linear step with the f64 solve on the f64 hierarchy
+  (VCYCLE_F64) under the host loop against one device.
 * The coupled run on 2 ranks, on both partitions (rank 0 holds the
   participant): tests/test_torch_coupling.py's implicit linear and
   Neo-Hookean runs, whose every window rolls back, against the JAX
@@ -360,11 +362,11 @@ def _vcycle_f64(mesh, lam_max):
                if isinstance(lv.raw, SlabOperator)]
 
 
-def _linear_ir_host(mesh, lam_max, steps=2):
-    """`steps` LIN_IR steps under `cg_loop="host"` on `mesh` (None: one
-    device): (||u||^2 and `StepInfo` of each step, the read-backs of
-    each step)."""
-    model = LinearElastodynamics(AllParameters(**LIN_IR), device="cpu",
+def _linear_host(mesh, lam_max, steps=2, kw=LIN_IR):
+    """`steps` steps of the linear configuration `kw` (LIN_IR unless
+    given) under `cg_loop="host"` on `mesh` (None: one device): (||u||^2
+    and `StepInfo` of each step, the read-backs of each step)."""
+    model = LinearElastodynamics(AllParameters(**kw), device="cpu",
                                  device_mesh=mesh, cg_loop="host",
                                  mg_lam_max=lam_max)
     assert model._graphs.eager and model._cg.eager
@@ -407,8 +409,9 @@ def _world_cases(mesh, cells, lattice, lam_max, root):
         if mesh.world == 2:
             out["production_host"] = _step(mesh, "production", lam_max,
                                            cg_loop="host")
-            out["linear_ir_host"] = _linear_ir_host(mesh,
-                                                    lam_max["linear_ir"])
+            out["linear_ir_host"] = _linear_host(mesh, lam_max["linear_ir"])
+            out["f64_mg_host"] = _linear_host(
+                mesh, lam_max["vcycle_f64"], kw=VCYCLE_F64)
     if cells and lattice:
         for name in COUPLED_CASES:
             out[name] = _coupled(mesh, name)
@@ -763,7 +766,7 @@ def test_linear_refinement_on_gloo_ranks_equals_one_device(worlds):
     CG iterations, the max norm and ||u||^2 within 1e-12). The final
     residual, a few 1e-14 here, is met on both, but its digits are the
     summation order's (its two values differ by ~5%)."""
-    ref, _ = _linear_ir_host(None, _linear_ir_lam_max())
+    ref, _ = _linear_host(None, _linear_ir_lam_max())
     ranks = [r["linear_ir_host"] for r in worlds[2]]
     assert ranks[0][1] == ranks[1][1]
     for steps, syncs in ranks:
@@ -772,6 +775,28 @@ def test_linear_refinement_on_gloo_ranks_equals_one_device(worlds):
             assert info[0] == info_ref[0] and n <= info[0] + 2
             assert info[1] <= 1e-10 and info_ref[1] <= 1e-10
             assert info[2] == pytest.approx(info_ref[2], rel=1e-12)
+            assert u2 == pytest.approx(u2_ref, rel=1e-12) and u2 > 0
+
+
+def test_f64_hierarchy_step_on_gloo_ranks_equals_one_device(worlds):
+    """The linear step with the f64 solve and the f64 multigrid hierarchy
+    (VCYCLE_F64: two Q1 levels on each rank's slab, K3 in f64 on the
+    card) under `cg_loop="host"` (the f64 `ChunkedCG` run eagerly, as
+    gloo ranks on the card run it) on 2 gloo ranks, two steps, against
+    one device on the same lam_max: every rank takes the same steps, the
+    same CG iterations a step as one device (the all-reduced inner
+    products sum in another order, which these solves do not feel), every
+    residual within the reference's 1e-10, ||u||^2 within 1e-12
+    relative, and one read-back a CG chunk of 1 iteration (CG + 1 a
+    step: the f64 solve runs no refinement loop)."""
+    ref, _ = _linear_host(None, _vcycle_f64_lam_max(), kw=VCYCLE_F64)
+    ranks = [r["f64_mg_host"] for r in worlds[2]]
+    assert ranks[0][1] == ranks[1][1]
+    for steps, syncs in ranks:
+        assert steps == ranks[0][0]
+        for (u2, info), (u2_ref, info_ref), n in zip(steps, ref, syncs):
+            assert info[0] == info_ref[0] > 0 and n == info[0] + 1
+            assert info[1] <= 1e-10 and info_ref[1] <= 1e-10
             assert u2 == pytest.approx(u2_ref, rel=1e-12) and u2 > 0
 
 

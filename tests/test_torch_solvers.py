@@ -139,15 +139,20 @@ def _bits(t):
     return t.view(torch.int32)
 
 
+@pytest.mark.parametrize("form", ["graphs", "eager", "tensor_tol"])
 @pytest.mark.parametrize("chunk", [1, 3, 8])
 @pytest.mark.parametrize("case", ["converges", "cap", "b_zero", "exact_start"])
 @pytest.mark.parametrize("precond", ["none", "jacobi", "vcycle_bf16"])
-def test_chunked_cg_equals_the_host_loop(precond, case, chunk):
+def test_chunked_cg_equals_the_host_loop(precond, case, chunk, form):
     """`ChunkedCG` run eagerly on the CPU against the host-loop `cg_solve`:
     the iterate, iteration count, residual and convergence flag bit for
     bit, for solves that end inside a chunk, at the `max_iter` cap, with
     b = 0 and from the exact solution (r = p = 0, where the masked
-    iterations compute 0/0: the state must stay finite)."""
+    iterations compute 0/0: the state must stay finite). `form`: the
+    solver the models build under `cg_loop="graphs"` (captured on a card,
+    eager here), the one they build under `"host"` (`make_cg`,
+    `eager=True`), and the latter given its tolerance as a 0-dim tensor,
+    as the Newton loop does (both loops then read it as a tensor)."""
     op, M, b = _chunk_problem(precond)
     x0 = torch.zeros_like(b)
     tol, max_iter = 1e-4 * float(torch.linalg.vector_norm(b)), 500
@@ -160,8 +165,15 @@ def test_chunked_cg_equals_the_host_loop(precond, case, chunk):
         x0 = torch.from_numpy(np.random.default_rng(6).standard_normal(
             tuple(b.shape)).astype(np.float32))
         b = op(x0)
+    if form == "tensor_tol":
+        tol = torch.tensor(tol, dtype=torch.float64)
     host = tcg.cg_solve(op, b, x0, tol, max_iter, M)
-    solve = tcg.ChunkedCG(op, M, chunk)
+    if form == "graphs":
+        solve = tcg.make_cg("graphs", op, M, chunk)
+        assert not solve.eager
+    else:
+        solve = tcg.make_cg("host", op, M, chunk)
+        assert isinstance(solve, tcg.ChunkedCG) and solve.eager
     for _ in range(2):  # a second solve reuses the buffers
         r = solve(b, x0, tol, max_iter)
         assert torch.equal(_bits(r.x), _bits(host.x))
@@ -177,6 +189,25 @@ def test_chunked_cg_equals_the_host_loop(precond, case, chunk):
         assert host.iterations == 0 and host.converged
     with pytest.raises(ValueError, match="buffers"):
         solve(b[:-1], x0[:-1], tol, max_iter)
+
+
+def test_make_cg_builds_one_chunked_loop():
+    """Both `cg_loop` values build a `ChunkedCG` (eager under "host", where
+    gloo ranks cannot capture their collectives): one CG loop in the
+    models, `cg_solve` left as the oracle. At chunks of 1 a solve of k
+    iterations reads back k times, one fewer than `cg_solve`'s k + 1."""
+    op, M, b = _chunk_problem("jacobi")
+    tol = 1e-4 * float(torch.linalg.vector_norm(b))
+    for loop, eager in (("graphs", False), ("host", True)):
+        solve = tcg.make_cg(loop, op, M, 1)
+        assert type(solve) is tcg.ChunkedCG and solve.eager is eager
+        assert (solve.operator, solve.chunk) == (op, 1)
+        r = solve(b, torch.zeros_like(b), tol, 500)
+        host = tcg.cg_solve(op, b, torch.zeros_like(b), tol, 500, M)
+        assert r.iterations == host.iterations > 1
+        assert r.host_syncs == host.host_syncs - 1 == host.iterations
+    with pytest.raises(ValueError, match="cg_loop"):
+        tcg.make_cg("device", op, M)
 
 
 def test_lambda_max_from_jax_start_vector():

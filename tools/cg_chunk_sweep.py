@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """A model's step with its CG in CUDA graphs at several chunk lengths and
-with the host loop, in one process: per step the wall time, the counts
-(CG and Newton; the linear model's CG), host syncs and kernel launches,
-and each run's peak device memory.
+run eagerly (`cg_loop="host"`), in one process: per step the wall time,
+the counts (CG and Newton; the linear model's CG), host syncs and kernel
+launches, and each run's peak device memory.
 
     python3 tools/cg_chunk_sweep.py [--model nonlinear|linear]
                                     [--chunks 1,2,4,8,16] [--scale S]
@@ -16,7 +16,8 @@ runs the linear theta-step on each of `--cells` (`chip_smoke.LINEAR_CELLS`:
 bench_torch.py's two linear cells and linear2d, each at its own scale
 unless `--scale`), where "graphs" replays the one step's bodies from
 CUDA graphs (its defect-correction loop, `solvers/cg.py:ChunkedIRCG`,
-around the chunks) and "host" runs the same step eagerly (chunks of 1).
+around the chunks). On both models "host" runs the same step and CG
+chunks eagerly (chunks of 1).
 Each configuration runs 1 warmup and 3 timed steps from rest on one mesh
 with the first model's lam_max values; the configurations run in order
 and then in reverse (`--rounds 2`), the host loop first and last, so that

@@ -38,7 +38,8 @@ residual after each iteration (the norms of the residuals the V-cycle is
 applied to), so that a run on the card and one on the CPU can be read
 side by side up to the first line that differs. Nothing here is on the
 package's path: the swaps are made by replacing the two factories the
-model calls, and the trace by wrapping the model's CG call.
+model calls, and the count and the trace by wrapping the CG solve the
+model builds (`make_cg`, in the model's module).
 
 `--perturb N` runs each step N times more with the traction scaled by
 1 + k * 1e-6 (k = 1 .. N), which samples how far the counts move under a
@@ -134,27 +135,39 @@ def main():
         "plain bf16": (plain_bf16, plain_bf16),
     }
     solves = []
-    cg_solve = cg.cg_solve
+    make_cg = nl.make_cg
 
-    def counted(op, b, x0, tol, max_iter, preconditioner=None, dot=cg._dot):
+    def counted_cg(loop, op, preconditioner=None, *rest):
+        """The model's CG (`make_cg`: the eager `ChunkedCG` under
+        cg_loop="host"), each solve's iterations counted and, with
+        --trace, the residual norm of every preconditioner application
+        (the start's and one an iteration) recorded."""
         history = []
 
         def traced(r):
             history.append(float(torch.linalg.vector_norm(r.double())))
             return preconditioner(r)
 
-        r = cg_solve(op, b, x0, tol=tol, max_iter=max_iter,
-                     preconditioner=traced if args.trace else preconditioner,
-                     dot=dot)
-        solves.append(r.iterations)
-        if args.trace:
-            print(f"  correction {len(solves)}: ||rhs|| "
-                  f"{float(torch.linalg.vector_norm(b.double()))!r} tol "
-                  f"{tol!r}: {r.iterations} CG, residual {r.residual_norm!r}; "
-                  f"CG residuals {history}", flush=True)
-        return r
+        solve = make_cg(loop, op, traced if args.trace else preconditioner,
+                        *rest)
 
-    cg.cg_solve = counted  # the models run the host loop (cg_loop="host")
+        def counted(b, x0, tol, max_iter):
+            history.clear()
+            r = solve(b, x0, tol, max_iter)
+            solves.append(r.iterations)
+            if args.trace:
+                print(f"  correction {len(solves)}: ||rhs|| "
+                      f"{float(torch.linalg.vector_norm(b.double()))!r} tol "
+                      f"{float(tol)!r}: {r.iterations} CG, residual "
+                      f"{r.residual_norm!r}; CG residuals {history}",
+                      flush=True)
+            return r
+
+        return counted
+
+    # the models run their CG chunks eagerly (cg_loop="host"), so the
+    # traced preconditioner's read-backs are allowed
+    nl.make_cg = counted_cg
     mesh_tags = make_scenario_grid("PF", 3, 2, scale=args.scale,
                                    solver="neo-Hookean")
     lam = {}
