@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU, and its
+multi-rank paths on 2 and up to 4 cards where the machine has them.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--cards N]
+
+`--cards N` runs the device, build and kernels phases, the one-card
+references of the separate-card phases (main, stencil3d, coupled3d,
+f64mg, cli and shard3d_nccl1) and the separate-card phases (17) at worlds
+2 and N; it fails where fewer than N cards are visible. Without it every
+phase runs, the separate-card phases at worlds 2 and min(4, cards) where
+2 or more cards are visible; on one card they print a line saying so and
+do not run.
 
 Phases (each prints on its own lines; a failing phase raises and the
 script exits non-zero without printing a result):
@@ -184,9 +193,10 @@ script exits non-zero without printing a result):
    of the JAX package's on the CPU (`NL_DEFAULT_REF`); it launches C1/C2
    and no other kernel.
 13. the gather backend and several ranks, each on phase 4's configuration
-   and lam_max values (this card is one H100, so the multi-rank phases put
-   their ranks on it; a time of two ranks sharing it is not a scaling
-   result):
+   and lam_max values (the shared-card phases put their gloo ranks on
+   card 0, and cli_ranks' torchrun sees card 0 alone, so that they run
+   the path their name says on any machine; a time of two ranks sharing
+   a card is not a scaling result):
    - gather3d — `element_backend="gather"` (the jvp tangent of the
      gather-plan internal force, bf16 V-cycle with K5 and K3), 1 warmup
      and 3 timed steps: Newton counts equal to jvp3d's in every step,
@@ -200,7 +210,7 @@ script exits non-zero without printing a result):
      cut from 4 steps, ~6.5 s each, to keep the script within its time):
      every step converged,
      Newton counts equal to phase 4's, CG within +-2 (`SHARD_CG_SLACK`) a
-     step, ||u||^2 after the last step within rtol 1e-7 (`SHARD_RTOL`,
+     step, ||u||^2 after every step within rtol 1e-7 (`SHARD_RTOL`,
      tests/test_sharding.py's field tolerance) of phase 4's after the same
      step; each rank's launches, its halo fills, interface sums and
      all-reduces a step, and its per-step times;
@@ -215,8 +225,9 @@ script exits non-zero without printing a result):
      with the resolution, so the full size would take minutes; Newton
      counts equal to the one-rank reference's, CG within +-2 a solve,
      ||u||^2 within `SHARD_RTOL`;
-   - dryrun — `parallel/dryrun.py:dryrun_multichip(SHARD_RANKS, "cuda")`:
-     converged, det F > 0, K1, K3 and K5 launched on every rank.
+   - dryrun — `parallel/dryrun.py:dryrun_multichip(SHARD_RANKS, "cuda",
+     backend="gloo")`: converged, det F > 0, K1, K3 and K5 launched on
+     every rank.
 14. the coupled run and the CLI on several ranks, and the Neo-Hookean
    golden trajectories:
    - coupled_shard — phase 10's coupled run (phase 9's configuration, K6
@@ -298,6 +309,39 @@ script exits non-zero without printing a result):
      within `F64MG_SHARD_RTOL` of its after every step; each rank's
      launches (K3 f64 and C1/C2, no other), collectives a step, step
      times and read-backs.
+17. the separate-card phases (at least 2 cards visible; worlds 2 and
+   min(4, cards), or 2 and `--cards N`): ranks spawned one a card over
+   NCCL, each on its own card (made current by `make_device_mesh`), the
+   lattice partition's halo exchanges as NCCL send/recv between
+   neighbours, every CG chunk and Newton or linear body replayed from
+   CUDA graphs (the collectives captured). One spawn a world runs, in
+   order on every rank (`_cards_rank`):
+   - shard3d_cards — main3d's configuration (1,018,875 DoF) on the
+     lattice partition, the slab checks first, 1 warmup and 3 timed steps
+     (`CARD_STEPS`): Newton equal to main3d's a step, CG within
+     `SHARD_CG_SLACK`, ||u||^2 after every step within `SHARD_RTOL`; the
+     per-card step time (median of the timed steps, each rank) beside
+     main3d's from this run, read-backs and collectives a step, peak
+     memory per card; then the same world with `cg_loop="host"` (path
+     `shard3d_cards <w> host`, `CARD_HOST_STEPS`): NewtonInfo equal to
+     the graphs run's and ||u||^2 within `LOOPS_RTOL` (bitwise logged);
+   - exchange_cards — on shard3d_cards' model, one halo fill and one
+     interface sum at the fine lattice and at the FEM-SEM level (the
+     first Q1 level, same nodes), p2p against the slot all-reduce on the
+     same input: bit for bit; each one's bytes and CUDA-event time
+     (median of 15, the slowest rank), eager and replayed from a CUDA
+     graph (the replay bit for bit the eager call);
+   - f64mg_cards — f64mg_shard's cell on the CUDA graphs: CG equal to one
+     device's a step, ||u||^2 within `F64MG_CARDS_RTOL`;
+   - shard_cells_cards — the cell partition against shard_cells' one-rank
+     reference, shard_cells' rules;
+   - coupled_cards — coupled_shard's window, its rules (rank 0 holds the
+     participant);
+   then, at the largest world, cli_cards (`torchrun --nproc-per-node W -m
+   dealii_adapter_tpu_torch ... --devices W`: the banner says NCCL and
+   the CUDA graphs, ||u||^2 within `CLI_RANKS_RTOL` of the cli phase's)
+   and dryrun_cards (`dryrun_multichip(W, "cuda")`, NCCL, the CG graphs).
+   Each path's launches are each rank's, counted from `start_counts`.
 
 Every path but `main3d host`, `main3d oracle`, shard3d, shard_cells,
 dryrun, coupled_shard, cli_ranks, f64mg_shard, f64mg2d eager and the
@@ -336,6 +380,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import tempfile
@@ -569,6 +614,19 @@ PATH_EXCLUDES = {"bench_q4": ("K5 q2_structured",),
                      "K6 q1_stencil f64")}
 for _path in ("f64mg_shard", "f64mg_nccl1"):
     PATH_EXCLUDES[_path] = PATH_EXCLUDES["f64mg_stencil auto"]
+# the separate-card paths (phase 17) of each world: each launches and
+# leaves out the kernels of its shared-card counterpart
+for _w in (2, 3, 4):
+    for _path, _twin in ((f"shard3d_cards {_w}", "shard3d"),
+                         (f"shard3d_cards {_w} host", "shard3d"),
+                         (f"f64mg_cards {_w}", "f64mg_shard"),
+                         (f"shard_cells_cards {_w}", "shard_cells"),
+                         (f"coupled_cards {_w}", "coupled_shard"),
+                         (f"cli_cards {_w}", "cli_ranks"),
+                         (f"dryrun_cards {_w}", "dryrun")):
+        PATH_KERNELS[_path] = PATH_KERNELS[_twin]
+        if _twin in PATH_EXCLUDES:
+            PATH_EXCLUDES[_path] = PATH_EXCLUDES[_twin]
 for _cell in LINEAR_CELLS:
     if f"linear_loops {_cell}" in PATH_EXCLUDES:
         PATH_EXCLUDES[f"linear_loops {_cell} eager"] = PATH_EXCLUDES[
@@ -609,10 +667,21 @@ SHARD3D_STEPS = 2  # shard3d's steps (phase 13's docstring)
 F64MG_SHARD_CELL = "bench_linear_q2"
 F64MG_SHARD_RTOL = 1e-9
 F64MG_LAM_RTOL = 1e-9
+# the separate-card phases (17): shard3d_cards' steps on the CUDA graphs
+# (1 warmup + 3 timed, main3d's), those of its host-loop twin (1 warmup
+# + 1 timed), held bit for bit against the first two; f64mg_cards'
+# ||u||^2 against one device's (f64mg_shard's gloo ranks measured 1.9e-15
+# in their first run); the exchange timing's calls; the spawn's limit
+CARD_STEPS = 4
+CARD_HOST_STEPS = 2
+F64MG_CARDS_RTOL = 1e-14
+EXCHANGE_FORMS = ("p2p", "all_reduce")
+CARDS_TIMEOUT_S = 360
 # cli_ranks (phase 14): the cli phase's case on this many ranks under
 # torchrun; its final ||u||^2 against the cli phase's
 CLI_RANKS = 2
 CLI_RANKS_RTOL = 1e-9
+CLI_RANKS_TIMEOUT_S = 240  # cli_ranks took 36 s, cli_cards' run 20-30 s
 # golden_nl (phase 14): tests/test_golden_trajectory.py's Neo-Hookean
 # configuration, and each trajectory's changes to it and traction
 GOLDEN_NONLINEAR = dict(
@@ -1850,6 +1919,7 @@ def phase_main(profile):
                 "iterations + 1 a step outside the CG")
     infos, checksum = graphs["infos"][:4], graphs["checksum"]
     checksums = graphs["steps"]["checksums"]
+    main_times = graphs["steps"]["times"][1:]  # round 1's timed steps
     mesh_tags = (model.mesh, model.tags)
     lam_max = [lv.lam_max for lv in model._precond.levels]
     del model, runs, graphs, eager
@@ -1861,7 +1931,7 @@ def phase_main(profile):
     return launches, dict(
         mesh_tags=mesh_tags, checksum=checksum, checksums=checksums,
         lam_max=lam_max, cg=[i.cg_iterations for i in infos],
-        newton=[i.iterations for i in infos],
+        newton=[i.iterations for i in infos], times=main_times,
     )
 
 
@@ -2299,13 +2369,15 @@ def phase_coupled3d(model, stencil_checksum):
     return launches, first
 
 
-def _coupled_shard_rank(mesh, lam_max):
+def _coupled_shard_rank(mesh, lam_max, cg_loop="host"):
     """One rank of coupled_shard (a spawned process): phase 10's model on
-    the lattice partition with the eager CG, its first window."""
+    the lattice partition with the eager CG (coupled_cards: `cg_loop=
+    "graphs"`, the CG and the Newton bodies in CUDA graphs), its first
+    window."""
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
 
     t0 = time.perf_counter()
-    model = build_model(mesh.device, mg_lam_max=lam_max, cg_loop="host",
+    model = build_model(mesh.device, mg_lam_max=lam_max, cg_loop=cg_loop,
                         device_mesh=mesh, mg_level_backend="stencil_vmem",
                         end_time=COUPLED_END)
     build_s = time.perf_counter() - t0
@@ -2364,19 +2436,27 @@ def check_first_window(tag, run, ref, rtol):
 
 def phase_coupled_shard(parallel):
     """coupled_shard (phase 14): phase 10's first window on `SHARD_RANKS`
-    gloo ranks sharing the card; returns the launches of all ranks."""
+    gloo ranks sharing card 0; returns the launches of all ranks."""
     from dealii_adapter_tpu_torch.parallel import spawn
 
     ref = parallel["coupled"]
     t0 = time.perf_counter()
-    out = spawn(_coupled_shard_rank, SHARD_RANKS, "cuda", ref["lam_max"],
+    out = spawn(_coupled_shard_rank, SHARD_RANKS, "cuda:0", ref["lam_max"],
                 backend="gloo")
-    log(f"coupled_shard: {SHARD_RANKS} ranks on the card over gloo, eager "
+    log(f"coupled_shard: {SHARD_RANKS} ranks on card 0 over gloo, eager "
         f"CG, ran in {time.perf_counter() - t0:.1f} s (spawn, build and "
         "window)")
+    return check_coupled_shard("coupled_shard", out, ref)
+
+
+def check_coupled_shard(path, out, ref):
+    """Log and check the ranks' results `out` of `_coupled_shard_rank`
+    against phase 10's first window `ref` (`check_first_window`, within
+    `SHARD_RTOL`): rank 0 alone holds the participant, every rank read the
+    same field; returns the launches of all ranks."""
     total = {}
     for r in out:
-        tag = f"coupled_shard rank {r['rank']}"
+        tag = f"{path} rank {r['rank']}"
         log(f"{tag}: model built in {r['build_s']:.1f} s; window seconds "
             f"{[w['seconds'] for w in r['windows']]}; step times "
             f"{[x['seconds'] for x in r['steps']]} s, Newton "
@@ -2384,17 +2464,17 @@ def phase_coupled_shard(parallel):
             f"{[x['outside'] for x in r['steps']]} a step; collectives in "
             f"the run {r['calls']}; launches {r['launches']}; participant "
             f"{'held' if r['writes'] else 'none'}")
-        read_counts("coupled_shard", r["launches"])
+        read_counts(path, r["launches"])
         require_newton_syncs(tag, [x["outside"] for x in r["steps"]],
                              [x["newton"] for x in r["steps"]])
         check_first_window(tag, r, ref, SHARD_RTOL)
         for k, n in r["launches"].items():
             total[k] = total.get(k, 0) + n
     require(bool(out[0]["writes"]) and not any(r["writes"] for r in out[1:]),
-            "coupled_shard: rank 0 alone holds the participant")
+            f"{path}: rank 0 alone holds the participant")
     require(all([w["checksum"] for w in r["windows"]]
                 == [w["checksum"] for w in out[0]["windows"]] for r in out),
-            "coupled_shard: every rank read the same field")
+            f"{path}: every rank read the same field")
     return total
 
 
@@ -2701,59 +2781,81 @@ def step_read_backs(text):
         r"cg_its=(\d+) .*read_backs=(\d+)", text)]
 
 
-def phase_cli_ranks(cli_u2):
+def first_visible_card():
+    """The `CUDA_VISIBLE_DEVICES` entry of this process's card 0."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").strip()
+    return visible.split(",")[0] if visible else "0"
+
+
+def phase_cli_ranks(cli_u2, n_ranks=CLI_RANKS, cards=False):
     """cli_ranks (phase 14): `CLI_PRM` under `torchrun --standalone
     --nproc-per-node CLI_RANKS -m dealii_adapter_tpu_torch ... --devices
-    CLI_RANKS` in a subprocess; returns rank 0's launch counts."""
+    CLI_RANKS` in a subprocess that sees card 0 alone, so that its ranks
+    share it over gloo (the eager CG); cli_cards (`cards=True`): `n_ranks`
+    ranks that see every card, one a rank over NCCL (the CG in CUDA
+    graphs). Returns rank 0's launch counts."""
     import ast
     import pathlib
     import sys
 
     import torch
 
+    path = f"cli_cards {n_ranks}" if cards else "cli_ranks"
     root = pathlib.Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
         prm = os.path.join(tmp, "case.prm")
         pathlib.Path(prm).write_text(CLI_PRM.format(out=out))
         env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+        if not cards:
+            env["CUDA_VISIBLE_DEVICES"] = first_visible_card()
         ts = time.perf_counter()
-        r = subprocess.run(
+        # a session of its own, so that a run past its limit is stopped
+        # with every rank torchrun started
+        proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", str(CLI_RANKS), "-m",
+             "--nproc-per-node", str(n_ranks), "-m",
              "dealii_adapter_tpu_torch", prm, "--standalone", "--traction",
              "1000", "0", "--refine", str(CLI_REFINE), "--devices",
-             str(CLI_RANKS)],
-            cwd=root, env=env, capture_output=True, text=True, timeout=600,
-        )
+             str(n_ranks)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=CLI_RANKS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
         wall = time.perf_counter() - ts
-        for line in r.stdout.splitlines():
-            log(f"cli_ranks| {line}")
-        require(r.returncode == 0,
-                f"cli_ranks: exit code {r.returncode}: {r.stderr[-3000:]}")
+        for line in stdout.splitlines():
+            log(f"{path}| {line}")
+        require(proc.returncode == 0,
+                f"{path}: exit code {proc.returncode} after {wall:.1f} s "
+                f"(limit {CLI_RANKS_TIMEOUT_S} s): {stderr[-3000:]}")
         files = sorted(os.listdir(out))
-        log(f"cli_ranks: exit code 0 in {wall:.1f} s (torchrun and both "
+        log(f"{path}: exit code 0 in {wall:.1f} s (torchrun and the "
             f"ranks' start included), VTU files "
             f"{[(f, os.path.getsize(os.path.join(out, f))) for f in files]}")
-    text = r.stdout
+    text = stdout
     require(text.count("running dealii_adapter_tpu_torch") == 1,
-            "cli_ranks: one banner (rank 0's)")
-    require(torch.cuda.get_device_name(0) in text, "cli_ranks: banner names the card")
-    require(f"{CLI_RANKS} ranks over gloo; CG loop: host" in text,
-            "cli_ranks: banner names the ranks and the eager CG loop")
+            f"{path}: one banner (rank 0's)")
+    require(torch.cuda.get_device_name(0) in text, f"{path}: banner names the card")
+    banner = (f"{n_ranks} ranks over nccl; CG loop: graphs" if cards
+              else f"{n_ranks} ranks over gloo; CG loop: host")
+    require(banner in text,
+            f"{path}: banner names the ranks, the backend and the CG loop")
     require(files == ["solution-2d-1.vtu", "solution-2d-2.vtu"]
-            and "2 VTU files" in text, f"cli_ranks: files {files}")
+            and "2 VTU files" in text, f"{path}: files {files}")
     steps = step_read_backs(text)
-    log(f"cli_ranks: (CG iterations, read-backs) a step {steps}")
+    log(f"{path}: (CG iterations, read-backs) a step {steps}")
     require(steps and all(n <= cg + 2 for cg, n in steps),
-            "cli_ranks: at most CG iterations + 2 read-backs a step")
+            f"{path}: at most CG iterations + 2 read-backs a step")
     u2 = final_u2(text)
     rel = abs(u2 - cli_u2) / cli_u2
-    log(f"cli_ranks: final ||u||^2 {u2!r} against the cli phase's {cli_u2!r}: "
+    log(f"{path}: final ||u||^2 {u2!r} against the cli phase's {cli_u2!r}: "
         f"rel. difference {rel:.3e} (limit {CLI_RANKS_RTOL})")
-    require(rel <= CLI_RANKS_RTOL, "cli_ranks: final ||u||^2 against cli's")
+    require(rel <= CLI_RANKS_RTOL, f"{path}: final ||u||^2 against cli's")
     line = next(x for x in text.splitlines() if x.startswith("kernel launches: "))
-    return read_counts("cli_ranks", ast.literal_eval(line[len("kernel launches: "):]))
+    return read_counts(path, ast.literal_eval(line[len("kernel launches: "):]))
 
 
 def phase_golden_nl():
@@ -3276,12 +3378,15 @@ def slab_f64_checks(ops, g):
     return rows
 
 
-def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
-    """One rank of shard3d (a spawned process): the slab checks, then
-    `n_steps` steps of phase 4's configuration (at `scale`, by default
-    phase 4's) on the lattice partition with the eager CG; returns
-    what the parent checks and logs (also `tools/port_shard_steps.py`'s,
-    which runs it on the CPU too)."""
+def _shard3d_rank(mesh, lam_max, n_steps, scale=None, cg_loop="host",
+                  after=None, checks=True):
+    """One rank of shard3d (a spawned process): the slab checks (unless
+    `checks` is False), then `n_steps` steps of phase 4's configuration (at
+    `scale`, by default phase 4's) on the lattice partition with the CG
+    loop `cg_loop` (the eager CG by default; shard3d_cards replays it
+    from CUDA graphs), then `after(model)`, whose result goes under
+    "after"; returns what the parent checks and logs (also
+    `tools/port_shard_steps.py`'s, which runs it on the CPU too)."""
     import torch
 
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
@@ -3295,31 +3400,37 @@ def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    model = build_model(dev, scale=scale, mg_lam_max=lam_max, cg_loop="host",
+    model = build_model(dev, scale=scale, mg_lam_max=lam_max, cg_loop=cg_loop,
                         device_mesh=mesh)
     lat = model._lat
     out = dict(rank=mesh.rank, build_s=time.perf_counter() - t0,
                axis=lat.axis, slab=lat.slab_shape, owned=(lat.lo, lat.hi),
                levels=[(lv.grid_shape, lv.layout.slab_shape if lv.layout else None)
                        for lv in model._precond.levels],
-               checks=slab_kernel_checks(model, 11 + mesh.rank))
+               checks=slab_kernel_checks(model, 11 + mesh.rank) if checks else [],
+               cg_loop=model.cg_loop, eager=bool(model._graphs.eager),
+               device=str(dev), backend=mesh.backend,
+               current=torch.cuda.current_device() if cuda else None)
     stress = model.local_rows(interface_traction(model))
     if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
         start_counts()
     else:  # the CPU rehearsal: no library to bind
         counters.reset()
     state = model.initial_state()
     for k in ("newton", "cg", "converged", "min_det_F", "times", "checksums",
-              "calls", "outside"):
+              "calls", "outside", "syncs", "infos"):
         out[k] = []
     for _ in range(n_steps):
         sync()
         calls0 = dict(mesh.calls)
+        syncs0 = model.host_syncs
         outside0 = model.host_syncs - model.cg_host_syncs
         ts = time.perf_counter()
         state, info = model.step(state, stress)
         sync()
         out["times"].append(time.perf_counter() - ts)
+        out["syncs"].append(model.host_syncs - syncs0)
         out["outside"].append(model.host_syncs - model.cg_host_syncs - outside0)
         out["calls"].append({k: mesh.calls[k] - calls0[k] for k in calls0})
         u = state.displacement.reshape(-1)
@@ -3328,61 +3439,77 @@ def _shard3d_rank(mesh, lam_max, n_steps, scale=None):
         out["cg"].append(info.cg_iterations)
         out["converged"].append(info.converged)
         out["min_det_F"].append(info.min_det_F)
+        out["infos"].append(tuple(info))
     out["launches"] = counters.launch_counts()
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    out["after"] = after(model) if after is not None else None
     return out
 
 
 def phase_shard3d(main, records):
     """shard3d (phase 13): the lattice partition at full size on
-    `SHARD_RANKS` gloo ranks sharing the card; the slab checks go into the
+    `SHARD_RANKS` gloo ranks sharing card 0; the slab checks go into the
     kernel records (`slab_checks`); returns the launches of all ranks."""
     from dealii_adapter_tpu_torch.parallel import spawn
 
     t0 = time.perf_counter()
-    out = spawn(_shard3d_rank, SHARD_RANKS, "cuda", main["lam_max"],
+    out = spawn(_shard3d_rank, SHARD_RANKS, "cuda:0", main["lam_max"],
                 SHARD3D_STEPS, backend="gloo")
-    ref = main["checksums"][SHARD3D_STEPS - 1]  # main3d's after that step
-    log(f"shard3d: {SHARD_RANKS} ranks on the card over gloo, eager CG, "
+    log(f"shard3d: {SHARD_RANKS} ranks on card 0 over gloo, eager CG, "
         f"ran in {time.perf_counter() - t0:.1f} s (spawn, build and steps)")
+    return check_shard3d("shard3d", "shard3d", out, main, records,
+                         "ranks sharing one card, not a scaling result")
+
+
+def check_shard3d(tag0, path, out, main, records, note):
+    """Log and check the ranks' results `out` of `_shard3d_rank` against
+    main3d's (`main`) after as many steps: every step converged, Newton
+    counts equal, CG within `SHARD_CG_SLACK` a step, ||u||^2 after every
+    step within `SHARD_RTOL`, every rank the same reduced values, at most
+    Newton + `NEWTON_SYNC_SLACK` read-backs outside the CG a step; the
+    slab checks go into the kernel records; returns the launches of all
+    ranks (`path`'s kernels, each rank's)."""
+    n = len(out[0]["checksums"])
     by_name = {rec["name"]: rec for rec in records}
     total = {}
     for r in out:
-        tag = f"shard3d rank {r['rank']}"
-        log(f"{tag}: model built in {r['build_s']:.1f} s; split axis "
+        tag = f"{tag0} rank {r['rank']}"
+        log(f"{tag}: on {r['device']} over {r['backend']}, CG loop "
+            f"{r['cg_loop']}; model built in {r['build_s']:.1f} s; split axis "
             f"{r['axis']}, owned planes {r['owned']}, slab {r['slab']}; levels "
             f"(lattice, slab or None = replicated) {r['levels']}")
         for c in r["checks"]:
             log(f"{tag}: {c['name']} at the slab {c['shape']} {c['dtype']}: "
                 f"max abs err {c['max_abs_err']:.3e}, rel. L2 "
-                f"{c['rel_l2_err']:.3e} (limit {c['limit']}); {c['ms']:.4f} ms "
-                "a call (CUDA events, median of 15; ranks share the card)")
+                f"{c['rel_l2_err']:.3e} (limit {c['limit']}); "
+                + (f"{c['ms']:.4f} ms a call (CUDA events, median of 15; "
+                   f"{note})" if c["ms"] is not None else "not timed"))
             by_name[c["name"]].setdefault("slab_checks", []).append(
-                dict(c, rank=r["rank"], ranks=SHARD_RANKS))
-        log(f"{tag}: step times {r['times']} s (ranks sharing one card, not "
-            f"a scaling result); Newton {r['newton']}, CG {r['cg']} (main3d: "
-            f"{main['newton']}, {main['cg']}); read-backs outside the CG "
-            f"{r['outside']} a step; min_det_F {r['min_det_F']}; "
-            f"collectives a step {r['calls']}; checksums {r['checksums']}; "
-            f"peak device memory {r['peak_gib']:.2f} GiB")
-        read_counts("shard3d", r["launches"])
+                dict(c, rank=r["rank"], ranks=len(out), path=path))
+        rels = [abs(a - b) / b for a, b in zip(r["checksums"],
+                                               main["checksums"])]
+        log(f"{tag}: step times {r['times']} s ({note}); Newton "
+            f"{r['newton']}, CG {r['cg']} (main3d: {main['newton']}, "
+            f"{main['cg']}); read-backs {r['syncs']} a step, outside the CG "
+            f"{r['outside']}; min_det_F {r['min_det_F']}; collectives a step "
+            f"{r['calls']}; checksums {r['checksums']} against main3d's "
+            f"{main['checksums'][:n]}: rel. differences "
+            f"{[f'{x:.3e}' for x in rels]} (limit {SHARD_RTOL}); peak device "
+            f"memory {r['peak_gib']:.2f} GiB")
+        read_counts(path, r["launches"])
         log(f"{tag}: launches {r['launches']}")
-        rel = abs(r["checksums"][-1] - ref) / ref
-        log(f"{tag}: checksum {r['checksums'][-1]!r} against main3d's "
-            f"{ref!r} after step {SHARD3D_STEPS - 1}: rel. difference "
-            f"{rel:.3e} (limit {SHARD_RTOL})")
         require(all(r["converged"]), f"{tag}: every step converged")
-        require(r["newton"] == main["newton"][:SHARD3D_STEPS],
+        require(r["newton"] == main["newton"][:n],
                 f"{tag}: Newton counts equal main3d's")
         require_newton_syncs(tag, r["outside"], r["newton"])
         require(all(abs(a - b) <= SHARD_CG_SLACK for a, b in zip(r["cg"], main["cg"])),
                 f"{tag}: CG within {SHARD_CG_SLACK} a step of main3d's")
-        require(rel <= SHARD_RTOL, f"{tag}: checksum against main3d's")
-        for k, n in r["launches"].items():
-            total[k] = total.get(k, 0) + n
+        require(max(rels) <= SHARD_RTOL, f"{tag}: checksums against main3d's")
+        for k, m in r["launches"].items():
+            total[k] = total.get(k, 0) + m
     require(all(r["checksums"] == out[0]["checksums"]
                 and r["newton"] == out[0]["newton"] for r in out),
-            "shard3d: every rank read the same reduced values")
+            f"{tag0}: every rank read the same reduced values")
     return total
 
 
@@ -3448,12 +3575,12 @@ def phase_shard3d_nccl1(main, f64_ref):
     return launches, ref, coupled, f64
 
 
-def _f64mg_shard_rank(mesh, n_steps, scale=None):
+def _f64mg_shard_rank(mesh, n_steps, scale=None, cg_loop="host"):
     """One rank of f64mg_shard (a spawned process): `F64MG_SHARD_CELL` (at
     `scale`, by default its own) with the f64 hierarchy (`F64_MG`, K3 on
-    every Q1 level) on the lattice partition, `cg_loop="host"`, on its own
-    lam_max estimates; the slab checks of K3 f64, then `n_steps` steps
-    from rest. Returns what the parent checks and logs (on the CPU too,
+    every Q1 level) on the lattice partition, `cg_loop="host"` (f64mg_cards:
+    "graphs"), on its own lam_max estimates; the slab checks of K3 f64,
+    then `n_steps` steps from rest. Returns what the parent checks and logs (on the CPU too,
     where the kernels run their plain versions and nothing is counted)."""
     import torch
 
@@ -3470,7 +3597,7 @@ def _f64mg_shard_rank(mesh, n_steps, scale=None):
 
     t0 = time.perf_counter()
     model = build_linear_cell(
-        F64MG_SHARD_CELL, dev, scale=scale, cg_loop="host", device_mesh=mesh,
+        F64MG_SHARD_CELL, dev, scale=scale, cg_loop=cg_loop, device_mesh=mesh,
         overrides=dict(F64_MG, mg_level_backend="auto"))
     mg = model._precond
     slabs = [lv.raw.op for lv in mg.levels[1:]
@@ -3509,13 +3636,15 @@ def _f64mg_shard_rank(mesh, n_steps, scale=None):
     return out
 
 
-def phase_f64mg_shard(ref, records, device="cuda", scale=None):
+def phase_f64mg_shard(ref, records, device="cuda:0", scale=None):
     """f64mg_shard (phase 16): `F64MG_SHARD_CELL` with the f64 hierarchy on
-    `SHARD_RANKS` gloo ranks sharing the card, against `ref`, the run of
+    `SHARD_RANKS` gloo ranks sharing card 0, against `ref`, the run of
     `f64mg_stencil auto` on one device (`phase_f64mg`); the slab checks go
     into the kernel records (`slab_checks`); returns the launches of all
     ranks. `device="cpu"` with a small `scale` (and a reference of that
     scale) rehearses it on the CPU."""
+    import torch
+
     from dealii_adapter_tpu_torch.parallel import spawn
 
     n_steps = len(ref["checksums"])
@@ -3525,12 +3654,26 @@ def phase_f64mg_shard(ref, records, device="cuda", scale=None):
     log(f"f64mg_shard: {SHARD_RANKS} ranks on the {device} device over gloo, "
         f"eager CG, {out[0]['n_dofs']} DoF, ran in "
         f"{time.perf_counter() - t0:.1f} s (spawn, build and steps)")
-    cuda = device == "cuda"
+    return check_f64mg_shard("f64mg_shard", out, ref, records,
+                             torch.device(device).type == "cuda", eager=True,
+                             rtol=F64MG_SHARD_RTOL, cg_slack=SHARD_CG_SLACK,
+                             note="ranks sharing one card, not a scaling "
+                                  "result")
+
+
+def check_f64mg_shard(path, out, ref, records, cuda, eager, rtol, cg_slack,
+                      note):
+    """Log and check the ranks' results `out` of `_f64mg_shard_rank`
+    against `ref` (`f64mg_stencil auto`'s run on one device): the bodies
+    and CG eager (`eager`) or replayed, f64 throughout, lam_max within
+    `F64MG_LAM_RTOL`, every residual <= 1e-10, CG within `cg_slack` a
+    step, ||u||^2 after every step within `rtol`, every rank the same
+    reduced values; returns the launches of all ranks."""
     by_name = {rec["name"]: rec for rec in records}
     ref_cg = [i.iterations for i in ref["infos"]]
     total = {}
     for r in out:
-        tag = f"f64mg_shard rank {r['rank']}"
+        tag = f"{path} rank {r['rank']}"
         lam_rel = max(abs(a - b) / abs(b)
                       for a, b in zip(r["lam_max"], ref["lam_max"]))
         log(f"{tag}: model built in {r['build_s']:.1f} s; hierarchy "
@@ -3543,25 +3686,23 @@ def phase_f64mg_shard(ref, records, device="cuda", scale=None):
                 f"max abs err {c['max_abs_err']:.3e}, rel. L2 "
                 f"{c['rel_l2_err']:.3e} (limit {c['limit']}); "
                 + (f"{c['ms']:.4f} ms a call (CUDA events, median of 15; "
-                   "ranks share the card)" if c["ms"] is not None else
-                   "not timed"))
+                   f"{note})" if c["ms"] is not None else "not timed"))
             if c["name"] in by_name:
                 by_name[c["name"]].setdefault("slab_checks", []).append(
-                    dict(c, rank=r["rank"], ranks=SHARD_RANKS,
-                         path="f64mg_shard"))
+                    dict(c, rank=r["rank"], ranks=len(out), path=path))
         rels = [abs(a - b) / b for a, b in zip(r["checksums"],
                                                ref["checksums"])]
-        log(f"{tag}: step times {r['times']} s (ranks sharing one card, not "
-            f"a scaling result); CG {r['cg']} (one device: {ref_cg}); "
-            f"residuals {r['residual']}; read-backs {r['syncs']} a step; "
-            f"collectives a step {r['calls']}; checksums {r['checksums']} "
-            f"against one device's {ref['checksums']}: rel. differences "
-            f"{[f'{x:.3e}' for x in rels]} (limit {F64MG_SHARD_RTOL}); peak "
+        log(f"{tag}: step times {r['times']} s ({note}); CG {r['cg']} (one "
+            f"device: {ref_cg}); residuals {r['residual']}; read-backs "
+            f"{r['syncs']} a step; collectives a step {r['calls']}; checksums "
+            f"{r['checksums']} against one device's {ref['checksums']}: rel. "
+            f"differences {[f'{x:.3e}' for x in rels]} (limit {rtol}); peak "
             f"device memory {r['peak_gib']:.2f} GiB")
         if cuda:
-            read_counts("f64mg_shard", r["launches"])
+            read_counts(path, r["launches"])
             log(f"{tag}: launches {r['launches']}")
-        require(r["eager"], f"{tag}: the step's bodies and CG run eagerly")
+        require(r["eager"] == eager, f"{tag}: the step's bodies and CG run "
+                + ("eagerly" if eager else "replayed from CUDA graphs"))
         require(r["dtype"] == "torch.float64"
                 and all(d == "torch.float64" for _, _, d in r["levels"]),
                 f"{tag}: every level of the hierarchy in f64")
@@ -3575,16 +3716,14 @@ def phase_f64mg_shard(ref, records, device="cuda", scale=None):
                 f"{tag}: lam_max against one device's")
         require(all(x <= 1e-10 for x in r["residual"]),
                 f"{tag}: every step's residual <= 1e-10")
-        require(all(abs(a - b) <= SHARD_CG_SLACK
-                    for a, b in zip(r["cg"], ref_cg)),
-                f"{tag}: CG within {SHARD_CG_SLACK} a step of one device's")
-        require(max(rels) <= F64MG_SHARD_RTOL,
-                f"{tag}: checksums against one device's")
+        require(all(abs(a - b) <= cg_slack for a, b in zip(r["cg"], ref_cg)),
+                f"{tag}: CG within {cg_slack} a step of one device's")
+        require(max(rels) <= rtol, f"{tag}: checksums against one device's")
         for k, n in r["launches"].items():
             total[k] = total.get(k, 0) + n
     require(all(r["checksums"] == out[0]["checksums"]
                 and r["cg"] == out[0]["cg"] for r in out),
-            "f64mg_shard: every rank read the same reduced values")
+            f"{path}: every rank read the same reduced values")
     return total
 
 
@@ -3625,13 +3764,16 @@ def f64mg_nccl1(mesh, ref):
     return launches
 
 
-def _shard_cells_rank(mesh):
+def _shard_cells_rank(mesh, cg_loop="host"):
+    """One rank of shard_cells (`cg_loop="host"`, gloo ranks sharing the
+    card) or shard_cells_cards (`"graphs"`, a card a rank over NCCL)."""
     import torch
 
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
     from dealii_adapter_tpu_torch.kernels import counters
 
-    model = build_model(mesh.device, scale=SHARD_CELLS_SCALE, cg_loop="host",
+    calls0 = dict(mesh.calls)
+    model = build_model(mesh.device, scale=SHARD_CELLS_SCALE, cg_loop=cg_loop,
                         device_mesh=mesh, **SHARD_CELLS)
     stress = model.local_rows(interface_traction(model))
     start_counts()
@@ -3652,24 +3794,32 @@ def _shard_cells_rank(mesh):
     u = state.displacement.reshape(-1)
     out["checksum"] = float(torch.dot(u, u))  # replicated
     out["launches"] = counters.launch_counts()
-    out["calls"] = dict(mesh.calls)
+    out["calls"] = {k: mesh.calls[k] - calls0[k] for k in calls0}
     return out
 
 
 def phase_shard_cells(ref):
     """shard_cells (phase 13): the cell partition on `SHARD_RANKS` gloo
-    ranks sharing the card against its one-rank reference; returns the
+    ranks sharing card 0 against its one-rank reference; returns the
     launches of all ranks."""
     from dealii_adapter_tpu_torch.parallel import spawn
 
     t0 = time.perf_counter()
-    out = spawn(_shard_cells_rank, SHARD_RANKS, "cuda", backend="gloo")
-    log(f"shard_cells: {SHARD_RANKS} ranks over gloo at scale "
+    out = spawn(_shard_cells_rank, SHARD_RANKS, "cuda:0", backend="gloo")
+    log(f"shard_cells: {SHARD_RANKS} ranks on card 0 over gloo at scale "
         f"{SHARD_CELLS_SCALE} ({ref['n_dofs']} DoF), eager CG, ran in "
         f"{time.perf_counter() - t0:.1f} s (spawn, build and steps)")
+    return check_shard_cells("shard_cells", out, ref)
+
+
+def check_shard_cells(path, out, ref):
+    """Log and check the ranks' results `out` of `_shard_cells_rank`
+    against the one-rank reference `ref`: every step converged, Newton
+    counts equal, CG within `SHARD_CG_SLACK` a solve, ||u||^2 within
+    `SHARD_RTOL`; returns the launches of all ranks."""
     total = {}
     for r in out:
-        tag = f"shard_cells rank {r['rank']}"
+        tag = f"{path} rank {r['rank']}"
         rel = abs(r["checksum"] - ref["checksum"]) / ref["checksum"]
         log(f"{tag}: step times {r['times']} s; Newton {r['newton']}, CG "
             f"{r['cg']} (one rank: {ref['newton']}, {ref['cg']}, "
@@ -3677,7 +3827,7 @@ def phase_shard_cells(ref):
             f"step; collectives {r['calls']}; checksum "
             f"{r['checksum']!r} against one rank's {ref['checksum']!r}: rel. "
             f"difference {rel:.3e} (limit {SHARD_RTOL})")
-        read_counts("shard_cells", r["launches"])
+        read_counts(path, r["launches"])
         require(all(r["converged"]), f"{tag}: every step converged")
         require(r["newton"] == ref["newton"], f"{tag}: Newton counts equal")
         require_newton_syncs(tag, r["outside"], r["newton"])
@@ -3690,25 +3840,222 @@ def phase_shard_cells(ref):
     return total
 
 
-def phase_dryrun():
-    """dryrun (phase 13): `dryrun_multichip(SHARD_RANKS, "cuda")`; returns
-    the launches of all ranks."""
+def phase_dryrun(n_ranks=SHARD_RANKS, backend="gloo", path="dryrun"):
+    """dryrun (phase 13): `dryrun_multichip(SHARD_RANKS, "cuda")` on gloo
+    ranks sharing card 0 (the eager CG); dryrun_cards: `n_ranks` ranks on
+    cards of their own over NCCL (`backend=None`: the backend rule's
+    choice, which must be NCCL; the CG in CUDA graphs). Returns the
+    launches of all ranks."""
     from dealii_adapter_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    info = dryrun_multichip(SHARD_RANKS, "cuda")
-    log(f"dryrun: {info}")
+    info = dryrun_multichip(n_ranks, "cuda", backend=backend)
+    log(f"{path}: {info}")
+    want = ("gloo", "host") if backend == "gloo" else ("nccl", "graphs")
+    require((info["backend"], info["cg_loop"]) == want,
+            f"{path}: backend and CG loop {want}")
     total = {}
     for launches in info["launches"]:
-        read_counts("dryrun", launches)
+        read_counts(path, launches)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+def exchange_records(model):
+    """exchange_cards (one rank's part, run after shard3d_cards' steps on
+    its model): one halo fill and one interface sum of seeded f32 vectors
+    at the fine lattice (`model._lat`, degree 2) and at the FEM-SEM level
+    (the first Q1 level, on the same nodes), in each form of
+    `EXCHANGE_FORMS` on the same input: the forms' results bit for bit,
+    each form's bytes (p2p: the plane a neighbour needs; all_reduce: the
+    buffer of one slot a rank), its CUDA-event time (`cuda_ms`, median of
+    15) eager and replayed from a CUDA graph of the one call, and whether
+    the replay equals the eager call bit for bit. Every rank runs the
+    same calls in the same order."""
+    import torch
+
+    from dealii_adapter_tpu_torch.solvers.graphs import capture
+
+    lat = model._lat
+    mesh, dev = lat.mesh, model.device
+    g = torch.Generator(device=dev).manual_seed(23 + mesh.rank)
+    rows = []
+    for level, lay in (("fine", lat), ("FEM-SEM", model._precond.levels[1].layout)):
+        v = torch.randn((lay.n_owned, 3), generator=g, device=dev)
+        y = torch.randn(lay.slab_shape + (3,), generator=g, device=dev)
+        plane = math.prod(n for a, n in enumerate(lay.grid_shape)
+                          if a != lay.axis) * 3 * 4
+        for op, call in (("fill", lambda f: lay.fill(v, f)),
+                         ("interface_sum", lambda f: lay.interface_sum(y, f))):
+            eager = {f: call(f) for f in EXCHANGE_FORMS}
+            row = dict(level=level, op=op, lattice=list(lay.grid_shape),
+                       p=lay.p, plane_bytes=plane,
+                       bitwise=torch.equal(eager["p2p"], eager["all_reduce"]))
+            for f in EXCHANGE_FORMS:
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):  # the warm-up before a capture
+                    call(f)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with capture(graph):
+                    replayed = call(f)
+                graph.replay()
+                torch.cuda.synchronize(dev)
+                row[f] = dict(
+                    bytes=plane if f == "p2p" else mesh.world * plane,
+                    eager_ms=cuda_ms(lambda: call(f)),
+                    replay_ms=cuda_ms(graph.replay),
+                    replay_equal=torch.equal(replayed, eager[f]))
+                del graph
+            rows.append(row)
+    return rows
+
+
+def _cards_rank(mesh, lam_max, coupled_lam_max, f64_steps):
+    """One rank of a separate-card world (a spawned process, its own card,
+    NCCL): shard3d_cards (the CUDA graphs, then exchange_cards on its
+    model), its host-loop twin, f64mg_cards, shard_cells_cards and
+    coupled_cards, in this order on every rank; returns each one's
+    results with its seconds."""
+    import gc
+
+    import torch
+
+    out = {}
+    for name, fn, args in (
+            ("shard3d_cards", _shard3d_rank,
+             (mesh, lam_max, CARD_STEPS, None, "graphs", exchange_records)),
+            ("shard3d_cards host", _shard3d_rank,
+             (mesh, lam_max, CARD_HOST_STEPS, None, "host", None, False)),
+            ("f64mg_cards", _f64mg_shard_rank, (mesh, f64_steps, None, "graphs")),
+            ("shard_cells_cards", _shard_cells_rank, (mesh, "graphs")),
+            ("coupled_cards", _coupled_shard_rank,
+             (mesh, coupled_lam_max, "graphs"))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def card_worlds(n_cards, asked=None):
+    """The worlds of the separate-card phases: 2 and min(4, cards) ranks,
+    or 2 and `asked` (`--cards`); none on one card."""
+    if asked is not None:
+        return sorted({2, asked})
+    return sorted({2, min(4, n_cards)}) if n_cards >= 2 else []
+
+
+def phase_cards(world, parallel, cells_ref, f64_ref, records):
+    """The separate-card phases (17) of one world: `world` ranks spawned
+    one a card over NCCL (`_cards_rank`), each on its own card (the
+    current device), every CG and body replayed from CUDA graphs:
+    shard3d_cards against main3d (`check_shard3d`) and its host-loop twin
+    against the graphs run (NewtonInfo equal, ||u||^2 within
+    `LOOPS_RTOL`, bitwise logged), the per-card step times beside
+    main3d's, exchange_cards, f64mg_cards (CG equal to one device's,
+    `F64MG_CARDS_RTOL`), shard_cells_cards and coupled_cards against
+    their shared-card phases' references. Returns {path: launches of all
+    ranks}."""
+    import torch
+
+    from dealii_adapter_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = spawn(_cards_rank, world, "cuda", parallel["lam_max"],
+                parallel["coupled"]["lam_max"], len(f64_ref["checksums"]),
+                backend="nccl", timeout_s=CARDS_TIMEOUT_S)
+    log(f"cards {world}: {world} ranks, one a card over NCCL, ran in "
+        f"{time.perf_counter() - t0:.1f} s (spawn, builds, steps); seconds "
+        f"a phase on rank 0 {[(k, round(v['phase_s'], 1)) for k, v in out[0].items()]}")
+    note = "a card a rank over NCCL"
+    by_path = {}
+    sh = [r["shard3d_cards"] for r in out]
+    host = [r["shard3d_cards host"] for r in out]
+    for x in sh + host:
+        require(x["backend"] == "nccl" and x["current"] == x["rank"]
+                and x["device"] == f"cuda:{x['rank']}",
+                f"cards {world}: rank {x['rank']} on its own card over NCCL, "
+                f"made current ({x['device']}, current {x['current']})")
+    require(all(x["cg_loop"] == "graphs" and not x["eager"] for x in sh)
+            and all(x["cg_loop"] == "host" and x["eager"] for x in host),
+            f"cards {world}: the CUDA graphs and the host loop as named")
+    tag = f"shard3d_cards {world}"
+    by_path[tag] = check_shard3d(tag, tag, sh, parallel, records, note)
+    by_path[f"{tag} host"] = check_shard3d(f"{tag} host", f"{tag} host",
+                                           host, parallel, records, note)
+    for g, h in zip(sh, host):
+        n = len(h["checksums"])
+        rels = [abs(a - b) / b for a, b in zip(h["checksums"], g["checksums"])]
+        bitwise = h["infos"] == g["infos"][:n] and h["checksums"] == g["checksums"][:n]
+        log(f"{tag} rank {g['rank']}: host loop against the CUDA graphs over "
+            f"{n} steps: NewtonInfo equal {h['infos'] == g['infos'][:n]}, "
+            f"checksums {h['checksums']} against {g['checksums'][:n]}: rel. "
+            f"differences {[f'{x:.3e}' for x in rels]} (limit {LOOPS_RTOL}); "
+            f"bitwise {bitwise}")
+        require(h["infos"] == g["infos"][:n] and max(rels) <= LOOPS_RTOL,
+                f"{tag} rank {g['rank']}: the host loop's NewtonInfo and "
+                "checksums against the CUDA graphs'")
+    med = [statistics.median(x["times"][1:]) for x in sh]
+    main_med = statistics.median(parallel["times"])
+    log(f"{tag}: per-card step time, median of {CARD_STEPS - 1} timed steps "
+        f"after 1 warmup, by rank {med} s; main3d on one card in this run "
+        f"{main_med!r} s ({parallel['times']}); slowest rank / main3d "
+        f"{max(med) / main_med:.3f}; collectives a step (the host loop's "
+        f"count, one Python call each; the graphs replay the same) "
+        f"{host[0]['calls'][-1]}; read-backs a step {sh[0]['syncs']} "
+        f"(host loop {host[0]['syncs']}); peak device memory per card "
+        f"{[round(x['peak_gib'], 3) for x in sh]} GiB")
+    rows = []
+    for i, row in enumerate(sh[0]["after"]):
+        ranks = [x["after"][i] for x in sh]
+        merged = dict(row, world=world,
+                      bitwise=all(r["bitwise"] for r in ranks))
+        for f in EXCHANGE_FORMS:
+            merged[f] = dict(
+                bytes=row[f]["bytes"],
+                eager_ms=max(r[f]["eager_ms"] for r in ranks),
+                replay_ms=max(r[f]["replay_ms"] for r in ranks),
+                replay_equal=all(r[f]["replay_equal"] for r in ranks))
+        rows.append(merged)
+        log(f"exchange_cards {world}: {merged['level']} {merged['op']} on "
+            f"{merged['lattice']} (degree {merged['p']}): p2p bit for bit the "
+            f"all-reduce {merged['bitwise']}; "
+            + "; ".join(f"{f} {merged[f]['bytes']} B, eager "
+                        f"{merged[f]['eager_ms']:.4f} ms, replayed "
+                        f"{merged[f]['replay_ms']:.4f} ms (replay equal "
+                        f"{merged[f]['replay_equal']})" for f in EXCHANGE_FORMS)
+            + " (CUDA events, median of 15, the slowest rank)")
+        require(merged["bitwise"] and all(merged[f]["replay_equal"]
+                                          for f in EXCHANGE_FORMS),
+                f"exchange_cards {world}: {merged['level']} {merged['op']}: "
+                "p2p equals the all-reduce, replays equal the eager calls")
+    log(f"exchange_cards {world}: {json.dumps(rows)}")
+    by_path[f"f64mg_cards {world}"] = check_f64mg_shard(
+        f"f64mg_cards {world}", [r["f64mg_cards"] for r in out], f64_ref,
+        records, True, eager=False, rtol=F64MG_CARDS_RTOL, cg_slack=0,
+        note=note)
+    by_path[f"shard_cells_cards {world}"] = check_shard_cells(
+        f"shard_cells_cards {world}", [r["shard_cells_cards"] for r in out],
+        cells_ref)
+    by_path[f"coupled_cards {world}"] = check_coupled_shard(
+        f"coupled_cards {world}", [r["coupled_cards"] for r in out],
+        parallel["coupled"])
+    return by_path
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra step of each path after its checks")
+    ap.add_argument("--cards", type=int, default=None, metavar="N",
+                    help="run the device, build and kernels phases, the "
+                         "one-card references of the separate-card phases "
+                         "and those phases on 2 and N cards (N >= 2; fails "
+                         "with fewer visible)")
     args = ap.parse_args()
 
     import torch
@@ -3716,6 +4063,13 @@ def main():
     phase_device()
     import dealii_adapter_tpu_torch  # noqa: F401  (precision policy)
 
+    n_cards = torch.cuda.device_count()
+    if args.cards is not None:
+        require(args.cards >= 2, f"--cards {args.cards}: N must be 2 or more")
+        require(n_cards >= args.cards,
+                f"--cards {args.cards}: {n_cards} cards visible")
+    worlds = card_worlds(n_cards, args.cards)
+    full = args.cards is None  # every phase, not only the cards' references
     t_script = time.perf_counter()
 
     def timed(name, fn, *a):
@@ -3729,39 +4083,60 @@ def main():
     by_path = {}
     paths, main_run = timed("main", phase_main, args.profile)
     by_path.update(paths)
-    by_path.update(timed("bench", phase_bench))
-    by_path.update(timed("tangent3d", phase_tangent3d, main_run))
-    by_path.update(timed("jvp", phase_jvp, main_run))
+    if full:
+        by_path.update(timed("bench", phase_bench))
+        by_path.update(timed("tangent3d", phase_tangent3d, main_run))
+        by_path.update(timed("jvp", phase_jvp, main_run))
     by_path["stencil3d"], model, checksum = timed(
         "stencil3d", phase_stencil3d, main_run)
     parallel = {k: main_run[k] for k in ("mesh_tags", "lam_max", "checksum",
-                                         "checksums", "cg", "newton", "jvp3d")}
+                                         "checksums", "cg", "newton", "times",
+                                         "jvp3d") if k in main_run}
     del main_run
     by_path["coupled3d"], parallel["coupled"] = timed(
         "coupled3d", phase_coupled3d, model, checksum)
     del model
     torch.cuda.empty_cache()
-    by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
-    by_path.update(timed("linear_loops", phase_linear_loops))
+    if full:
+        by_path["linear2d"] = timed("linear2d", phase_linear2d, args.profile)
+        by_path.update(timed("linear_loops", phase_linear_loops))
     paths, f64_ref = timed("f64mg", phase_f64mg)
     by_path.update(paths)
-    by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d, args.profile)
-    by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
+    if full:
+        by_path["nonlinear2d"] = timed("nonlinear2d", phase_nonlinear2d,
+                                       args.profile)
+        by_path.update(timed("vcycle_bf16", phase_vcycle_bf16))
     by_path["cli"], cli_u2 = timed("cli", phase_cli)
-    by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
-    by_path["cli_ranks"] = timed("cli_ranks", phase_cli_ranks, cli_u2)
-    by_path["golden_nl"] = timed("golden_nl", phase_golden_nl)
-    by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
-    by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
+    if full:
+        by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
+        by_path["cli_ranks"] = timed("cli_ranks", phase_cli_ranks, cli_u2)
+        by_path["golden_nl"] = timed("golden_nl", phase_golden_nl)
+        by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
+        by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
     (by_path["shard3d_nccl1"], cells_ref, by_path["coupled_nccl1"],
      by_path["f64mg_nccl1"]) = timed("shard3d_nccl1", phase_shard3d_nccl1,
                                      parallel, f64_ref)
-    by_path["shard_cells"] = timed("shard_cells", phase_shard_cells, cells_ref)
-    by_path["f64mg_shard"] = timed("f64mg_shard", phase_f64mg_shard, f64_ref,
-                                   records)
-    by_path["dryrun"] = timed("dryrun", phase_dryrun)
-    by_path["coupled_shard"] = timed("coupled_shard", phase_coupled_shard,
-                                     parallel)
+    if full:
+        by_path["shard_cells"] = timed("shard_cells", phase_shard_cells,
+                                       cells_ref)
+        by_path["f64mg_shard"] = timed("f64mg_shard", phase_f64mg_shard,
+                                       f64_ref, records)
+        by_path["dryrun"] = timed("dryrun", phase_dryrun)
+        by_path["coupled_shard"] = timed("coupled_shard", phase_coupled_shard,
+                                         parallel)
+    if not worlds:
+        log(f"separate-card phases (shard3d_cards, exchange_cards, "
+            f"f64mg_cards, shard_cells_cards, coupled_cards, cli_cards, "
+            f"dryrun_cards) need 2 or more cards; {n_cards} visible: not run")
+    for w in worlds:
+        by_path.update(timed(f"cards {w}", phase_cards, w, parallel,
+                             cells_ref, f64_ref, records))
+    if worlds:
+        w = worlds[-1]
+        by_path[f"cli_cards {w}"] = timed(f"cli_cards {w}", phase_cli_ranks,
+                                          cli_u2, w, True)
+        by_path[f"dryrun_cards {w}"] = timed(
+            f"dryrun_cards {w}", phase_dryrun, w, None, f"dryrun_cards {w}")
     log(f"all phases after the device check: {time.perf_counter() - t_script:.1f} s")
     log(f"kernels the device-time sessions missed: {MISSED_KERNELS[0]}; "
         f"device times taken from CUDA-graph replays instead: "

@@ -23,7 +23,8 @@ kernel launch counts of the coupled run alone.
 --devices N`. Each rank initializes the default process group from
 torchrun's environment (or uses one its caller initialized), with the
 backend `parallel/partition.py:choose_backend` picks: NCCL when every rank
-has a card of its own, gloo when the ranks share one card or run on the
+has a card of its own (rank r on `cuda:LOCAL_RANK`, made current by
+`make_device_mesh`), gloo when the ranks share one card or run on the
 CPU. Without either it raises, saying how to launch. A gloo world on the
 card cannot capture its collectives in CUDA graphs, so there the models
 run their CG chunks eagerly (`cg_loop="host"`), which the banner says.
@@ -116,8 +117,7 @@ def _rank_group(n_devices: int, device_arg):
     group)` for `--devices n_devices` above 1: the initialized default
     group, or one initialized from torchrun's environment with the
     backend `choose_backend` picks; raises with the launch hint without
-    either."""
-    import torch
+    either. `make_device_mesh` makes the rank's card current."""
     import torch.distributed as dist
 
     from dealii_adapter_tpu_torch.parallel.partition import (
@@ -132,10 +132,8 @@ def _rank_group(n_devices: int, device_arg):
             raise RuntimeError(
                 f"--devices {n_devices} needs one process per rank: "
                 + LAUNCH_HINT)
-        dev = torch.device(device_arg or "cuda")
-        backend = choose_backend(dev, int(os.environ["WORLD_SIZE"]))
-        if backend == "nccl":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        backend = choose_backend(device_arg or "cuda",
+                                 int(os.environ["WORLD_SIZE"]))
         dist.init_process_group(backend)
         made = True
     return make_device_mesh(n_devices, device=device_arg), made
@@ -314,8 +312,16 @@ def main(argv=None) -> int:
     if lead:
         timer.print_summary()
     if made_group:
+        import gc
+
         import torch.distributed as dist
 
+        # the model's CUDA graphs hold NCCL work captured on the group's
+        # communicators, and destroying the group waits for them: drop the
+        # model and every closure over it first (on 2 and 4 H100s the
+        # destroy otherwise never returned)
+        del model, adapter, final, output_cb, run
+        gc.collect()
         dist.destroy_process_group()
     return 0
 

@@ -131,6 +131,7 @@
 //   no order across blocks exists on the card; the z order lives inside
 //   the block. f32 accumulation in a fixed order, no atomics.
 
+#include "smem_attr.cuh"
 #include "structured_gather.cuh"
 
 namespace {
@@ -371,14 +372,10 @@ cudaError_t launch_q1_level_tx(const void* u, void* y, const void* coef,
   constexpr int TY = kLevelThreads / TX;
   constexpr int max_smem =
       sizeof(V4) == sizeof(float4) ? kLevelMaxSmem : kLevelMaxSmemF64;
-  static bool attr_set = false;  // > 48 KB only when a tile spans each axis
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        q1_level_kernel<TX, T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        max_smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;  // > 48 KB only when a tile spans each axis
+  const cudaError_t err =
+      dat::max_dynamic_smem_once(q1_level_kernel<TX, T, TO>, max_smem, attr_set);
+  if (err != cudaSuccess) return err;
   const long long blocks_yx =
       static_cast<long long>((nx + TX - 1) / TX) * ((ny + TY - 1) / TY);
   int zc = 8;  // shrink the z chunk until the grid has ~2 blocks per SM

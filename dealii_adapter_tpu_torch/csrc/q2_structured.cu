@@ -63,6 +63,7 @@
 
 #include <cstdint>
 
+#include "smem_attr.cuh"
 #include "structured_gather.cuh"
 
 namespace {
@@ -306,15 +307,11 @@ template <typename T, typename TO, bool kMMA>
 cudaError_t launch_q2_tile(const void* u, void* y, const void* frag,
                            const void* E, int nz, int ny, int nx,
                            cudaStream_t s) {
-  static bool attr_set = false;
+  static unsigned long long attr_set = 0;
   constexpr int kMaxSmem = 200 * 1024;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        q2_tile_kernel<T, TO, kMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  const cudaError_t err =
+      dat::max_dynamic_smem_once(q2_tile_kernel<T, TO, kMMA>, kMaxSmem, attr_set);
+  if (err != cudaSuccess) return err;
   const int ncz = (nz - 1) / 2, ncy = (ny - 1) / 2, ncx = (nx - 1) / 2;
   // the largest block: the owned cells and the low-side halo
   const int mz = ncz > kQ2TZ ? kQ2TZ + 1 : ncz, my = ncy > kQ2TY ? kQ2TY + 1 : ncy,

@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;
@@ -102,15 +104,11 @@ template <int DIM, int NPC>
 cudaError_t launch(const SymTable& t, const float* u, float* out,
                    long long n_cells, cudaStream_t stream) {
   constexpr int kBytes = 2 * DIM * NPC * kThreads * sizeof(float);
-  static bool configured = false;
-  if (!configured) {
-    // above 48 KB only after opting in (3D Q3 and Q4)
-    cudaError_t err = cudaFuncSetAttribute(
-        tangent_matvec_sym_kernel<DIM, NPC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // above 48 KB only after opting in (3D Q3 and Q4)
+  static unsigned long long configured = 0;
+  const cudaError_t err = dat::max_dynamic_smem_once(
+      tangent_matvec_sym_kernel<DIM, NPC>, kBytes, configured);
+  if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((n_cells + kThreads - 1) / kThreads);
   tangent_matvec_sym_kernel<DIM, NPC>

@@ -7,7 +7,8 @@ tangent, Eisenstat-Walker forcing, the Newmark predictor) on the lattice
 partition over `n_devices` spawned ranks. The caller names the device;
 nothing re-executes on the CPU by itself. On the card the kernels are
 built once, before the ranks start, and each rank launches them on its
-slab; a gloo world on the card runs its CG eagerly (`cg_loop="host"`).
+slab; a gloo world on the card runs its CG eagerly (`cg_loop="host"`),
+an NCCL world (a card per rank) in CUDA graphs.
 
     python -c "from dealii_adapter_tpu_torch.parallel.dryrun import \\
         dryrun_multichip; dryrun_multichip(2, 'cuda')"
@@ -63,10 +64,12 @@ def _rank_step(mesh, n_devices, scale):
                 calls=calls, launches=launches)
 
 
-def dryrun_multichip(n_devices: int, device, scale: int = 2) -> dict:
+def dryrun_multichip(n_devices: int, device, scale: int = 2,
+                     backend=None) -> dict:
     """One production step on `n_devices` spawned ranks on `device`
-    ("cuda" or "cpu"); asserts that Newton converged with det F > 0
-    everywhere, prints the JAX function's line, and returns rank 0's
+    ("cuda" or "cpu"), over `backend` (by default `choose_backend`'s:
+    NCCL with a card per rank); asserts that Newton converged with det F
+    > 0 everywhere, prints the JAX function's line, and returns rank 0's
     NewtonInfo fields with max|u|, the CG loop, the backend, the step's
     collectives and every rank's kernel launches in the step (`launches`,
     a list; the model build's are not counted)."""
@@ -75,7 +78,7 @@ def dryrun_multichip(n_devices: int, device, scale: int = 2) -> dict:
         from ..kernels import _build
 
         _build.load_library()  # build once, before the ranks start
-    backend = choose_backend(device, n_devices)
+    backend = backend or choose_backend(device, n_devices)
     out = spawn(_rank_step, n_devices, device, n_devices, scale,
                 backend=backend)
     info = dict(out[0], launches=[o["launches"] for o in out])

@@ -24,14 +24,18 @@ with at least as many cells as ranks. On the 3D flap (lattice (19, 325,
 Q1 multigrid levels above the coarse one, so every split lines up level
 to level and the transfers act across it without a halo.
 
-Both exchanges are SUM all-reduces of a small buffer with one slot per
-rank (the planes each rank contributes, in the directions some rank
-needs), an operation gloo and NCCL both provide on CUDA tensors; gloo's
-send/recv would take CPU tensors only. Each adds zeros to the slots it
-does not own, which changes no value; the buffer grows with the world
-size, which a point-to-point exchange on NCCL would avoid. bf16 partial
-sums come out of the kernels in f32 (their bf16-in/f32-out mode), travel
-and are added in f32 and are rounded once.
+Both exchanges send each rank's planes to the neighbour that needs them,
+as send/recv (`RankGroup.exchange`, the counterpart of the
+collective-permutes XLA inserts for the JAX package's sharding), where
+the backend can send the tensor: NCCL on the cards, gloo on the CPU.
+Gloo ranks sharing a card (gloo's send/recv takes CPU tensors only) run
+the same exchange as a SUM all-reduce of a buffer with one slot per rank
+(the planes each rank contributes, in the directions some rank needs):
+each slot holds one nonzero term, so both forms give the same bits, but
+the buffer grows with the world size. `RankGroup.exchange_form` picks
+the form; `form=` names one (the chip script's side-by-side timing).
+bf16 partial sums come out of the kernels in f32 (their bf16-in/f32-out
+mode), travel and are added in f32 and are rounded once.
 A world of one exchanges nothing: its slab is the lattice, and every
 operator runs exactly the single-device code.
 """
@@ -127,64 +131,79 @@ class SlabLayout:
     # -- the exchanges ----------------------------------------------------
 
     def extend(self, g: torch.Tensor, k_lo: int, k_hi: int,
-               K: Tuple[int, int]) -> torch.Tensor:
+               K: Tuple[int, int], form: Optional[str] = None) -> torch.Tensor:
         """The owned grid `g` (owned_shape + (dim,)) extended by `k_lo`
-        planes of the rank below and `k_hi` of the rank above, through one
-        all-reduce of every rank's last `K[0]` and first `K[1]` owned
-        planes (`K`, the same on every rank, at least each rank's k_lo and
-        k_hi; a direction no rank needs is not sent)."""
+        planes of the rank below and `k_hi` of the rank above: every rank
+        sends its last `K[0]` owned planes up and its first `K[1]` down
+        (`K`, the same on every rank, at least each rank's k_lo and k_hi;
+        a direction no rank needs is not sent), between neighbours or
+        through one all-reduce (`form`, by default
+        `RankGroup.exchange_form`'s)."""
         n_last, n_first = K
         if self.world == 1 or n_last + n_first == 0:
             return g
         ax = self.axis
         own = self.hi - self.lo
-        mine = torch.cat([g.narrow(ax, own - n_last, n_last),
-                          g.narrow(ax, 0, n_first)], dim=ax).movedim(ax, 0)
-        buf = mine.new_zeros((self.world,) + tuple(mine.shape))
-        buf = torch.cat([buf[: self.rank], mine[None], buf[self.rank + 1:]])
+        last = g.narrow(ax, own - n_last, n_last).movedim(ax, 0)
+        first = g.narrow(ax, 0, n_first).movedim(ax, 0)
         self.mesh.calls["halo"] += 1
-        buf = self.mesh.all_reduce(buf)
+        if (form or self.mesh.exchange_form(g)) == "p2p":
+            below, above = self.mesh.exchange(first, last)
+        else:
+            mine = torch.cat([last, first])
+            buf = mine.new_zeros((self.world,) + tuple(mine.shape))
+            buf = torch.cat([buf[: self.rank], mine[None], buf[self.rank + 1:]])
+            buf = self.mesh.all_reduce(buf)
+            below = buf[self.rank - 1, :n_last] if self.rank > 0 else None
+            above = (buf[self.rank + 1, n_last:] if self.top else None)
         parts = []
         if k_lo:
-            parts.append(buf[self.rank - 1, n_last - k_lo: n_last].movedim(0, ax))
+            parts.append(below[n_last - k_lo:].movedim(0, ax))
         parts.append(g)
         if k_hi:
-            parts.append(buf[self.rank + 1, n_last: n_last + k_hi].movedim(0, ax))
+            parts.append(above[:k_hi].movedim(0, ax))
         return torch.cat(parts, dim=ax) if len(parts) > 1 else g
 
-    def fill(self, v: torch.Tensor) -> torch.Tensor:
+    def fill(self, v: torch.Tensor, form: Optional[str] = None) -> torch.Tensor:
         """This rank's slab grid (slab_shape + (dim,)) of a distributed
         vector: the owned planes and the first plane of the rank above
         (only first planes are sent)."""
         dim = v.shape[-1]
         g = v.reshape(self.owned_shape + (dim,))
-        return self.extend(g, 0, 1 if self.top else 0, (0, 1))
+        return self.extend(g, 0, 1 if self.top else 0, (0, 1), form)
 
-    def interface_sum(self, y: torch.Tensor) -> torch.Tensor:
+    def interface_sum(self, y: torch.Tensor,
+                      form: Optional[str] = None) -> torch.Tensor:
         """The owned rows (n_owned, dim) of an operator output computed on
         this rank's slab (slab_shape + (dim,)): the slab's top plane, a
-        partial sum, is added into the rank above's first plane. Partial
-        sums are added in f32 or wider."""
+        partial sum, is added into the rank above's first plane (sent
+        between neighbours or through one all-reduce, `form` as in
+        `extend`). Partial sums are added in f32 or wider."""
         dim = y.shape[-1]
         if self.world == 1:
             return y.reshape(-1, dim)
         ax = self.axis
         own = self.hi - self.lo
         wide = torch.float32 if y.dtype == torch.bfloat16 else y.dtype
-        plane = tuple(s for a, s in enumerate(y.shape) if a != ax)
-        # the last rank's slot is read by no rank; it is 0 * a plane of y so
-        # that under forward-mode AD every rank's buffer carries a tangent
-        # and every rank runs the tangent's all-reduce
+        # the last rank's top plane is read by no rank; it goes in all the
+        # same, so that under forward-mode AD every rank's input carries a
+        # tangent and every rank runs the tangent's exchange
         top = y.narrow(ax, self.slab_planes - 1 if self.top else 0, 1)
-        top = top.movedim(ax, 0).to(wide) * (1.0 if self.top else 0.0)
-        buf = y.new_zeros((self.world, 1) + plane, dtype=wide)
-        buf = torch.cat([buf[: self.rank], top[None], buf[self.rank + 1:]])
+        top = top.movedim(ax, 0).to(wide)
         self.mesh.calls["interface_sum"] += 1
-        buf = self.mesh.all_reduce(buf)
+        if (form or self.mesh.exchange_form(y)) == "p2p":
+            below, _ = self.mesh.exchange(top[:0], top)
+        else:  # the last rank's slot: 0 * a plane of y (a tangent, no value)
+            top = top * (1.0 if self.top else 0.0)
+            buf = y.new_zeros((self.world, 1) + tuple(top.shape[1:]),
+                              dtype=wide)
+            buf = torch.cat([buf[: self.rank], top[None], buf[self.rank + 1:]])
+            buf = self.mesh.all_reduce(buf)
+            below = buf[self.rank - 1] if self.rank > 0 else None
         out = y.narrow(ax, 0, own)
         if self.rank > 0:
             first = (out.narrow(ax, 0, 1).to(wide)
-                     + buf[self.rank - 1].movedim(0, ax)).to(y.dtype)
+                     + below.movedim(0, ax)).to(y.dtype)
             out = torch.cat([first, out.narrow(ax, 1, own - 1)], dim=ax)
         return out.reshape(-1, dim)
 

@@ -10,7 +10,16 @@ The backend follows one rule (`choose_backend`): NCCL when every rank has a
 card of its own, gloo when ranks share one card or run on the CPU. It is
 never chosen by catching NCCL's failure. Gloo moves CUDA tensors through
 the host and cannot be captured in a CUDA graph, so a gloo world on the
-card runs the models' CG chunks eagerly (`cg_loop="host"`).
+card runs the models' CG chunks eagerly (`cg_loop="host"`). Under NCCL
+`make_device_mesh` makes the rank's card (`cuda:LOCAL_RANK`) current, the
+one place every launch route (`spawn`, `torchrun`, the CLI) goes through:
+the kernels launch on the current device's stream.
+
+The lattice partition's halo exchanges go between neighbouring ranks
+(`RankGroup.exchange`), the counterpart of the collective-permutes XLA
+inserts for the JAX package's `P(axis, None)` sharding, wherever the
+backend can send the tensor; one rule picks the form
+(`RankGroup.exchange_form`).
 
 `CellPartition` is a copy of the JAX package's (numpy only): contiguous
 lexicographic cell blocks, one per rank, with windowed transpose-gather
@@ -27,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import math
 import os
 import tempfile
@@ -91,13 +101,65 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+def _p2p(mesh: "RankGroup", down: torch.Tensor, up: torch.Tensor):
+    """Send `down` to the rank below and `up` to the rank above (an empty
+    tensor is not sent); returns (what the rank below sent up, what the
+    rank above sent down), each shaped as this rank's `up` and `down`
+    (every rank sends the same shapes). A side without a neighbour is
+    left unwritten and must not be read. All sends and receives of a rank
+    go out as one batch (`batch_isend_irecv`: one NCCL group, so no order
+    of the ranks can deadlock)."""
+    from_below, from_above = torch.empty_like(up), torch.empty_like(down)
+    r, ops = mesh.rank, []
+    if r > 0:
+        if down.numel():
+            ops.append(dist.P2POp(dist.isend, down.contiguous(),
+                                  mesh.peer(r - 1), mesh.group))
+        if up.numel():
+            ops.append(dist.P2POp(dist.irecv, from_below, mesh.peer(r - 1),
+                                  mesh.group))
+    if r < mesh.world - 1:
+        if up.numel():
+            ops.append(dist.P2POp(dist.isend, up.contiguous(),
+                                  mesh.peer(r + 1), mesh.group))
+        if down.numel():
+            ops.append(dist.P2POp(dist.irecv, from_above, mesh.peer(r + 1),
+                                  mesh.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return from_below, from_above
+
+
+class _NeighbourExchange(torch.autograd.Function):
+    """`_p2p` with a forward-mode rule: the exchange is linear, so the
+    tangents are exchanged the same way (the collective-permute's rule in
+    the JAX package). As for `_AllReduceSum`, the rule runs only for
+    inputs that carry a tangent, so every rank's inputs must carry one
+    where any does (the callers build both from the differentiated values
+    on every rank)."""
+
+    @staticmethod
+    def forward(down, up, mesh):
+        return _p2p(mesh, down, up)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[2]
+
+    @staticmethod
+    def jvp(ctx, down_t, up_t, _):
+        return _p2p(ctx.mesh, down_t, up_t)
+
+
 @dataclasses.dataclass
 class RankGroup:
     """One rank's view of the world: the process group, this rank, the
     world size, the device this rank computes on and the backend. Counts
     its collectives (`calls`: all-reduces of every kind, and among them the
     lattice partition's halo fills and interface sums) as Python calls;
-    under a CUDA-graph replay nothing is counted."""
+    under a CUDA-graph replay nothing is counted; `exchange` counts as
+    `p2p` when it sends between neighbours."""
 
     group: Optional[object]
     rank: int
@@ -105,7 +167,8 @@ class RankGroup:
     device: torch.device
     backend: str
     calls: dict = dataclasses.field(
-        default_factory=lambda: {"all_reduce": 0, "halo": 0, "interface_sum": 0})
+        default_factory=lambda: {"all_reduce": 0, "p2p": 0, "halo": 0,
+                                 "interface_sum": 0})
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """SUM (differentiable, forward and backward), MIN or MAX of `x`
@@ -125,6 +188,30 @@ class RankGroup:
             raise ValueError(f"unknown reduction {op!r}")
         return y.to(dt)
 
+    def exchange_form(self, x: torch.Tensor) -> str:
+        """How the lattice partition's halo exchanges move `x`: "p2p",
+        send/recv between neighbours, where the backend can send it (NCCL
+        a CUDA tensor, gloo a CPU tensor), else "all_reduce", a SUM
+        all-reduce of one slot a rank (gloo ranks sharing a card: gloo's
+        send/recv takes CPU tensors only). Both give the same bits: a
+        slot holds one nonzero term. NCCL's send/recv is captured in the
+        CUDA graphs as its all-reduce is."""
+        cuda = x.device.type == "cuda"
+        return "p2p" if cuda == (self.backend == "nccl") else "all_reduce"
+
+    def peer(self, rank: int) -> int:
+        """The global rank of `rank` of this group (what send/recv take)."""
+        return rank if self.group is None else dist.get_global_rank(
+            self.group, rank)
+
+    def exchange(self, down: torch.Tensor, up: torch.Tensor):
+        """`down` to the rank below, `up` to the rank above, as one batch
+        of send/recv (differentiable in forward mode); returns (the rank
+        below's `up`, the rank above's `down`). A side without a
+        neighbour is not written. Every rank passes the same shapes."""
+        self.calls["p2p"] += 1
+        return _NeighbourExchange.apply(down, up, self)
+
     def dot(self, dot: Callable) -> Callable:
         """The global inner product of row-distributed vectors: the local
         `dot` plus one SUM all-reduce."""
@@ -139,10 +226,13 @@ def make_device_mesh(n_devices: Optional[int] = None, device=None,
                      group=None) -> RankGroup:
     """The `RankGroup` of the initialized default process group (or
     `group`). `n_devices`, when given, must equal its world size. `device`
-    defaults to the CUDA card of this rank's local index under NCCL, the
-    first card under gloo (ranks share it), and must be named "cpu" for a
-    run on the CPU. Raises, saying how to launch, when torch.distributed
-    is not initialized."""
+    defaults to the CUDA card of this rank's local index (`LOCAL_RANK`,
+    else the rank) under NCCL, the first card under gloo (ranks share
+    it), and must be named "cpu" for a run on the CPU; a bare "cuda" is
+    given the same index. The rank's card is made the current device, so
+    that the kernels, which launch on the current device, run on it.
+    Raises, saying how to launch, when torch.distributed is not
+    initialized."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             f"n_devices={n_devices} needs an initialized process group: "
@@ -153,11 +243,16 @@ def make_device_mesh(n_devices: Optional[int] = None, device=None,
         raise ValueError(
             f"n_devices={n_devices}, but the process group has {world} ranks")
     backend = str(dist.get_backend(group))
-    if device is None:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        device = resolve_device(f"cuda:{local}" if backend == "nccl" else None)
-    return RankGroup(group=group, rank=rank, world=world,
-                     device=torch.device(device), backend=backend)
+    if device is None and not torch.cuda.is_available():
+        resolve_device(None)  # raises, saying to pass device="cpu"
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            dev = torch.device("cuda", local if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    return RankGroup(group=group, rank=rank, world=world, device=dev,
+                     backend=backend)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,20 +351,18 @@ def _worker(rank, world, backend, init_method, device, fn, args, queue,
             timeout_s, threads):
     if threads:
         torch.set_num_threads(threads)
+    os.environ["LOCAL_RANK"] = str(rank)  # one host: rank r's card is cuda:r
     try:
         dist.init_process_group(
             backend, init_method=init_method, world_size=world, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", rank if backend == "nccl" else 0)
-            torch.cuda.set_device(dev)
-        mesh = make_device_mesh(world, device=dev)
+        mesh = make_device_mesh(world, device=device)
         queue.put((rank, True, fn(mesh, *args)))
     except BaseException:  # noqa: BLE001 — reported to the parent, which raises
         queue.put((rank, False, traceback.format_exc()))
     finally:
         if dist.is_initialized():
+            gc.collect()  # CUDA graphs with captured NCCL work go first
             dist.destroy_process_group()
 
 

@@ -417,10 +417,11 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_chip_smoke_fails_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: chip_smoke.py would run for real")
-    r = _run(["chip_smoke.py"])
-    assert r.returncode != 0
-    assert '"ok": true' not in r.stdout
-    assert "torch.cuda.is_available() is False" in r.stderr
+    for args in ([], ["--cards", "2"]):  # the separate-card run too
+        r = _run(["chip_smoke.py", *args])
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
+        assert "torch.cuda.is_available() is False" in r.stderr
     # alone, without the package beside it, it fails too
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,

@@ -34,6 +34,10 @@ running every case of its world once; the cases are parametrized here.
   Neo-Hookean runs, whose every window rolls back, against the JAX
   package's one-device run (rtol 1e-9 and 1e-6); and the CLI with
   `--devices 2` inside the world against one rank.
+* The halo exchanges on every world (2, 3 and 4 ranks): the send/recv
+  form the lattice partition runs on gloo CPU ranks (`fill`, `extend`
+  with a grid transfer's halos, `interface_sum`) bit for bit the slot
+  all-reduce's, values and forward-mode tangents, in f64 and bf16.
 
 This module imports jax only inside its fixtures: the spawned ranks
 import it by name and must not."""
@@ -48,6 +52,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from dealii_adapter_tpu_torch import cli
 from dealii_adapter_tpu_torch.adapter import Adapter, FakeParticipant
@@ -73,7 +78,14 @@ from dealii_adapter_tpu_torch.parallel import (
     make_sharded_operator,
     spawn,
 )
-from dealii_adapter_tpu_torch.parallel.lattice import SlabLayout, SlabOperator, split_axis
+from dealii_adapter_tpu_torch.parallel import partition
+from dealii_adapter_tpu_torch.parallel.lattice import (
+    SlabLayout,
+    SlabOperator,
+    axis_transfer,
+    split_axis,
+)
+from dealii_adapter_tpu_torch.solvers.multigrid import GeometricMultigrid
 from dealii_adapter_tpu_torch.runner import coupled_run
 
 torch.set_num_threads(1)
@@ -381,10 +393,63 @@ def _linear_host(mesh, lam_max, steps=2, kw=LIN_IR):
     return out, syncs
 
 
+# the lattice of the exchange cases and its next coarser level (every
+# second node plane along the split axis)
+EXCHANGE_GRID, EXCHANGE_COARSE = (13, 5, 4), (7, 5, 4)
+
+
+def _prolongation_1d(n_coarse):
+    """Linear interpolation from n_coarse nodes to 2 n_coarse - 1."""
+    P = np.zeros((2 * n_coarse - 1, n_coarse))
+    for i in range(n_coarse):
+        P[2 * i, i] = 1.0
+        if i + 1 < n_coarse:
+            P[2 * i + 1, i] = P[2 * i + 1, i + 1] = 0.5
+    return P
+
+
+def _exchange_forms(mesh):
+    """{dtype: whether the send/recv form of each exchange equals the slot
+    all-reduce's bit for bit, values and forward-mode tangents}, and the
+    form the rule picks: `fill` and `interface_sum` on the fine lattice,
+    `extend` with the halos of the restriction into the coarse level and
+    of the prolongation out of it (`axis_transfer`'s)."""
+    fine = SlabLayout(EXCHANGE_GRID, 1, 0, mesh)
+    coarse = GeometricMultigrid._level_layout(fine, EXCHANGE_COARSE, False)
+    P = _prolongation_1d(EXCHANGE_COARSE[0])
+    restrict = axis_transfer(P.T, lambda q: coarse.owned[q], fine)[:3]
+    prolong = axis_transfer(P, lambda q: fine.owned[q], coarse)[:3]
+    rng = np.random.default_rng(10 + mesh.rank)
+
+    def draw(shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape)).to(dtype)
+
+    out = {"form": mesh.exchange_form(torch.zeros(1))}
+    for dtype in (torch.float64, torch.bfloat16):
+        v = draw((fine.n_owned, 3), dtype)
+        y = draw(fine.slab_shape + (3,), dtype)
+        c = draw(coarse.owned_shape + (3,), dtype)
+        tangents = [draw(x.shape, dtype) for x in (v, y, c)]
+        got = {}
+        for form in ("p2p", "all_reduce"):
+            with fwAD.dual_level():
+                vd, yd, cd = (fwAD.make_dual(x, t)
+                              for x, t in zip((v, y, c), tangents))
+                g = vd.reshape(fine.owned_shape + (3,))
+                res = [fine.fill(vd, form), fine.interface_sum(yd, form),
+                       fine.extend(g, *restrict, form),
+                       coarse.extend(cd, *prolong, form)]
+                got[form] = [t for r in res for t in fwAD.unpack_dual(r)[:2]]
+        out[str(dtype)] = all(
+            a is not None and torch.equal(a, b)
+            for a, b in zip(got["p2p"], got["all_reduce"]))
+    return out
+
+
 def _world_cases(mesh, cells, lattice, lam_max, root):
     """Every case of one world on one rank (the spawned function); `root`
     is a directory for the CLI's files."""
-    out = {}
+    out = {"exchange": _exchange_forms(mesh)}
     if cells:
         for case in MATVECS:
             space, E = _matvec_space(case)
@@ -575,6 +640,48 @@ def test_backend_rule_and_launch_hint():
         LinearElastodynamics(AllParameters(**dict(LIN, n_devices=2)), device="cpu")
 
 
+@pytest.mark.parametrize("backend,local,device,expected", [
+    ("nccl", 3, None, 3), ("nccl", 1, "cuda", 1), ("gloo", 2, None, 0)])
+def test_device_mesh_makes_the_rank_card_current(monkeypatch, backend, local,
+                                                 device, expected):
+    """`make_device_mesh` in a (mocked) world of 4: under NCCL the card of
+    the rank's local index, also for a bare "cuda", under gloo the first
+    card (ranks share it), each with its index and made the current
+    device, the one place every launch route goes through."""
+    current = []
+    dist = partition.dist
+    monkeypatch.setattr(dist, "is_available", lambda: True)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.setenv("LOCAL_RANK", str(local))
+    mesh = make_device_mesh(4, device=device)
+    assert mesh.device == torch.device("cuda", expected)
+    assert current == [torch.device("cuda", expected)]
+    assert mesh.backend == backend and mesh.world == 4
+    # a run on the CPU makes no card current
+    current.clear()
+    assert make_device_mesh(4, device="cpu").device == torch.device("cpu")
+    assert current == []
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_p2p_exchanges_equal_the_slot_all_reduce(worlds, world):
+    """On gloo CPU ranks the lattice partition's exchanges go between
+    neighbours (send/recv, the rule's choice for a CPU tensor on gloo);
+    the halo fill, the interface sum and the halo extensions of a grid
+    transfer in both directions equal the slot all-reduce's bit for bit,
+    values and forward-mode tangents, in f64 and bf16, on every rank."""
+    for rank in worlds[world]:
+        ex = rank["exchange"]
+        assert ex["form"] == "p2p"
+        assert ex["torch.float64"] and ex["torch.bfloat16"], ex
+        assert rank["calls"]["p2p"] > 0
+
+
 @pytest.mark.parametrize("n", [2, 3, 8])
 def test_cell_partition_covers_all_cells(n):
     """Every real cell exactly once, in order (tests/test_sharding.py)."""
@@ -657,6 +764,7 @@ def test_lattice_structured_operator_matches_jax(worlds, jax_refs, world):
         np.testing.assert_allclose(rank["structured"], ref, rtol=1e-13,
                                    atol=1e-13 * np.abs(ref).max())
         assert rank["calls"]["halo"] > 0 and rank["calls"]["interface_sum"] > 0
+        assert rank["exchange"]["form"] == "p2p"  # what the steps ran
 
 
 @pytest.mark.parametrize("world,name", [(w, n) for w, names in LATTICE_STEPS.items()
