@@ -6,8 +6,10 @@ multi-rank paths on 2 and up to 4 cards where the machine has them.
 
 `--cards N` runs the device, build and kernels phases, the one-card
 references of the separate-card phases (main, stencil3d, coupled3d,
-f64mg, cli and shard3d_nccl1) and the separate-card phases (17) at worlds
-2 and N; it fails where fewer than N cards are visible. Without it every
+f64mg, cli and shard3d_nccl1), cli_ranks and dryrun (the two shared-card
+phases that would pick NCCL on several cards were they not pinned to gloo
+and card 0) and the separate-card phases (17) at worlds 2 and N; it fails
+where fewer than N cards are visible. Without it every
 phase runs, the separate-card phases at worlds 2 and min(4, cards) where
 2 or more cards are visible; on one card they print a line saying so and
 do not run.
@@ -322,7 +324,12 @@ script exits non-zero without printing a result):
      `SHARD_CG_SLACK`, ||u||^2 after every step within `SHARD_RTOL`; the
      per-card step time (median of the timed steps, each rank) beside
      main3d's from this run, read-backs and collectives a step, peak
-     memory per card; then the same world with `cg_loop="host"` (path
+     memory per card; then the same steps with the halo exchanges as the
+     slot all-reduce (path `shard3d_cards <w> all_reduce`,
+     `RankGroup.slot_exchange`): the same rules, NewtonInfo equal to the
+     p2p run's and ||u||^2 within `LOOPS_RTOL` (bitwise logged), its
+     per-card step time beside p2p's; then the same world with
+     `cg_loop="host"` (path
      `shard3d_cards <w> host`, `CARD_HOST_STEPS`): NewtonInfo equal to
      the graphs run's and ||u||^2 within `LOOPS_RTOL` (bitwise logged);
    - exchange_cards — on shard3d_cards' model, one halo fill and one
@@ -618,6 +625,7 @@ for _path in ("f64mg_shard", "f64mg_nccl1"):
 # leaves out the kernels of its shared-card counterpart
 for _w in (2, 3, 4):
     for _path, _twin in ((f"shard3d_cards {_w}", "shard3d"),
+                         (f"shard3d_cards {_w} all_reduce", "shard3d"),
                          (f"shard3d_cards {_w} host", "shard3d"),
                          (f"f64mg_cards {_w}", "f64mg_shard"),
                          (f"shard_cells_cards {_w}", "shard_cells"),
@@ -3528,6 +3536,7 @@ def phase_shard3d_nccl1(main, f64_ref):
     init = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl1_"), "init")
     dist.init_process_group("nccl", init_method="file://" + init,
                             world_size=1, rank=0)
+    mesh = None
     try:
         mesh = make_device_mesh(1, device=dev)
         t0 = time.perf_counter()
@@ -3571,7 +3580,10 @@ def phase_shard3d_nccl1(main, f64_ref):
         f64 = f64mg_nccl1(mesh, f64_ref)
         log(f"f64mg_nccl1: took {time.perf_counter() - t0:.1f} s")
     finally:
-        dist.destroy_process_group()
+        if mesh is not None:
+            mesh.close()  # resets the graphs that captured NCCL work first
+        else:
+            dist.destroy_process_group()
     return launches, ref, coupled, f64
 
 
@@ -3879,14 +3891,25 @@ def exchange_records(model):
     lat = model._lat
     mesh, dev = lat.mesh, model.device
     g = torch.Generator(device=dev).manual_seed(23 + mesh.rank)
+
+    def in_form(form, fn):
+        mesh.slot_exchange = form == "all_reduce"
+        try:
+            require(mesh.exchange_form(v) == form, f"exchange_cards: {form}")
+            return fn()
+        finally:
+            mesh.slot_exchange = False
+
     rows = []
     for level, lay in (("fine", lat), ("FEM-SEM", model._precond.levels[1].layout)):
         v = torch.randn((lay.n_owned, 3), generator=g, device=dev)
         y = torch.randn(lay.slab_shape + (3,), generator=g, device=dev)
         plane = math.prod(n for a, n in enumerate(lay.grid_shape)
                           if a != lay.axis) * 3 * 4
-        for op, call in (("fill", lambda f: lay.fill(v, f)),
-                         ("interface_sum", lambda f: lay.interface_sum(y, f))):
+        for op, call in (
+                ("fill", lambda f: in_form(f, lambda: lay.fill(v))),
+                ("interface_sum",
+                 lambda f: in_form(f, lambda: lay.interface_sum(y)))):
             eager = {f: call(f) for f in EXCHANGE_FORMS}
             row = dict(level=level, op=op, lattice=list(lay.grid_shape),
                        p=lay.p, plane_bytes=plane,
@@ -3912,12 +3935,24 @@ def exchange_records(model):
     return rows
 
 
+def _shard3d_slots_rank(mesh, *args):
+    """`_shard3d_rank` with the halo exchanges as the slot all-reduce
+    where the rule would send between neighbours (`slot_exchange`): the
+    end-to-end side of exchange_cards' comparison."""
+    mesh.slot_exchange = True
+    try:
+        return _shard3d_rank(mesh, *args)
+    finally:
+        mesh.slot_exchange = False
+
+
 def _cards_rank(mesh, lam_max, coupled_lam_max, f64_steps):
     """One rank of a separate-card world (a spawned process, its own card,
     NCCL): shard3d_cards (the CUDA graphs, then exchange_cards on its
-    model), its host-loop twin, f64mg_cards, shard_cells_cards and
-    coupled_cards, in this order on every rank; returns each one's
-    results with its seconds."""
+    model), its twin with the exchanges as the slot all-reduce, its
+    host-loop twin, f64mg_cards, shard_cells_cards and coupled_cards, in
+    this order on every rank; returns each one's results with its
+    seconds."""
     import gc
 
     import torch
@@ -3926,6 +3961,8 @@ def _cards_rank(mesh, lam_max, coupled_lam_max, f64_steps):
     for name, fn, args in (
             ("shard3d_cards", _shard3d_rank,
              (mesh, lam_max, CARD_STEPS, None, "graphs", exchange_records)),
+            ("shard3d_cards all_reduce", _shard3d_slots_rank,
+             (mesh, lam_max, CARD_STEPS, None, "graphs", None, False)),
             ("shard3d_cards host", _shard3d_rank,
              (mesh, lam_max, CARD_HOST_STEPS, None, "host", None, False)),
             ("f64mg_cards", _f64mg_shard_rank, (mesh, f64_steps, None, "graphs")),
@@ -3983,23 +4020,40 @@ def phase_cards(world, parallel, cells_ref, f64_ref, records):
     require(all(x["cg_loop"] == "graphs" and not x["eager"] for x in sh)
             and all(x["cg_loop"] == "host" and x["eager"] for x in host),
             f"cards {world}: the CUDA graphs and the host loop as named")
+    slots = [r["shard3d_cards all_reduce"] for r in out]
     tag = f"shard3d_cards {world}"
     by_path[tag] = check_shard3d(tag, tag, sh, parallel, records, note)
+    by_path[f"{tag} all_reduce"] = check_shard3d(
+        f"{tag} all_reduce", f"{tag} all_reduce", slots, parallel, records,
+        note + ", the exchanges as the slot all-reduce")
     by_path[f"{tag} host"] = check_shard3d(f"{tag} host", f"{tag} host",
                                            host, parallel, records, note)
-    for g, h in zip(sh, host):
-        n = len(h["checksums"])
-        rels = [abs(a - b) / b for a, b in zip(h["checksums"], g["checksums"])]
-        bitwise = h["infos"] == g["infos"][:n] and h["checksums"] == g["checksums"][:n]
-        log(f"{tag} rank {g['rank']}: host loop against the CUDA graphs over "
-            f"{n} steps: NewtonInfo equal {h['infos'] == g['infos'][:n]}, "
-            f"checksums {h['checksums']} against {g['checksums'][:n]}: rel. "
-            f"differences {[f'{x:.3e}' for x in rels]} (limit {LOOPS_RTOL}); "
-            f"bitwise {bitwise}")
-        require(h["infos"] == g["infos"][:n] and max(rels) <= LOOPS_RTOL,
-                f"{tag} rank {g['rank']}: the host loop's NewtonInfo and "
-                "checksums against the CUDA graphs'")
+    require(all(sum(c["p2p"] for c in x["calls"]) > 0 for x in sh)
+            and all(sum(c["p2p"] for c in x["calls"]) == 0 for x in slots),
+            f"{tag}: the exchanges between neighbours, its all_reduce twin's "
+            "as the slot all-reduce")
+    for twin, runs in (("host loop", host), ("slot all-reduce", slots)):
+        for g, h in zip(sh, runs):
+            n = len(h["checksums"])
+            rels = [abs(a - b) / b
+                    for a, b in zip(h["checksums"], g["checksums"])]
+            bitwise = (h["infos"] == g["infos"][:n]
+                       and h["checksums"] == g["checksums"][:n])
+            log(f"{tag} rank {g['rank']}: the {twin} against the CUDA graphs "
+                f"over {n} steps: NewtonInfo equal "
+                f"{h['infos'] == g['infos'][:n]}, checksums {h['checksums']} "
+                f"against {g['checksums'][:n]}: rel. differences "
+                f"{[f'{x:.3e}' for x in rels]} (limit {LOOPS_RTOL}); "
+                f"bitwise {bitwise}")
+            require(h["infos"] == g["infos"][:n] and max(rels) <= LOOPS_RTOL,
+                    f"{tag} rank {g['rank']}: the {twin}'s NewtonInfo and "
+                    "checksums against the CUDA graphs'")
     med = [statistics.median(x["times"][1:]) for x in sh]
+    med_slots = [statistics.median(x["times"][1:]) for x in slots]
+    log(f"{tag}: per-card step time by exchange form, median of "
+        f"{CARD_STEPS - 1} timed steps after 1 warmup, by rank: p2p {med} s, "
+        f"slot all-reduce {med_slots} s (run after p2p on the same cards); "
+        f"slowest rank all-reduce / p2p {max(med_slots) / max(med):.4f}")
     main_med = statistics.median(parallel["times"])
     log(f"{tag}: per-card step time, median of {CARD_STEPS - 1} timed steps "
         f"after 1 warmup, by rank {med} s; main3d on one card in this run "
@@ -4109,7 +4163,10 @@ def main():
     by_path["cli"], cli_u2 = timed("cli", phase_cli)
     if full:
         by_path["cli_nl"] = timed("cli_nl", phase_cli_nl)
-        by_path["cli_ranks"] = timed("cli_ranks", phase_cli_ranks, cli_u2)
+    # cli_ranks and dryrun pick their backend from the visible cards were
+    # they not pinned to gloo and card 0: --cards runs them too
+    by_path["cli_ranks"] = timed("cli_ranks", phase_cli_ranks, cli_u2)
+    if full:
         by_path["golden_nl"] = timed("golden_nl", phase_golden_nl)
         by_path["gather3d"] = timed("gather3d", phase_gather3d, parallel)
         by_path["shard3d"] = timed("shard3d", phase_shard3d, parallel, records)
@@ -4121,7 +4178,8 @@ def main():
                                        cells_ref)
         by_path["f64mg_shard"] = timed("f64mg_shard", phase_f64mg_shard,
                                        f64_ref, records)
-        by_path["dryrun"] = timed("dryrun", phase_dryrun)
+    by_path["dryrun"] = timed("dryrun", phase_dryrun)
+    if full:
         by_path["coupled_shard"] = timed("coupled_shard", phase_coupled_shard,
                                          parallel)
     if not worlds:

@@ -312,17 +312,7 @@ def main(argv=None) -> int:
     if lead:
         timer.print_summary()
     if made_group:
-        import gc
-
-        import torch.distributed as dist
-
-        # the model's CUDA graphs hold NCCL work captured on the group's
-        # communicators, and destroying the group waits for them: drop the
-        # model and every closure over it first (on 2 and 4 H100s the
-        # destroy otherwise never returned)
-        del model, adapter, final, output_cb, run
-        gc.collect()
-        dist.destroy_process_group()
+        mesh.close()  # resets the graphs holding captured NCCL work first
     return 0
 
 

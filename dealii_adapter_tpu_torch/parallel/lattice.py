@@ -33,7 +33,7 @@ the same exchange as a SUM all-reduce of a buffer with one slot per rank
 (the planes each rank contributes, in the directions some rank needs):
 each slot holds one nonzero term, so both forms give the same bits, but
 the buffer grows with the world size. `RankGroup.exchange_form` picks
-the form; `form=` names one (the chip script's side-by-side timing).
+the form, the one selector.
 bf16 partial sums come out of the kernels in f32 (their bf16-in/f32-out
 mode), travel and are added in f32 and are rounded once.
 A world of one exchanges nothing: its slab is the lattice, and every
@@ -131,14 +131,13 @@ class SlabLayout:
     # -- the exchanges ----------------------------------------------------
 
     def extend(self, g: torch.Tensor, k_lo: int, k_hi: int,
-               K: Tuple[int, int], form: Optional[str] = None) -> torch.Tensor:
+               K: Tuple[int, int]) -> torch.Tensor:
         """The owned grid `g` (owned_shape + (dim,)) extended by `k_lo`
         planes of the rank below and `k_hi` of the rank above: every rank
         sends its last `K[0]` owned planes up and its first `K[1]` down
         (`K`, the same on every rank, at least each rank's k_lo and k_hi;
         a direction no rank needs is not sent), between neighbours or
-        through one all-reduce (`form`, by default
-        `RankGroup.exchange_form`'s)."""
+        through one all-reduce (`RankGroup.exchange_form`)."""
         n_last, n_first = K
         if self.world == 1 or n_last + n_first == 0:
             return g
@@ -147,7 +146,7 @@ class SlabLayout:
         last = g.narrow(ax, own - n_last, n_last).movedim(ax, 0)
         first = g.narrow(ax, 0, n_first).movedim(ax, 0)
         self.mesh.calls["halo"] += 1
-        if (form or self.mesh.exchange_form(g)) == "p2p":
+        if self.mesh.exchange_form(g) == "p2p":
             below, above = self.mesh.exchange(first, last)
         else:
             mine = torch.cat([last, first])
@@ -164,21 +163,20 @@ class SlabLayout:
             parts.append(above[:k_hi].movedim(0, ax))
         return torch.cat(parts, dim=ax) if len(parts) > 1 else g
 
-    def fill(self, v: torch.Tensor, form: Optional[str] = None) -> torch.Tensor:
+    def fill(self, v: torch.Tensor) -> torch.Tensor:
         """This rank's slab grid (slab_shape + (dim,)) of a distributed
         vector: the owned planes and the first plane of the rank above
         (only first planes are sent)."""
         dim = v.shape[-1]
         g = v.reshape(self.owned_shape + (dim,))
-        return self.extend(g, 0, 1 if self.top else 0, (0, 1), form)
+        return self.extend(g, 0, 1 if self.top else 0, (0, 1))
 
-    def interface_sum(self, y: torch.Tensor,
-                      form: Optional[str] = None) -> torch.Tensor:
+    def interface_sum(self, y: torch.Tensor) -> torch.Tensor:
         """The owned rows (n_owned, dim) of an operator output computed on
         this rank's slab (slab_shape + (dim,)): the slab's top plane, a
         partial sum, is added into the rank above's first plane (sent
-        between neighbours or through one all-reduce, `form` as in
-        `extend`). Partial sums are added in f32 or wider."""
+        between neighbours or through one all-reduce, as in `extend`).
+        Partial sums are added in f32 or wider."""
         dim = y.shape[-1]
         if self.world == 1:
             return y.reshape(-1, dim)
@@ -191,7 +189,7 @@ class SlabLayout:
         top = y.narrow(ax, self.slab_planes - 1 if self.top else 0, 1)
         top = top.movedim(ax, 0).to(wide)
         self.mesh.calls["interface_sum"] += 1
-        if (form or self.mesh.exchange_form(y)) == "p2p":
+        if self.mesh.exchange_form(y) == "p2p":
             below, _ = self.mesh.exchange(top[:0], top)
         else:  # the last rank's slot: 0 * a plane of y (a tangent, no value)
             top = top * (1.0 if self.top else 0.0)

@@ -21,27 +21,33 @@ inserts for the JAX package's `P(axis, None)` sharding, wherever the
 backend can send the tensor; one rule picks the form
 (`RankGroup.exchange_form`).
 
+A CUDA graph that captured NCCL work holds the group's communicators, and
+destroying the group waits for it. `RankGroup.close` is the one way a run
+ends its group: it resets the graphs that captured the group's
+collectives, then destroys the group (`spawn`'s ranks and the CLI call
+it; a `torchrun` script calls it last).
+
 `CellPartition` is a copy of the JAX package's (numpy only): contiguous
 lexicographic cell blocks, one per rank, with windowed transpose-gather
 plans.
 
 Launch a multi-rank run with `torchrun --nproc-per-node N script.py` (the
 script calls `torch.distributed.init_process_group`, then builds its model
-with `device_mesh=make_device_mesh()`), or with `spawn(fn, N, device)`,
-which starts N processes, initializes the group and collects what `fn`
-returns.
+with `device_mesh=make_device_mesh()` and ends with that group's `close()`),
+or with `spawn(fn, N, device)`, which starts N processes, initializes the
+group, collects what `fn` returns and closes the group.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-import gc
 import math
 import os
 import tempfile
 import time
 import traceback
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -50,6 +56,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..fem.dofspace import build_transpose_gather_plan
+from ..solvers.graphs import capturing
 
 LAUNCH_HINT = (
     "launch one process per rank and initialize torch.distributed first: "
@@ -159,7 +166,11 @@ class RankGroup:
     its collectives (`calls`: all-reduces of every kind, and among them the
     lattice partition's halo fills and interface sums) as Python calls;
     under a CUDA-graph replay nothing is counted; `exchange` counts as
-    `p2p` when it sends between neighbours."""
+    `p2p` when it sends between neighbours. `slot_exchange` set runs the
+    halo exchanges as the slot all-reduce where the rule would send
+    between neighbours (the same bits: the chip script's and the tests'
+    side-by-side runs of both forms). Keeps the CUDA graphs that captured
+    its collectives, for `close`."""
 
     group: Optional[object]
     rank: int
@@ -169,6 +180,16 @@ class RankGroup:
     calls: dict = dataclasses.field(
         default_factory=lambda: {"all_reduce": 0, "p2p": 0, "halo": 0,
                                  "interface_sum": 0})
+    slot_exchange: bool = False
+    _graphs: weakref.WeakSet = dataclasses.field(
+        default_factory=weakref.WeakSet, init=False, repr=False,
+        compare=False)
+
+    def _note_capture(self) -> None:
+        """Keep the CUDA graph being captured, if any, for `close`."""
+        graph = capturing()
+        if graph is not None:
+            self._graphs.add(graph)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """SUM (differentiable, forward and backward), MIN or MAX of `x`
@@ -176,6 +197,7 @@ class RankGroup:
         no bf16 reduction) and rounded back: exact for MIN, MAX and a SUM
         with one nonzero term."""
         self.calls["all_reduce"] += 1
+        self._note_capture()
         dt = x.dtype
         y = x.float() if dt == torch.bfloat16 else x
         if op == "sum":
@@ -191,13 +213,13 @@ class RankGroup:
     def exchange_form(self, x: torch.Tensor) -> str:
         """How the lattice partition's halo exchanges move `x`: "p2p",
         send/recv between neighbours, where the backend can send it (NCCL
-        a CUDA tensor, gloo a CPU tensor), else "all_reduce", a SUM
-        all-reduce of one slot a rank (gloo ranks sharing a card: gloo's
-        send/recv takes CPU tensors only). Both give the same bits: a
-        slot holds one nonzero term. NCCL's send/recv is captured in the
-        CUDA graphs as its all-reduce is."""
-        cuda = x.device.type == "cuda"
-        return "p2p" if cuda == (self.backend == "nccl") else "all_reduce"
+        a CUDA tensor, gloo a CPU tensor) and `slot_exchange` is not set,
+        else "all_reduce", a SUM all-reduce of one slot a rank (gloo ranks
+        sharing a card: gloo's send/recv takes CPU tensors only). Both
+        give the same bits: a slot holds one nonzero term. NCCL's
+        send/recv is captured in the CUDA graphs as its all-reduce is."""
+        sends = (x.device.type == "cuda") == (self.backend == "nccl")
+        return "p2p" if sends and not self.slot_exchange else "all_reduce"
 
     def peer(self, rank: int) -> int:
         """The global rank of `rank` of this group (what send/recv take)."""
@@ -210,6 +232,7 @@ class RankGroup:
         below's `up`, the rank above's `down`). A side without a
         neighbour is not written. Every rank passes the same shapes."""
         self.calls["p2p"] += 1
+        self._note_capture()
         return _NeighbourExchange.apply(down, up, self)
 
     def dot(self, dot: Callable) -> Callable:
@@ -220,6 +243,18 @@ class RankGroup:
             return self.all_reduce(dot(a, b))
 
         return gdot
+
+    def close(self) -> None:
+        """End the run's group: reset every CUDA graph that captured one of
+        its collectives (through `solvers.graphs.capture`), then destroy
+        the process group. A graph holding captured NCCL work keeps the
+        communicators, and the destroy waits for it (on 2 and 4 H100s it
+        never returned while a model's graphs lived), so no caller has to
+        drop its models first. Those graphs cannot be replayed after."""
+        for graph in list(self._graphs):
+            graph.reset()
+        self._graphs.clear()
+        dist.destroy_process_group(self.group)
 
 
 def make_device_mesh(n_devices: Optional[int] = None, device=None,
@@ -352,6 +387,7 @@ def _worker(rank, world, backend, init_method, device, fn, args, queue,
     if threads:
         torch.set_num_threads(threads)
     os.environ["LOCAL_RANK"] = str(rank)  # one host: rank r's card is cuda:r
+    mesh = None
     try:
         dist.init_process_group(
             backend, init_method=init_method, world_size=world, rank=rank,
@@ -361,8 +397,9 @@ def _worker(rank, world, backend, init_method, device, fn, args, queue,
     except BaseException:  # noqa: BLE001 — reported to the parent, which raises
         queue.put((rank, False, traceback.format_exc()))
     finally:
-        if dist.is_initialized():
-            gc.collect()  # CUDA graphs with captured NCCL work go first
+        if mesh is not None:
+            mesh.close()
+        elif dist.is_initialized():
             dist.destroy_process_group()
 
 

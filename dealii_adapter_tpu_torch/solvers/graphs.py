@@ -35,6 +35,16 @@ from typing import Callable, Hashable
 import torch
 
 
+_CAPTURING = []  # the graph `capture` records into, while it does
+
+
+def capturing():
+    """The CUDA graph `capture` is recording into, or None: a
+    `parallel.RankGroup` registers it when one of its collectives is
+    captured, and resets it in `RankGroup.close`."""
+    return _CAPTURING[-1] if _CAPTURING else None
+
+
 @contextlib.contextmanager
 def capture(graph, pool=None):
     """`torch.cuda.graph(graph, pool=pool)` with Python's automatic garbage
@@ -43,13 +53,16 @@ def capture(graph, pool=None):
     which CUDA does not permit while a stream captures (seen on the H100
     as `cudaErrorStreamCaptureInvalidated`, in a process that had dropped
     such a model, and gone with the collection off). `torch.cuda.graph`
-    collects once before it starts capturing."""
+    collects once before it starts capturing. Every capture of the
+    package goes through here (`capturing`)."""
     enabled = gc.isenabled()
     gc.disable()
+    _CAPTURING.append(graph)
     try:
         with torch.cuda.graph(graph, pool=pool):
             yield
     finally:
+        _CAPTURING.pop()
         if enabled:
             gc.enable()
 

@@ -39,9 +39,14 @@ def _rel(a, b):
 
 
 def _exchanges(lay, v, y):
-    """The halo fill of `v` and the interface sum of `y` in both forms."""
-    return [lay.fill(v, "p2p"), lay.interface_sum(y, "p2p"),
-            lay.fill(v, "all_reduce"), lay.interface_sum(y, "all_reduce")]
+    """The halo fill of `v` and the interface sum of `y` in the rule's
+    form (p2p on NCCL), then as the slot all-reduce."""
+    out = []
+    for slots in (False, True):
+        lay.mesh.slot_exchange = slots
+        out += [lay.fill(v), lay.interface_sum(y)]
+    lay.mesh.slot_exchange = False
+    return out
 
 
 def _two_card_rank(mesh):

@@ -85,6 +85,7 @@ from dealii_adapter_tpu_torch.parallel.lattice import (
     axis_transfer,
     split_axis,
 )
+from dealii_adapter_tpu_torch.solvers.graphs import capture
 from dealii_adapter_tpu_torch.solvers.multigrid import GeometricMultigrid
 from dealii_adapter_tpu_torch.runner import coupled_run
 
@@ -431,15 +432,18 @@ def _exchange_forms(mesh):
         c = draw(coarse.owned_shape + (3,), dtype)
         tangents = [draw(x.shape, dtype) for x in (v, y, c)]
         got = {}
-        for form in ("p2p", "all_reduce"):
+        for slots in (False, True):  # the rule's form, then the slots
+            mesh.slot_exchange = slots
+            form = mesh.exchange_form(v)
             with fwAD.dual_level():
                 vd, yd, cd = (fwAD.make_dual(x, t)
                               for x, t in zip((v, y, c), tangents))
                 g = vd.reshape(fine.owned_shape + (3,))
-                res = [fine.fill(vd, form), fine.interface_sum(yd, form),
-                       fine.extend(g, *restrict, form),
-                       coarse.extend(cd, *prolong, form)]
+                res = [fine.fill(vd), fine.interface_sum(yd),
+                       fine.extend(g, *restrict),
+                       coarse.extend(cd, *prolong)]
                 got[form] = [t for r in res for t in fwAD.unpack_dual(r)[:2]]
+        mesh.slot_exchange = False
         out[str(dtype)] = all(
             a is not None and torch.equal(a, b)
             for a, b in zip(got["p2p"], got["all_reduce"]))
@@ -666,6 +670,51 @@ def test_device_mesh_makes_the_rank_card_current(monkeypatch, backend, local,
     current.clear()
     assert make_device_mesh(4, device="cpu").device == torch.device("cpu")
     assert current == []
+
+
+def test_close_resets_the_captured_graphs_then_destroys_the_group(
+        monkeypatch):
+    """`RankGroup.close` resets each CUDA graph that captured one of the
+    group's collectives (an all-reduce or a neighbour exchange), and no
+    graph that captured none or another group's, then destroys the group:
+    a graph holding captured NCCL work keeps the communicators, which the
+    destroy waits for. Mocked: a capture that records nothing, collectives
+    that move nothing."""
+
+    class Graph:
+        def __init__(self):
+            self.resets = 0
+
+        def reset(self):
+            self.resets += 1
+
+    destroyed = []
+    monkeypatch.setattr(partition.dist, "all_reduce", lambda *a, **k: None)
+    monkeypatch.setattr(partition.dist, "destroy_process_group",
+                        destroyed.append)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None: contextlib.nullcontext())
+
+    def group():
+        return partition.RankGroup(group=None, rank=0, world=1,
+                                   device=torch.device("cpu"), backend="gloo")
+
+    mesh, other = group(), group()
+    reduced, exchanged, idle, elsewhere = (Graph() for _ in range(4))
+    x = torch.ones(3)
+    with capture(reduced):
+        mesh.all_reduce(x)
+    with capture(exchanged):
+        mesh.exchange(x[:0], x)
+    with capture(idle):
+        x * 2
+    with capture(elsewhere):
+        other.all_reduce(x)
+    mesh.all_reduce(x, "max")  # not captured: nothing kept
+    mesh.close()
+    assert [g.resets for g in (reduced, exchanged, idle, elsewhere)] == [
+        1, 1, 0, 0]
+    assert destroyed == [None]
 
 
 @pytest.mark.parametrize("world", [2, 3, 4])
